@@ -9,16 +9,24 @@ Phases, each of which raises on failure (exit code not 0, no result line):
 1. device: a CUDA card is required; its name and power limit as
    ``nvidia-smi`` reports them; TF32 off for the parity phases.
 2. build: ``nvcc`` builds every kernel from ``fedtpu_torch/csrc``.
-3. kernels: each kernel against its plain PyTorch version at the compressed
-   smallcnn round's shapes (eight leaves x 64 clients) and at ragged
-   shapes; outputs must be bit-equal. Kernel and plain version are timed
-   with CUDA events, beside the bound that the card's memory rate sets.
-4. reference: a small round (4 clients) on the card against the same round
-   on the CPU, where the wrappers run their plain versions.
+3. kernels: K1 and K2 against their plain PyTorch versions at the
+   per-leaf round's shapes (eight leaves x 64 clients), K1 also at the flat
+   row [64, 545,152], and at ragged shapes; K3 forward and inverse at the
+   rotq row [64, 2^20], MobileNet's [8, 2^22] and small widths around its
+   pass boundary, with -0.0, zeros and large magnitudes. Outputs must be
+   bit-equal, and K3's inverse(forward(y)) within 1e-5 of y. Kernel and
+   plain version are timed with CUDA events, beside the bound that the
+   card's memory rate sets.
+4. reference: small rounds (4 clients) on the card against the same rounds
+   on the CPU, where the wrappers run their plain versions: per leaf for
+   none/topk/int8, flat for topk/int8/rotq/randk with the same injected
+   draws on both sides.
 5. slice: the bench configuration at full width (smallcnn, CIFAR-10 shapes,
    64 clients, batch 128, 6 local steps, iid, presharded, bf16) for 3
-   rounds with ``compression='topk'`` and 3 with ``'int8'``, the launch
-   counts reset just before and read after; then timed rounds.
+   rounds each of per-leaf topk and int8 and flat rotq, topk and int8, the
+   launch counts reset just before and read after, each round's launches
+   checked per codec, round 1's codec re-applied with the plain kernels;
+   then timed rounds of every codec and layout, and the flat pack's cost.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
@@ -27,8 +35,10 @@ kernels' numbers and the card's name and power limit come just before it.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -40,13 +50,14 @@ import torch
 
 from fedtpu_torch import DataConfig, FedConfig, Federation, RoundConfig, models
 from fedtpu_torch.data import datasets
-from fedtpu_torch.ops import compression, kernels
+from fedtpu_torch.ops import compression, flat, kernels
 
 NUM_CLIENTS = 64
 BATCH = 128
 STEPS = 391 // NUM_CLIENTS  # the reference's local-epoch share at 64 clients
 CHECK_ROUNDS = 3
 TIMED_ROUNDS = 5
+TIMING_REPEATS = 3
 TOPK_FRACTION = 0.01
 
 # Published peaks (NVIDIA data sheets, dense, full power): HBM bytes/s and
@@ -73,7 +84,18 @@ KERNEL_INFO = {
         source="fedtpu_torch/csrc/quantdequant_int8.cu",
         bytes_per_elem=8, bytes_per_row=4, ops_per_elem=5,
     ),
+    "hadamard_rotate": dict(
+        replaces="fedtpu/ops/pallas_kernels.py:179",
+        tpu_function="hadamard_rotate",
+        source="fedtpu_torch/csrc/hadamard_rotate.cu",
+    ),
 }
+
+# K3's shapes: the rotq round's row first (the main path: timed), then
+# MobileNet's 2^22 row and widths on and around the kernel's 4096-column
+# chunk and 2^13-element second-pass tile.
+HADAMARD_SHAPES = [(64, 2**20), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13), (64, 2**14)]
+FLAT_P = 545_152  # smallcnn's lane-padded flat row
 
 
 def log(msg: str) -> None:
@@ -185,19 +207,30 @@ def _time_ms(fn, runs=21, calls=10) -> float:
     return statistics.median(a.elapsed_time(b) / calls for a, b in pairs)
 
 
-def kernel_phase(peaks):
+def _bound(bytes_moved, ops, peaks):
+    """(bound in ms, what bounds it): the larger of bytes over the memory
+    rate and f32 operations over the f32 rate."""
     bw, f32_peak = peaks
+    by_bytes, by_ops = bytes_moved / bw * 1e3, ops / f32_peak * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def kernel_phase(peaks):
+    """K1 and K2 at the per-leaf round's shapes (timed, summed over one
+    round's eight leaves) and ragged ones; K1 also at the flat row."""
     dev = torch.device("cuda")
     leaves = smallcnn_leaf_sizes()
     ragged = [(1, 1), (1, 700), (3, 257), (2, 1), (64, 1000), (5, 65537)]
     rng = np.random.default_rng(0)
     results = {}
-    for name, (wrapper, plain) in kernels.KERNELS.items():
+    for name in ("threshold_feedback", "quantdequant_int8"):
+        wrapper, plain = kernels.KERNELS[name]
         info = KERNEL_INFO[name]
         max_err = 0.0
         ms = plain_ms = bytes_moved = ops = 0.0
         per_leaf = {}
-        shapes = [(NUM_CLIENTS, c) for c in leaves.values()] + ragged
+        flat = [(NUM_CLIENTS, FLAT_P)] if name == "threshold_feedback" else []
+        shapes = [(NUM_CLIENTS, c) for c in leaves.values()] + flat + ragged
         for i, (rows, cols) in enumerate(shapes):
             x, v = _inputs(name, rng, rows, cols, dev)
             got = _as_tuple(wrapper(x, v))
@@ -207,16 +240,23 @@ def kernel_phase(peaks):
                 max_err = max(max_err, float((g - w).abs().max()))
                 if not _bits_equal(g, w):
                     raise RuntimeError(f"kernels: {name} differs from its plain version at {rows}x{cols}")
-            if i < len(leaves):  # the main path's shapes: time and bound
-                k = _time_ms(lambda: wrapper(x, v))
-                p = _time_ms(lambda: plain(x, v))
+            if i > len(leaves) + len(flat) - 1:
+                continue
+            k = _time_ms(lambda: wrapper(x, v))
+            p = _time_ms(lambda: plain(x, v))
+            b = rows * cols * info["bytes_per_elem"] + rows * info["bytes_per_row"]
+            o = rows * cols * info["ops_per_elem"]
+            if i < len(leaves):  # the per-leaf round: summed over its leaves
                 ms += k
                 plain_ms += p
-                bytes_moved += rows * cols * info["bytes_per_elem"] + rows * info["bytes_per_row"]
-                ops += rows * cols * info["ops_per_elem"]
+                bytes_moved += b
+                ops += o
                 per_leaf[f"{rows}x{cols}"] = {"ms": k, "plain_ms": p}
-        bound_bytes_ms = bytes_moved / bw * 1e3
-        bound_ops_ms = ops / f32_peak * 1e3
+            else:  # the flat round's single launch
+                flat_bound, _ = _bound(b, o, peaks)
+                flat_row = {"flat_shape": [rows, cols], "flat_ms": k, "flat_plain_ms": p,
+                            "flat_bound_ms": flat_bound, "flat_bytes": b}
+        bound_ms, bound_by = _bound(bytes_moved, ops, peaks)
         results[name] = {
             "name": name,
             "route": "cuda",
@@ -228,64 +268,194 @@ def kernel_phase(peaks):
             "ms": ms,
             "kernel_ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "bytes": bytes_moved,
             "library_ms": None,  # no single PyTorch call computes this function
+            "per": f"one per-leaf round (eight launches, {NUM_CLIENTS} clients)",
         }
+        if flat:
+            results[name].update(flat_row)
         log(
             f"kernels: {name} bit-equal at {len(shapes)} shapes; one round's 8 leaves: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {results[name]['bound_ms']:.4f} ms "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bytes_moved / 1e6:.1f} MB) | per leaf {json.dumps(per_leaf)}"
+            + (f" | flat row: {json.dumps(flat_row)}" if flat else "")
         )
     return results
+
+
+def _hadamard_inputs(rng, rows, h, dev):
+    """Normal rows with a -0.0, zeros and large magnitudes mixed in (the
+    sums then round at many places), and +-1 signs."""
+    y = rng.standard_normal((rows, h), dtype=np.float32)
+    y[0, 0] = -0.0
+    y[0, 1 : 1 + h // 8] = 0.0
+    y[-1, :: max(h // 16, 1)] = np.float32(1e30)
+    signs = (rng.integers(0, 2, size=h) * 2 - 1).astype(np.float32)
+    return torch.from_numpy(y).to(dev), torch.from_numpy(signs).to(dev)
+
+
+def hadamard_phase(peaks):
+    """K3 forward and inverse bit-equal to the plain version at every
+    shape; inverse(forward(y)) within 1e-5 of y (fedtpu's gate) on normal
+    rows; timed at the rotq row, where a round launches it twice."""
+    dev = torch.device("cuda")
+    wrapper, plain = kernels.KERNELS["hadamard_rotate"]
+    rng = np.random.default_rng(3)
+    max_err = 0.0
+    timed = {}
+    for i, (rows, h) in enumerate(HADAMARD_SHAPES):
+        y, signs = _hadamard_inputs(rng, rows, h, dev)
+        for inverse in (False, True):
+            got = wrapper(y, signs, inverse=inverse)
+            want = plain(y, signs, inverse)
+            torch.cuda.synchronize()
+            max_err = max(max_err, float((got - want).abs().max()))
+            if not _bits_equal(got, want):
+                raise RuntimeError(
+                    f"kernels: hadamard_rotate (inverse={inverse}) differs from its "
+                    f"plain version at {rows}x{h}"
+                )
+            if i == 0:
+                timed[inverse] = (
+                    _time_ms(lambda: wrapper(y, signs, inverse=inverse)),
+                    _time_ms(lambda: plain(y, signs, inverse)),
+                )
+        normal = torch.from_numpy(rng.standard_normal((rows, h), dtype=np.float32)).to(dev)
+        back = wrapper(wrapper(normal, signs), signs, inverse=True)
+        err = float((back - normal).abs().max())
+        if not torch.allclose(back, normal, rtol=1e-5, atol=1e-5):
+            raise RuntimeError(f"kernels: hadamard_rotate round trip at {rows}x{h} off by {err}")
+        log(f"kernels: hadamard_rotate {rows}x{h}: forward and inverse bit-equal; round trip max err {err:.3g}")
+    rows, h = HADAMARD_SHAPES[0]
+    # Per call: y read once, signs read once, out written once; log2(h)
+    # add/subtracts and two multiplies (signs, 1/sqrt(h)) per element.
+    call_bytes = 8 * rows * h + 4 * h
+    call_ops = rows * h * (int(math.log2(h)) + 2)
+    call_bound, bound_by = _bound(call_bytes, call_ops, peaks)
+    ms = timed[False][0] + timed[True][0]
+    result = {
+        "name": "hadamard_rotate",
+        "route": "cuda",
+        "source": KERNEL_INFO["hadamard_rotate"]["source"],
+        "replaces": KERNEL_INFO["hadamard_rotate"]["replaces"],
+        "tpu_function": "hadamard_rotate",
+        "bitwise_equal": True,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": timed[False][1] + timed[True][1],
+        "bound_ms": 2 * call_bound,
+        "bound_by": bound_by,
+        "bytes": 2 * call_bytes,
+        "library_ms": None,  # no PyTorch call computes an FWHT at these widths
+        "per": f"one rotq round: a forward and an inverse call at [{rows}, {h}]",
+        "forward_ms": timed[False][0],
+        "inverse_ms": timed[True][0],
+        "forward_plain_ms": timed[False][1],
+        "inverse_plain_ms": timed[True][1],
+        "call_bound_ms": call_bound,
+    }
+    log(
+        f"kernels: hadamard_rotate at {rows}x{h}: forward {timed[False][0]:.4f} ms "
+        f"(plain {timed[False][1]:.4f}), inverse {timed[True][0]:.4f} ms "
+        f"(plain {timed[True][1]:.4f}); bound per call {call_bound:.4f} ms "
+        f"({call_bytes / 1e6:.1f} MB, {bound_by})"
+    )
+    return result
 
 
 # ---------------------------------------------------------- 4. reference
 
 
-def _small_cfg(compression_name):
+def _small_cfg(compression_name, layout="per_leaf"):
     # No augmentation: the two devices would draw different crops.
     return RoundConfig(
         model="smallcnn",
         data=DataConfig(dataset="cifar10", batch_size=8, partition="iid", augment=False),
-        fed=FedConfig(num_clients=4, compression=compression_name),
+        fed=FedConfig(num_clients=4, compression=compression_name, delta_layout=layout),
         steps_per_round=2,
     )
 
 
+def _injected(codec: compression.Compressor, draws) -> compression.Compressor:
+    """``codec`` fed, each round, the draws ``draws(round_idx)`` makes on
+    the CPU, moved to the row's device: both devices see the same ones."""
+
+    def apply_flat(y, state, lay, round_idx=0):
+        kw = {k: v.to(y.device) for k, v in draws(round_idx, lay).items()}
+        return codec.apply_flat(y, state, lay, round_idx=round_idx, **kw)
+
+    return codec._replace(apply_flat=apply_flat)
+
+
+def _numpy_draws(codec_name):
+    """Seeded numpy draws per round: rotq's signs and uniforms, randk's
+    coordinates; none for the unseeded codecs."""
+
+    def draws(round_idx, lay):
+        rng = np.random.default_rng(1000 + round_idx)
+        if codec_name == "rotq":
+            signs = (rng.integers(0, 2, size=lay.padded) * 2 - 1).astype(np.float32)
+            unif = rng.random((4, lay.padded), dtype=np.float32)
+            return {"signs": torch.from_numpy(signs), "uniforms": torch.from_numpy(unif)}
+        k = max(1, math.ceil(TOPK_FRACTION * lay.total))
+        return {"indices": torch.from_numpy(rng.choice(lay.total, size=k, replace=False))}
+
+    return draws
+
+
+# (codec, layout, rounds). rotq is held for one round: a last-bit difference
+# of a convolution can move one rotated coordinate across a stochastic-
+# rounding step, which moves every coordinate of that client's row by
+# scale / sqrt(h), and the next round's local training amplifies that.
+REFERENCE_CASES = [
+    ("none", "per_leaf", 2), ("topk", "per_leaf", 2), ("int8", "per_leaf", 2),
+    ("topk", "flat", 2), ("int8", "flat", 2), ("rotq", "flat", 1), ("randk", "flat", 2),
+]
+
+
 def reference_phase():
     """The port on the card against the port on the CPU (plain versions)
-    from the same init and batches: at most 0.1% of coordinates beyond
-    atol=1e-5, rtol=1e-4 after two rounds (a last-bit difference in a
-    delta can cross a top-k threshold or an int8 rounding boundary)."""
+    from the same init and batches, the seeded codecs fed the same draws:
+    at most 0.1% of coordinates beyond atol=1e-5, rtol=1e-4 (a last-bit
+    difference in a delta can cross a top-k threshold or a rounding step)."""
     rng = np.random.default_rng(1)
     images = rng.standard_normal((64, 32, 32, 3), dtype=np.float32)
     labels = rng.integers(0, 10, size=64).astype(np.int32)
-    for comp in ("none", "topk", "int8"):
-        cfg = _small_cfg(comp)
-        cpu = Federation(cfg, seed=0, data=(images, labels), device="cpu")
-        gpu = Federation(cfg, seed=0, data=(images, labels))
+    for comp, layout, rounds in REFERENCE_CASES:
+        cfg = _small_cfg(comp, layout)
+        codec = compression.make_compressor(cfg.fed)
+        if comp in ("rotq", "randk"):
+            codec = _injected(codec, _numpy_draws(comp))
+        cpu = Federation(cfg, seed=0, data=(images, labels), device="cpu", compressor=codec)
+        gpu = Federation(cfg, seed=0, data=(images, labels), compressor=codec)
         gpu.state = gpu.state._replace(params={k: v.cuda() for k, v in cpu.state.params.items()})
-        for r in range(2):
+        for r in range(rounds):
             cpu.step(cpu.device_batch(r, offset=r + 3))
             gpu.step(gpu.device_batch(r, offset=r + 3))
         bad = total = 0
         for k, w in cpu.state.params.items():
             g = gpu.state.params[k].cpu()
             if not torch.isfinite(g).all():
-                raise RuntimeError(f"reference: non-finite {comp} {k}")
+                raise RuntimeError(f"reference: non-finite {layout} {comp} {k}")
             bad += int(((g - w).abs() > 1e-5 + 1e-4 * w.abs()).sum())
             total += w.numel()
         if bad > 0.001 * total:
-            raise RuntimeError(f"reference: {comp}: {bad} of {total} coordinates differ from the CPU")
-        log(f"reference: {comp}: card vs CPU after 2 rounds, {bad} of {total} coordinates beyond tolerance")
+            raise RuntimeError(
+                f"reference: {layout} {comp}: {bad} of {total} coordinates differ from the CPU"
+            )
+        log(
+            f"reference: {layout} {comp}: card vs CPU after {rounds} round(s), "
+            f"{bad} of {total} coordinates beyond tolerance"
+        )
 
 
 # -------------------------------------------------------------- 5. slice
 
 
-def bench_cfg(compression_name: str) -> RoundConfig:
+def bench_cfg(compression_name: str, layout: str = "per_leaf") -> RoundConfig:
     """bench.py's configuration, with the update codec switched on."""
     return RoundConfig(
         model="smallcnn",
@@ -296,11 +466,17 @@ def bench_cfg(compression_name: str) -> RoundConfig:
         ),
         fed=FedConfig(
             num_clients=NUM_CLIENTS, compression=compression_name,
-            topk_fraction=TOPK_FRACTION,
+            topk_fraction=TOPK_FRACTION, delta_layout=layout,
         ),
         steps_per_round=STEPS,
         dtype="bfloat16",
     )
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return {k: v.clone() for k, v in x.items()} if isinstance(x, dict) else x
 
 
 class Recorder:
@@ -315,44 +491,66 @@ class Recorder:
     def apply(self, deltas, state):
         out, new_state = self.codec.apply(deltas, state)
         if self.armed:
-            clone = lambda t: {k: v.clone() for k, v in t.items()}
-            self.seen = (clone(deltas), clone(state), out, new_state)
+            self.seen = ((_clone(deltas), _clone(state)), {}, out, new_state)
+            self.armed = False
+        return out, new_state
+
+    def apply_flat(self, y, state, lay, round_idx=0):
+        out, new_state = self.codec.apply_flat(y, state, lay, round_idx=round_idx)
+        if self.armed:
+            self.seen = ((_clone(y), _clone(state), lay), {"round_idx": round_idx}, out, new_state)
             self.armed = False
         return out, new_state
 
     def compressor(self) -> compression.Compressor:
-        return compression.Compressor(init=self.codec.init, apply=self.apply)
+        flat = self.codec.layout == "flat"
+        return self.codec._replace(
+            apply=self.apply, apply_flat=self.apply_flat if flat else None
+        )
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return list(x.values()) if isinstance(x, dict) else []
 
 
 def _state_tensors(state):
     yield from state.params.values()
     yield from state.opt_state.values()
-    if state.comp_state:
-        yield from state.comp_state.values()
+    yield from _tensors(state.comp_state)
 
 
 def _launch_counts():
     return {name: wrapper.launches for name, (wrapper, _) in kernels.KERNELS.items()}
 
 
+# (codec, layout) -> (kernel launched, launches per round, the same codec
+# on the plain kernels).
 SLICE_CODECS = {
-    "topk": ("threshold_feedback", lambda: compression.make_topk(
+    ("topk", "per_leaf"): ("threshold_feedback", 8, lambda: compression.make_topk(
         TOPK_FRACTION, threshold=kernels.threshold_feedback_plain)),
-    "int8": ("quantdequant_int8", lambda: compression.make_int8(
+    ("int8", "per_leaf"): ("quantdequant_int8", 8, lambda: compression.make_int8(
         quantdequant=kernels.quantdequant_int8_plain)),
+    ("rotq", "flat"): ("hadamard_rotate", 2, lambda: compression.make_rotq(
+        4, rotate=kernels.hadamard_rotate_plain)),
+    ("topk", "flat"): ("threshold_feedback", 1, lambda: compression.make_topk(
+        TOPK_FRACTION, layout="flat", threshold=kernels.threshold_feedback_plain)),
+    ("int8", "flat"): (None, 0, lambda: compression.make_int8(layout="flat")),
 }
 
 
 def slice_phase(data):
-    """The main path: CHECK_ROUNDS rounds per codec through Federation.step.
-    Returns the engines (for timing) and the launch counts of this run."""
-    n_leaves = len(smallcnn_leaf_sizes())
+    """The main path: CHECK_ROUNDS rounds per codec and layout through
+    Federation.step. Returns the engines (for timing) and the launch counts
+    of this run."""
     feds = {}
     kernels.reset_launch_counts()
-    for codec, (counted, make_plain) in SLICE_CODECS.items():
-        cfg = bench_cfg(codec)
+    for (codec, layout), (counted, per_round, make_plain) in SLICE_CODECS.items():
+        cfg = bench_cfg(codec, layout)
         rec = Recorder(compression.make_compressor(cfg.fed))
         fed = Federation(cfg, seed=0, data=data, compressor=rec.compressor())
+        tag = f"{layout} {codec}"
         for r in range(CHECK_ROUNDS):
             before = _launch_counts()
             rec.armed = r == 1
@@ -360,93 +558,191 @@ def slice_phase(data):
             torch.cuda.synchronize()
             after = _launch_counts()
             for name in after:
-                want = n_leaves if name == counted else 0
+                want = per_round if name == counted else 0
                 if after[name] - before[name] != want:
                     raise RuntimeError(
-                        f"slice {codec} round {r}: {name} launched "
+                        f"slice {tag} round {r}: {name} launched "
                         f"{after[name] - before[name]} times, expected {want}"
                     )
             loss = float(m.loss)
             if not math.isfinite(loss):
-                raise RuntimeError(f"slice {codec} round {r}: loss {loss}")
+                raise RuntimeError(f"slice {tag} round {r}: loss {loss}")
             for t in _state_tensors(fed.state):
                 if t.device.type != "cuda":
-                    raise RuntimeError(f"slice {codec}: a state tensor is on {t.device}")
-            if any(not bool(e.any()) for e in fed.state.comp_state.values()):
-                raise RuntimeError(f"slice {codec} round {r}: a residual leaf is all zero")
+                    raise RuntimeError(f"slice {tag}: a state tensor is on {t.device}")
+            if any(not bool(e.any()) for e in _tensors(fed.state.comp_state)):
+                raise RuntimeError(f"slice {tag} round {r}: a residual is all zero")
             log(
-                f"slice {codec} round {r}: loss {loss:.6f} acc {float(m.accuracy):.4f} "
-                f"update_norm {float(m.update_norm):.6f} {counted} +{after[counted] - before[counted]}"
+                f"slice {tag} round {r}: loss {loss:.6f} acc {float(m.accuracy):.4f} "
+                f"update_norm {float(m.update_norm):.6f} launches "
+                f"{ {k: after[k] - before[k] for k in after} }"
             )
-        deltas, state, out, new_state = rec.seen
-        out_p, new_p = make_plain().apply(deltas, state)
+        args, kw, out, new_state = rec.seen
+        plain = make_plain()
+        out_p, new_p = (plain.apply_flat if layout == "flat" else plain.apply)(*args, **kw)
+        if layout == "flat":
+            out, out_p, new_state, new_p = {"": out}, {"": out_p}, {"": new_state}, {"": new_p}
         for k in out:
             if not (_bits_equal(out[k], out_p[k]) and _bits_equal(new_state[k], new_p[k])):
-                raise RuntimeError(f"slice {codec}: kernel codec differs from plain at {k}")
-        log(f"slice {codec}: round 1's codec output and residuals bit-equal to the plain codec")
+                raise RuntimeError(f"slice {tag}: kernel codec differs from plain at {k!r}")
+        log(f"slice {tag}: round 1's codec output and residuals bit-equal to the plain codec")
         rec.seen = None
-        feds[codec] = fed
+        feds[(codec, layout)] = fed
     return feds, _launch_counts()
 
 
+TIMED_CASES = (
+    ("none", "per_leaf"), ("topk", "per_leaf"), ("int8", "per_leaf"),
+    ("none", "flat"), ("topk", "flat"), ("int8", "flat"), ("rotq", "flat"),
+)
+
+
 def timing_phase(feds, data, card):
-    """Rounds/s of each codec (and uncompressed) after the checked rounds,
-    through Federation.run_on_device, host clock around a synchronize."""
+    """Rounds/s of each codec and layout (and uncompressed) after the
+    checked rounds, through Federation.run_on_device, host clock around a
+    synchronize: TIMING_REPEATS turns over every case (the order reversed
+    on odd turns), the median reported with every turn."""
     feds = dict(feds)
-    feds["none"] = Federation(bench_cfg("none"), seed=0, data=data)
-    feds["none"].run_on_device(1)  # warm-up
+    for layout in ("per_leaf", "flat"):
+        feds[("none", layout)] = Federation(bench_cfg("none", layout), seed=0, data=data)
+        feds[("none", layout)].run_on_device(1)  # warm-up
+    secs = {case: [] for case in TIMED_CASES}
+    peak = {}
+    for turn in range(TIMING_REPEATS):
+        for case in TIMED_CASES[:: -1 if turn % 2 else 1]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = feds[case].run_on_device(TIMED_ROUNDS)
+            torch.cuda.synchronize()
+            secs[case].append(time.perf_counter() - t0)
+            peak[case] = torch.cuda.max_memory_allocated() / 1e9
+            if not torch.isfinite(m.loss).all():
+                raise RuntimeError(f"timing {case}: non-finite loss {m.loss.tolist()}")
     rates = {}
-    for codec in ("none", "topk", "int8"):
-        fed = feds[codec]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        m = fed.run_on_device(TIMED_ROUNDS)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if not torch.isfinite(m.loss).all():
-            raise RuntimeError(f"timing {codec}: non-finite loss {m.loss.tolist()}")
-        rates[codec] = {
+    for (codec, layout), dts in secs.items():
+        per_s = [TIMED_ROUNDS / dt for dt in dts]
+        rates[(codec, layout)] = {
             "compression": codec,
+            "delta_layout": layout,
             "rounds": TIMED_ROUNDS,
-            "seconds": dt,
-            "rounds_per_s": TIMED_ROUNDS / dt,
-            "client_epochs_per_s": TIMED_ROUNDS * NUM_CLIENTS / dt,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "repeats": TIMING_REPEATS,
+            "rounds_per_s": statistics.median(per_s),
+            "rounds_per_s_each": per_s,
+            "client_epochs_per_s": statistics.median(per_s) * NUM_CLIENTS,
+            "peak_mem_gb": peak[(codec, layout)],
             "card": card,
         }
-        log("timing: " + json.dumps(rates[codec]))
+        log("timing: " + json.dumps(rates[(codec, layout)]))
     return feds, rates
 
 
-def profile_phase(fed, out_dir: Path):
-    """torch.profiler over two topk rounds: CUDA time by kernel."""
-    from torch.autograd import DeviceType
+def pack_phase(fed, peaks, card):
+    """The flat pack of one round's deltas (64 clients, permuted to flax's
+    layout) and the unpack of the mean row, timed as the kernels are."""
+    params = fed.state.params
+    g = torch.Generator(device="cuda").manual_seed(5)
+    deltas = {
+        k: torch.randn((NUM_CLIENTS,) + tuple(v.shape), generator=g, device="cuda")
+        for k, v in params.items()
+    }
+    lay = flat.make_layout(params)
+    row = flat.pack_stacked(lay, deltas)
+    back = flat.unpack_stacked(lay, row)
+    if any(not torch.equal(back[k], v) for k, v in deltas.items()):
+        raise RuntimeError("pack: unpack_stacked(pack_stacked(d)) is not d")
+    pack_ms = _time_ms(lambda: flat.pack_stacked(lay, deltas))
+    unpack_ms = _time_ms(lambda: flat.unpack(lay, row[0]))
+    # Each delta read once, the padded buffer written once.
+    pack_bytes = 4 * NUM_CLIENTS * (lay.total + lay.padded)
+    bound, _ = _bound(pack_bytes, 0, peaks)
+    result = {
+        "pack_ms": pack_ms, "pack_bound_ms": bound, "pack_bytes": pack_bytes,
+        "unpack_mean_ms": unpack_ms, "card": card,
+    }
+    log("pack: " + json.dumps(result))
+    return result
+
+
+# Kernel groups of the round, by name: first match wins.
+KERNEL_GROUPS = (
+    ("max-pool backward", "max_pool_backward"),
+    ("max-pool forward", "max_pool_forward"),
+    ("layout conversion", "nchwToNhwc|nhwcToNchw"),
+    ("convolution", "convolve|xmma|cutlass|wgrad|dgrad|gemm"),
+    ("copy", "copy|Memcpy"),
+    ("K1 threshold_feedback", "threshold_feedback"),
+    ("K2 quantdequant_int8", "quantdequant_int8"),
+    ("K3 hadamard_rotate", "fwht_pass"),
+    ("torch.topk", "topk|RadixSort|radixSort"),
+    ("other elementwise and reductions", ""),
+)
+
+
+def _trace_summary(trace_path: Path, rounds: int):
+    """From a chrome trace: device ms per round by kernel name, the union of
+    the device's busy intervals and the window's span, in ms."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not device:
+        raise RuntimeError(f"profile: {trace_path} holds no device activity")
+    by_name = collections.Counter()
+    for e in device:
+        by_name[e["name"]] += e["dur"] / 1e3 / rounds
+    intervals = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy, run = 0.0, list(intervals[0])
+    for start, stop in intervals[1:]:
+        if start <= run[1]:
+            run[1] = max(run[1], stop)
+        else:
+            busy += run[1] - run[0]
+            run = [start, stop]
+    busy += run[1] - run[0]
+    span = max(stop for _, stop in intervals) - intervals[0][0]
+    return by_name, busy / 1e3, span / 1e3
+
+
+def profile_phase(fed, out_dir: Path, label: str):
+    """torch.profiler over two rounds: device time by kernel, by group, and
+    the device's idle share of the window. Returns ms per round by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    rounds = 2
     fed.run_on_device(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fed.run_on_device(2)
+        fed.run_on_device(rounds)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # Device-side rows only (kernels, copies): an operator's row repeats
-    # the time of the kernels it launched.
-    busy_ms = sum(
-        e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA
-    ) / 1e3
-    log(
-        f"profile: 2 topk rounds, device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
-        f"wall under the profiler ({100 * busy_ms / wall_ms:.1f}%)"
-    )
-    table = events.table(sort_by="self_device_time_total", row_limit=40)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "profile_topk.txt").write_text(table)
-    prof.export_chrome_trace(str(out_dir / "profile_topk_trace.json"))
-    for line in table.splitlines()[:25]:
-        log(f"profile: {line}")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
+    (out_dir / f"profile_{label}.txt").write_text(table)
+    trace = out_dir / f"profile_{label}_trace.json"
+    prof.export_chrome_trace(str(trace))
+    by_name, busy_ms, span_ms = _trace_summary(trace, rounds)
+    groups = collections.Counter()
+    for name, ms in by_name.items():
+        group = next(g for g, pattern in KERNEL_GROUPS if re.search(pattern, name))
+        groups[group] += ms
+    log(
+        f"profile {label}: {rounds} rounds, {wall_ms:.1f} ms wall under the profiler; "
+        f"kernels sum {sum(by_name.values()) * rounds:.1f} ms, the device busy "
+        f"{busy_ms:.1f} ms of the {span_ms:.1f} ms from its first kernel to its last "
+        f"(idle {100 * (1 - busy_ms / span_ms):.1f}%)"
+    )
+    log(f"profile {label}: ms per round by group " + json.dumps({g: round(v, 3) for g, v in groups.most_common()}))
+    for name, ms in by_name.most_common(12):
+        log(f"profile {label}: {ms:8.3f} ms/round  {name[:100]}")
+    return by_name
+
+
+def profile_diff(base, other, label: str, base_label: str):
+    """The kernels whose time per round differs most between two profiles."""
+    diff = {k: other.get(k, 0.0) - base.get(k, 0.0) for k in set(base) | set(other)}
+    log(f"profile {label} - {base_label}: {sum(diff.values()):+.3f} ms per round of kernel time")
+    for name, ms in sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:10]:
+        log(f"profile {label} - {base_label}: {ms:+8.3f} ms/round  {name[:100]}")
 
 
 # --------------------------------------------------------------- main
@@ -456,13 +752,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--profile", metavar="DIR",
-        help="also profile two topk rounds; write the table and trace to DIR",
+        help="also profile two rounds each of per-leaf topk, flat rotq and "
+        "flat int8; write the tables and traces to DIR",
     )
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi, name, peaks = device_phase()
     build_phase()
     results = kernel_phase(peaks)
+    results["hadamard_rotate"] = hadamard_phase(peaks)
     reference_phase()
     data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
     feds, launches = slice_phase(data)
@@ -471,8 +769,13 @@ def main(argv=None) -> int:
             raise RuntimeError(f"slice: {kname} was never launched on the main path")
         results[kname]["launches"] = count
     feds, _ = timing_phase(feds, data, smi)
+    pack_phase(feds[("none", "flat")], peaks, smi)
     if args.profile:
-        profile_phase(feds["topk"], Path(args.profile))
+        base = profile_phase(feds[("topk", "per_leaf")], Path(args.profile), "per_leaf_topk")
+        for codec in ("rotq", "int8"):
+            label = f"flat_{codec}"
+            profile_diff(base, profile_phase(feds[(codec, "flat")], Path(args.profile), label),
+                         label, "per_leaf_topk")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -3,9 +3,10 @@
 A package of its own beside ``fedtpu``: it imports ``torch`` and numpy,
 never JAX or anything of ``fedtpu``. Its entry point,
 :class:`fedtpu_torch.core.engine.Federation`, runs on a CUDA device unless
-the caller asks for the CPU. The compressed round's two TPU kernels are
-hand-written CUDA kernels here (:mod:`fedtpu_torch.ops.kernels`), built
-from ``fedtpu_torch/csrc`` with ``nvcc`` at first use.
+the caller asks for the CPU. fedtpu's three TPU kernels (top-k with error
+feedback, int8, the Hadamard rotation of ``rotq``) are hand-written CUDA
+kernels here (:mod:`fedtpu_torch.ops.kernels`), built from
+``fedtpu_torch/csrc`` with ``nvcc`` at first use.
 """
 
 from fedtpu_torch.config import DataConfig, FedConfig, OptimizerConfig, RoundConfig

@@ -15,6 +15,9 @@ import math
 from typing import Optional
 
 
+ROTQ_BIT_WIDTHS = (1, 2, 4, 8)
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """Per-client local SGD with torch semantics (coupled weight decay,
@@ -80,10 +83,11 @@ class FedConfig:
     weighted: bool = True
     participation_fraction: float = 1.0
     participation_sampling: str = "uniform"  # uniform | loss (not ported)
-    compression: str = "none"  # none | topk | int8 | rotq, randk (not ported)
+    compression: str = "none"  # none | topk | int8 | rotq | randk (flat only)
     topk_fraction: float = 0.01
     error_feedback: bool = True
-    delta_layout: str = "per_leaf"  # per_leaf | flat (not ported)
+    delta_layout: str = "per_leaf"  # per_leaf | flat
+    rotq_bits: int = 4  # 1 | 2 | 4 | 8
     server_optimizer: str = "none"  # none | momentum, adam, yogi (not ported)
     aggregator: str = "mean"  # mean | median, trimmed_mean, krum (not ported)
     dp_clip_norm: float = 0.0
@@ -133,16 +137,20 @@ def validate(cfg: RoundConfig) -> RoundConfig:
     """Raise on a setting the port does not run, before any build work."""
     fed, data, opt = cfg.fed, cfg.data, cfg.opt
     resolve_compute_dtype(cfg)
-    if fed.delta_layout == "flat":
-        raise not_ported("delta_layout='flat'", "slice 2: flat layout + rotq")
-    if fed.delta_layout != "per_leaf":
-        raise ValueError(f"unknown delta_layout {fed.delta_layout!r}")
-    if fed.compression in ("rotq", "randk"):
-        raise not_ported(
-            f"compression={fed.compression!r}", "slice 2: flat layout + rotq"
+    if fed.delta_layout not in ("per_leaf", "flat"):
+        raise ValueError(
+            f"unknown delta_layout {fed.delta_layout!r}; have per_leaf | flat"
         )
-    if fed.compression not in ("none", "topk", "int8"):
+    if fed.compression not in ("none", "topk", "int8", "rotq", "randk"):
         raise ValueError(f"unknown compression {fed.compression!r}")
+    if fed.compression in ("rotq", "randk") and fed.delta_layout != "flat":
+        raise ValueError(
+            f"{fed.compression} is a flat-layout codec; set delta_layout='flat'"
+        )
+    if fed.compression == "rotq" and fed.rotq_bits not in ROTQ_BIT_WIDTHS:
+        raise ValueError(
+            f"rotq bits must be one of {ROTQ_BIT_WIDTHS}, got {fed.rotq_bits}"
+        )
     if data.device_layout == "gather":
         raise not_ported("device_layout='gather'", "slice 3: gather layout")
     if data.device_layout != "presharded":

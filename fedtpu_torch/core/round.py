@@ -1,10 +1,13 @@
 """The federated round: local training of every client, compression of
 the deltas, the weighted mean, the new global model.
 
-The port of ``fedtpu.core.round`` for the mean aggregator, the per-leaf
-delta layout and ``server_optimizer='none'`` (FedAvg applies the mean delta
-directly). Everything stays on the state's device; the host supplies only
-the round's batch and learning rate.
+The port of ``fedtpu.core.round`` for the mean aggregator, the per-leaf and
+flat delta layouts and ``server_optimizer='none'`` (FedAvg applies the mean
+delta directly). On the flat layout the deltas are packed once into a
+``[clients, P]`` buffer (:mod:`fedtpu_torch.ops.flat`), the codec and the
+mean run on it, and the ``[P]`` mean is unpacked once. Everything stays on
+the state's device; the host supplies only the round's batch and learning
+rate.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 from fedtpu_torch.config import RoundConfig, validate
 from fedtpu_torch.core import optim
 from fedtpu_torch.core.client import ClientOutput, make_local_update
+from fedtpu_torch.ops import flat as flat_ops
 
 Tree = Dict[str, torch.Tensor]
 
@@ -29,8 +33,10 @@ class FederatedState(NamedTuple):
       across rounds as each reference client keeps its optimizer.
     - ``round_idx``: rounds completed (a host int: it drives the learning
       rate schedule and the data rotation without a device read).
-    - ``comp_state``: per-client residuals of the codec (error feedback),
-      ``()`` when compression or error feedback is off.
+    - ``comp_state``: per-client residuals of the codec (error feedback):
+      a dict of ``[clients, ...]`` leaves per leaf, one ``[clients, P]``
+      tensor on the flat layout, ``()`` when compression or error feedback
+      is off.
     """
 
     params: Tree
@@ -84,17 +90,21 @@ def init_state(
     )
 
 
-def _mean_over_clients(stacked: Tree, weights: torch.Tensor) -> Tree:
+def _mean_over_clients(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted mean over the leading clients axis; all zero when every
     weight is zero (no client contributes: no update)."""
     total = weights.sum()
     safe = torch.where(total > 0, total, torch.ones_like(total))
     alive_any = (total > 0).float()
-    out = {}
-    for k, x in stacked.items():
-        w = weights.view((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
-        out[k] = (x * w).sum(0) / safe.to(x.dtype) * alive_any.to(x.dtype)
-    return out
+    w = weights.view((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+    return (x * w).sum(0) / safe.to(x.dtype) * alive_any.to(x.dtype)
+
+
+def _keep_rows(keep: torch.Tensor, new, old):
+    """``new`` where ``keep[client]``, else ``old``, per residual tensor."""
+    if isinstance(old, dict):
+        return {k: _keep_rows(keep, v, old[k]) for k, v in new.items()}
+    return torch.where(keep.view((-1,) + (1,) * (new.ndim - 1)), new, old)
 
 
 def tree_norm(tree: Tree) -> torch.Tensor:
@@ -106,6 +116,20 @@ def make_round_step(
 ) -> Callable[..., Tuple[FederatedState, RoundMetrics]]:
     """``round_step(state, batch, generator=None) -> (new_state, metrics)``."""
     validate(cfg)
+    flat_mode = cfg.fed.delta_layout == "flat"
+    pow2 = compressor is not None and compressor.pad_pow2
+    if compressor is not None:
+        if flat_mode and compressor.apply_flat is None:
+            raise ValueError(
+                "delta_layout='flat' needs a flat-layout compressor "
+                "(make_compressor reads FedConfig.delta_layout; or pass "
+                "make_topk/make_int8(..., layout='flat'))"
+            )
+        if not flat_mode and compressor.layout == "flat":
+            raise ValueError(
+                "flat-layout compressor given but FedConfig.delta_layout="
+                "'per_leaf': residual state shapes would not match; make both agree"
+            )
     local_update = make_local_update(model, cfg)
 
     def round_step(
@@ -124,20 +148,32 @@ def make_round_step(
         else:
             agg_w = batch.alive.float()
         deltas = {k: out.params[k] - state.params[k][None] for k in state.params}
+        if flat_mode:
+            # Pack once into the [clients, P] buffer: the codec and the mean
+            # each run as one op over the whole model.
+            lay = flat_ops.make_layout(state.params, pow2=pow2)
+            deltas = flat_ops.pack_stacked(lay, deltas)
         comp_state = state.comp_state
         if compressor is not None:
-            deltas, new_comp = compressor.apply(deltas, comp_state)
-            if comp_state:
+            if flat_mode:
+                deltas, new_comp = compressor.apply_flat(
+                    deltas, comp_state, lay, round_idx=state.round_idx
+                )
+            else:
+                deltas, new_comp = compressor.apply(deltas, comp_state)
+            # A flat residual is one tensor (whose truth value is ambiguous),
+            # a per-leaf one a dict, no residual ().
+            if isinstance(comp_state, torch.Tensor) or comp_state:
                 # A client that contributes nothing this round keeps its
                 # residual until it does.
-                keep = agg_w > 0
-                comp_state = {
-                    k: torch.where(keep.view((-1,) + (1,) * (new.ndim - 1)), new, comp_state[k])
-                    for k, new in new_comp.items()
-                }
+                comp_state = _keep_rows(agg_w > 0, new_comp, comp_state)
             else:
                 comp_state = new_comp
-        mean_delta = _mean_over_clients(deltas, agg_w)
+        if flat_mode:
+            # Unpack once, the [P] mean and not each client's row.
+            mean_delta = flat_ops.unpack(lay, _mean_over_clients(deltas, agg_w))
+        else:
+            mean_delta = {k: _mean_over_clients(x, agg_w) for k, x in deltas.items()}
         new_params = {k: state.params[k] + mean_delta[k] for k in state.params}
 
         alive_f = batch.alive.float()

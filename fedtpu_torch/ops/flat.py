@@ -1,0 +1,181 @@
+"""Flat delta layout: every parameter leaf in one contiguous row.
+
+The port of ``fedtpu.ops.flat`` for what the round and the flat codecs
+need. A client's update becomes one ``[P]`` row and the clients one
+``[clients, P]`` f32 buffer, so a codec, its error feedback and the
+weighted mean each run as one op over the whole model.
+
+The row is fedtpu's row coordinate for coordinate, which the rotation of
+the ``rotq`` codec (it mixes every coordinate of the row) and fedtpu's wire
+records both depend on:
+
+- leaves in flax's ``tree_flatten`` order: the path of module names, then
+  the flax leaf name, sorted, so ``Conv_0/bias`` comes before
+  ``Conv_0/kernel``;
+- each weight in flax's layout (Conv kernels HWIO, Dense kernels
+  ``[in, out]``), permuted from torch's by :mod:`fedtpu_torch.convert`'s
+  tables;
+- the row zero-padded to a multiple of ``LANE`` (128), or with
+  ``pow2=True`` to the next power of two (the Hadamard rotation's width).
+
+The pad region is zero on entry to every op here and every op keeps it so.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fedtpu_torch.convert import _TO_FLAX, _WEIGHT_TO_FLAX
+
+Tree = Dict[str, torch.Tensor]
+
+LANE = 128
+
+
+class FlatLayout(NamedTuple):
+    """Where each leaf of a torch-named params dict lies in the flat row.
+
+    Per leaf, in row order: its torch name and shape, its dtype, and the
+    axis permutation that takes the stacked ``[clients, ...]`` torch leaf to
+    flax's layout (``None`` for a leaf that is not permuted)."""
+
+    names: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    perms: Tuple[Optional[Tuple[int, ...]], ...]
+    offsets: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+    total: int  # real coordinates (sum of sizes)
+    padded: int  # row length P >= total
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def pad(self) -> int:
+        return self.padded - self.total
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _flax_path(name: str) -> Tuple[str, ...]:
+    *mods, leaf = name.split(".")
+    return tuple(mods) + (_TO_FLAX[leaf],)
+
+
+def make_layout(params: Tree, pow2: bool = False) -> FlatLayout:
+    """Layout of a single (unstacked) torch-named params dict; only shapes
+    and dtypes are read."""
+    names = tuple(sorted(params, key=_flax_path))
+    shapes = tuple(tuple(params[k].shape) for k in names)
+    sizes = tuple(math.prod(s) for s in shapes)
+    total = sum(sizes)
+    padded = max(LANE, math.ceil(max(total, 1) / LANE) * LANE)
+    return FlatLayout(
+        names=names,
+        shapes=shapes,
+        dtypes=tuple(params[k].dtype for k in names),
+        perms=tuple(
+            _WEIGHT_TO_FLAX[len(s) + 1] if k.endswith(".weight") else None
+            for k, s in zip(names, shapes)
+        ),
+        offsets=tuple(int(o) for o in np.cumsum((0,) + sizes)[:-1]),
+        sizes=sizes,
+        total=total,
+        padded=next_pow2(padded) if pow2 else padded,
+    )
+
+
+def pack_stacked(layout: FlatLayout, stacked: Tree) -> torch.Tensor:
+    """``[clients, ...]`` dict -> ``[clients, padded]`` f32 buffer: each
+    leaf copied once, already permuted to flax's layout, into its slice."""
+    if len(stacked) != layout.num_leaves:
+        raise ValueError(
+            f"tree has {len(stacked)} leaves, layout expects {layout.num_leaves}"
+        )
+    first = stacked[layout.names[0]]
+    n = first.shape[0]
+    flat = torch.empty((n, layout.padded), dtype=torch.float32, device=first.device)
+    for name, off, size, perm in zip(
+        layout.names, layout.offsets, layout.sizes, layout.perms
+    ):
+        leaf = stacked[name]
+        if perm is not None:
+            leaf = leaf.permute(perm)
+        flat[:, off : off + size].view((n,) + tuple(leaf.shape[1:])).copy_(leaf)
+    flat[:, layout.total :].zero_()
+    return flat
+
+
+def _unpermute(perm: Tuple[int, ...]) -> Tuple[int, ...]:
+    return tuple(int(i) for i in np.argsort(perm))
+
+
+def unpack_stacked(layout: FlatLayout, flat: torch.Tensor) -> Tree:
+    """Inverse of :func:`pack_stacked`: ``[clients, padded]`` -> stacked dict
+    in torch's layout and the leaves' own dtypes (padding dropped)."""
+    n = flat.shape[0]
+    out = {}
+    for name, shape, dt, perm, off, size in zip(
+        layout.names, layout.shapes, layout.dtypes, layout.perms,
+        layout.offsets, layout.sizes,
+    ):
+        leaf = flat[:, off : off + size]
+        if perm is not None:
+            flax_shape = tuple(((n,) + shape)[i] for i in perm)
+            leaf = leaf.reshape(flax_shape).permute(_unpermute(perm))
+        out[name] = leaf.reshape((n,) + shape).to(dt).contiguous()
+    return out
+
+
+def unpack(layout: FlatLayout, flat: torch.Tensor) -> Tree:
+    """``[padded]`` row -> dict in torch's layout (padding dropped)."""
+    return {k: v[0] for k, v in unpack_stacked(layout, flat[None]).items()}
+
+
+def segment_ids(layout: FlatLayout) -> np.ndarray:
+    """``[padded]`` int64 map coordinate -> leaf index (row order); padding
+    gets the extra segment ``num_leaves``."""
+    ids = np.full((layout.padded,), layout.num_leaves, np.int64)
+    for i, (off, size) in enumerate(zip(layout.offsets, layout.sizes)):
+        ids[off : off + size] = i
+    return ids
+
+
+def topk_threshold(
+    y: torch.Tensor, fraction: float, total: int
+) -> Optional[torch.Tensor]:
+    """Each row's keep threshold: the k-th largest ``|y|`` over the whole
+    row, ``k = ceil(fraction * total)`` counted against the real (unpadded)
+    coordinates; ``None`` when k covers them all. A library top-k, as
+    fedtpu's ``lax.top_k`` sits outside its kernels."""
+    k = max(1, int(math.ceil(fraction * total)))
+    if k >= total:
+        return None
+    return torch.topk(y.abs(), k, dim=1).values[:, -1].contiguous()
+
+
+def int8_scales(y: torch.Tensor, layout: FlatLayout) -> torch.Tensor:
+    """``[clients, padded]`` per-coordinate int8 scale: each client's
+    ``max|leaf| / 127`` of the leaf the coordinate belongs to, the per-leaf
+    codec's scale exactly (a max does not depend on order). Built on the
+    row's device by expanding each leaf's max over its slice: a gather by
+    :func:`segment_ids` would copy the host array to the card every round,
+    and that copy waits for the card."""
+    a = y.abs()
+    bounds = list(zip(layout.offsets, layout.sizes))
+    if layout.pad:
+        bounds.append((layout.total, layout.pad))
+    maxes = [
+        a[:, off : off + size].amax(dim=1, keepdim=True).expand(-1, size)
+        for off, size in bounds
+    ]
+    return torch.cat(maxes, dim=1) / 127.0

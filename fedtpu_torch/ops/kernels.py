@@ -10,6 +10,8 @@ at its first use (or by :func:`build`) and called through ``ctypes``:
   ``threshold_with_feedback``: top-k masking with error feedback.
 - :func:`quantdequant_int8` (``csrc/quantdequant_int8.cu``) replaces
   ``quantdequant_int8``: the simulated int8 codec.
+- :func:`hadamard_rotate` (``csrc/hadamard_rotate.cu``) replaces
+  ``hadamard_rotate``: the seeded Hadamard rotation of the ``rotq`` codec.
 
 A wrapper launches its kernel for CUDA tensors and raises if it cannot; it
 takes the plain PyTorch version only for tensors that lie on the CPU (the
@@ -20,20 +22,23 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# Never --use_fast_math: the int8 kernel needs IEEE division and rounding to
-# match fedtpu bit for bit. -Xptxas -v prints registers and spills per kernel.
+# Never --use_fast_math: the int8 kernel needs IEEE division and rounding,
+# and the Hadamard kernel unfused adds and kept subnormals, to match fedtpu
+# bit for bit. -Xptxas -v prints registers and spills per kernel.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +50,10 @@ _I64 = ctypes.c_int64
 _SOURCES = {
     "threshold_feedback": ("threshold_feedback.cu", [_P, _P, _P, _P, _I64, _I64, _P]),
     "quantdequant_int8": ("quantdequant_int8.cu", [_P, _P, _P, _I64, _I64, _P]),
+    "hadamard_rotate": (
+        "hadamard_rotate.cu",
+        [_P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_float, _P],
+    ),
 }
 _MAX_ROWS = 65535  # the kernels put rows on gridDim.y
 
@@ -225,9 +234,101 @@ def quantdequant_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 quantdequant_int8.launches = 0
 
+
+# ------------------------------------------------------------------ K3
+
+_MIN_HADAMARD_WIDTH = 128  # the kernel's smallest tile (one LANE)
+
+
+def _hadamard_norm(h: int) -> float:
+    """``f32(1 / sqrt(h))``, as fedtpu rounds it."""
+    return float(np.float32(1.0 / math.sqrt(h)))
+
+
+def _check_hadamard_shape(y: torch.Tensor, signs: torch.Tensor) -> None:
+    if y.ndim != 2:
+        raise ValueError(f"hadamard_rotate: needs [rows, h], got {tuple(y.shape)}")
+    h = y.shape[1]
+    if h < 1 or h & (h - 1):
+        raise ValueError(f"hadamard_rotate needs a power-of-two width, got {h}")
+    if tuple(signs.shape) != (h,):
+        raise ValueError(
+            f"hadamard_rotate: needs signs [{h}], got {tuple(signs.shape)}"
+        )
+
+
+def fwht_plain(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalised fast Walsh-Hadamard transform over the last axis of
+    ``x [rows, h]``: the stride-doubling butterfly of fedtpu's
+    ``_fwht_body``, each pair ``(a, b)`` becoming ``(a + b, a - b)``, the
+    strides in ascending order."""
+    rows, h = x.shape
+    step = 1
+    while step < h:
+        x = x.reshape(rows, h // (2 * step), 2, step)
+        a = x[:, :, 0, :]
+        b = x[:, :, 1, :]
+        x = torch.stack([a + b, a - b], dim=2).reshape(rows, h)
+        step *= 2
+    return x
+
+
+def hadamard_rotate_plain(
+    y: torch.Tensor, signs: torch.Tensor, inverse: bool = False
+) -> torch.Tensor:
+    """``fwht(y * signs) / sqrt(h)``, or on the inverse
+    ``fwht(y) / sqrt(h) * signs``, in fedtpu's order of operations."""
+    _check_hadamard_shape(y, signs)
+    y = y.float()
+    signs = signs.float()
+    if not inverse:
+        y = y * signs[None, :]
+    out = fwht_plain(y) * _hadamard_norm(y.shape[1])
+    if inverse:
+        out = out * signs[None, :]
+    return out
+
+
+def hadamard_rotate(
+    y: torch.Tensor, signs: torch.Tensor, inverse: bool = False
+) -> torch.Tensor:
+    """Seeded structured rotation of ``y [rows, h]`` f32 (h a power of two,
+    at least 128 on a card) by the Rademacher diagonal ``signs [h]``:
+    forward ``fwht(y * signs) / sqrt(h)``; ``inverse=True`` undoes it."""
+    if y.device.type == "cpu":
+        return hadamard_rotate_plain(y, signs, inverse)
+    if y.device.type != "cuda":
+        raise ValueError(f"hadamard_rotate: needs a CUDA (or CPU) tensor, got {y.device}")
+    if signs.device != y.device:
+        raise ValueError(f"hadamard_rotate: operands on {y.device} and {signs.device}")
+    if y.dtype != torch.float32 or signs.dtype != torch.float32:
+        raise TypeError(
+            f"hadamard_rotate: needs float32, got {y.dtype} and {signs.dtype}"
+        )
+    _check_hadamard_shape(y, signs)
+    rows, h = y.shape
+    if h < _MIN_HADAMARD_WIDTH:
+        raise ValueError(f"hadamard_rotate: needs h >= {_MIN_HADAMARD_WIDTH}, got {h}")
+    if rows > _MAX_ROWS:
+        raise ValueError(f"hadamard_rotate: at most {_MAX_ROWS} rows, got {rows}")
+    if not (y.is_contiguous() and signs.is_contiguous()):
+        raise ValueError("hadamard_rotate: operands must be contiguous")
+    out = torch.empty_like(y)
+    if rows:
+        _launch(
+            "hadamard_rotate", y, y.data_ptr(), signs.data_ptr(), out.data_ptr(),
+            rows, h, int(inverse), _hadamard_norm(h),
+        )
+        hadamard_rotate.launches += 1
+    return out
+
+
+hadamard_rotate.launches = 0
+
 KERNELS = {
     "threshold_feedback": (threshold_feedback, threshold_feedback_plain),
     "quantdequant_int8": (quantdequant_int8, quantdequant_int8_plain),
+    "hadamard_rotate": (hadamard_rotate, hadamard_rotate_plain),
 }
 
 

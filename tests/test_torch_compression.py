@@ -112,6 +112,10 @@ def test_codec_counts_one_kernel_call_per_leaf():
     )
 
 
-def test_flat_layout_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcomp.make_compressor(tconfig.FedConfig(compression="topk", delta_layout="flat"))
+def test_rotq_bits_outside_the_widths_raise():
+    with pytest.raises(ValueError, match="rotq bits"):
+        tcomp.make_compressor(
+            tconfig.FedConfig(compression="rotq", delta_layout="flat", rotq_bits=3)
+        )
+    with pytest.raises(ValueError, match="rotq bits"):
+        tcomp.make_rotq(bits=3)

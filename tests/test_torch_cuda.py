@@ -6,8 +6,10 @@ JAX nor fedtpu, so they also run where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 (``--noconftest`` skips ``tests/conftest.py``, which sets up JAX.) Their
-inputs are the CPU tests' (``test_torch_kernels.py``): ties at the
-threshold, -0.0, zero scales and halfway quotients, at smallcnn's widths.
+inputs are the CPU tests' (``test_torch_kernels.py``, ``test_torch_flat.py``):
+ties at the threshold, -0.0, zero scales and halfway quotients at smallcnn's
+widths; -0.0, zeros and large magnitudes for the Hadamard rotation at the
+rotq row (2^20), MobileNet's (2^22) and widths around its pass boundary.
 """
 
 import numpy as np
@@ -32,6 +34,22 @@ def _threshold_inputs(rng, rows, cols):
     if rows > 2:
         t[2] = 0.0
     return y, t
+
+
+# (rows, h): the rotq round's [clients, 2^20], MobileNet's 2^22 row, the
+# smallest width and widths on and around the kernel's 4096-column chunk.
+HADAMARD_SHAPES = [(64, 2**20), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13), (64, 2**14)]
+
+
+def _hadamard_inputs(rng, rows, h):
+    """Normal rows with a -0.0, zeros and large magnitudes mixed in (the
+    sums then round at many places)."""
+    y = rng.standard_normal((rows, h), dtype=np.float32)
+    y[0, 0] = -0.0
+    y[0, 1 : 1 + h // 8] = 0.0
+    y[-1, :: max(h // 16, 1)] = np.float32(1e30)
+    signs = (rng.integers(0, 2, size=h) * 2 - 1).astype(np.float32)
+    return y, signs
 
 
 def _quant_inputs(rng, rows, cols):
@@ -94,3 +112,42 @@ def test_wrapper_rejects_bad_operands_on_card(cuda_device, name):
         wrapper(torch.zeros((16, 4), device=cuda_device).t(), v)  # not contiguous
     with pytest.raises(ValueError):
         wrapper(x, v[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("rows,h", HADAMARD_SHAPES)
+def test_hadamard_rotate_kernel_bit_equal_on_card(cuda_device, rows, h, inverse):
+    y, signs = _hadamard_inputs(np.random.default_rng(h + rows), rows, h)
+    yd, sd = torch.from_numpy(y).to(cuda_device), torch.from_numpy(signs).to(cuda_device)
+    before = kernels.hadamard_rotate.launches
+    out = kernels.hadamard_rotate(yd, sd, inverse=inverse)
+    torch.cuda.synchronize()
+    assert kernels.hadamard_rotate.launches == before + 1
+    ref = kernels.hadamard_rotate_plain(yd, sd, inverse)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_hadamard_rotate_pair_is_identity_on_card(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    y = torch.randn((64, 2**20), generator=g, device=cuda_device)
+    signs = torch.randint(0, 2, (2**20,), generator=g, device=cuda_device).float() * 2 - 1
+    back = kernels.hadamard_rotate(kernels.hadamard_rotate(y, signs), signs, inverse=True)
+    torch.testing.assert_close(back, y, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hadamard_rotate_rejects_bad_operands_on_card(cuda_device):
+    y = torch.zeros((2, 256), device=cuda_device)
+    signs = torch.ones((256,), device=cuda_device)
+    with pytest.raises(ValueError, match="power-of-two"):
+        kernels.hadamard_rotate(torch.zeros((2, 384), device=cuda_device), torch.ones((384,), device=cuda_device))
+    with pytest.raises(ValueError, match="h >= 128"):
+        kernels.hadamard_rotate(y[:, :64].contiguous(), signs[:64].contiguous())
+    with pytest.raises(ValueError, match="signs"):
+        kernels.hadamard_rotate(y, signs[:128])
+    with pytest.raises(TypeError):
+        kernels.hadamard_rotate(y.double(), signs.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.hadamard_rotate(torch.zeros((256, 2), device=cuda_device).t(), signs)
