@@ -12,11 +12,13 @@ Phases, each of which raises on failure (exit code not 0, no result line):
 3. kernels: K1 and K2 against their plain PyTorch versions at the
    per-leaf round's shapes (eight leaves x 64 clients), K1 also at the flat
    row [64, 545,152], and at ragged shapes; K3 forward and inverse at the
-   rotq row [64, 2^20], MobileNet's [8, 2^22] and small widths around its
-   pass boundary, with -0.0, zeros and large magnitudes. Outputs must be
-   bit-equal, and K3's inverse(forward(y)) within 1e-5 of y. Kernel and
-   plain version are timed with CUDA events, beside the bound that the
-   card's memory rate sets.
+   rotq row [64, 2^20], MobileNet's [8, 2^22] and widths and row counts
+   around its phase boundary and lag, with -0.0, zeros and large
+   magnitudes. Outputs must be bit-equal, and K3's inverse(forward(y))
+   within 1e-5 of y. Kernel and plain version are timed with CUDA events,
+   beside the bound that the card's memory rate sets; K3 also beside a
+   device copy of the same bytes, one kernel pass, and its two phases with
+   no reuse of the intermediate in L2.
 4. reference: small rounds (4 clients) on the card against the same rounds
    on the CPU, where the wrappers run their plain versions: per leaf for
    none/topk/int8, flat for topk/int8/rotq/randk with the same injected
@@ -92,9 +94,14 @@ KERNEL_INFO = {
 }
 
 # K3's shapes: the rotq round's row first (the main path: timed), then
-# MobileNet's 2^22 row and widths on and around the kernel's 4096-column
-# chunk and 2^13-element second-pass tile.
-HADAMARD_SHAPES = [(64, 2**20), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13), (64, 2**14)]
+# MobileNet's 2^22 row (timed too), the smallest width, widths around the
+# kernel's 2^13-element tile (the widest one-phase row, the narrowest
+# two-phase one), row counts that are not a multiple of the lag between its
+# phases, and a 2^21 row. The same list as tests/test_torch_cuda.py.
+HADAMARD_SHAPES = [
+    (64, 2**20), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13), (64, 2**14),
+    (3, 2**20), (65, 2**14), (1, 2**13), (2, 2**21),
+]
 FLAT_P = 545_152  # smallcnn's lane-padded flat row
 
 
@@ -296,10 +303,56 @@ def _hadamard_inputs(rng, rows, h, dev):
     return torch.from_numpy(y).to(dev), torch.from_numpy(signs).to(dev)
 
 
+def _hadamard_call(rows, h, peaks):
+    """(bytes, bound in ms, what bounds it) of one K3 call: y read once,
+    signs read once, out written once; log2(h) add/subtracts and two
+    multiplies (signs, 1/sqrt(h)) per element."""
+    call_bytes = 8 * rows * h + 4 * h
+    call_ops = rows * h * (int(math.log2(h)) + 2)
+    return (call_bytes, *_bound(call_bytes, call_ops, peaks))
+
+
+def _hadamard_rates(ms, rows, h, peaks):
+    """A K3 call's time beside its bound: the share of the bound, the rate
+    the bound's bytes imply, and the bytes the memory rate moves in that
+    time (twice the bound's bytes would mean the row crossed HBM twice)."""
+    call_bytes, bound, _ = _hadamard_call(rows, h, peaks)
+    return {
+        "ms": ms, "call_bound_ms": bound, "share_of_bound": bound / ms,
+        "implied_tb_per_s": call_bytes / ms / 1e9,
+        "bytes_at_peak_rate_mb": ms * 1e-3 * peaks[0] / 1e6,
+        "call_bytes_mb": call_bytes / 1e6,
+    }
+
+
+def _floors(wrapper, y, signs):
+    """Three yardsticks for a K3 call on y [rows, h], forward: a device
+    copy of the same bytes (y read once, out written once: what the card's
+    memory gives in practice); one pass of the kernel over the same bytes
+    (the rows cut into 8192-wide ones, which need phase 0 only); and the
+    two phases with every row's phase 0 before any phase 1, so that no
+    intermediate is read back from L2 (what two plain launches would do)."""
+    out = torch.empty_like(y)
+    narrow = y.view(-1, 8192)
+    narrow_signs = signs[:8192].contiguous()
+    rows, h = y.shape
+    no_reuse = kernels._hadamard_plan(h, rows)._replace(lag=rows)
+
+    def two_launches_alike():
+        kernels._hadamard_launch(y, signs, out, False, no_reuse)
+
+    return {
+        "copy_ms": _time_ms(lambda: out.copy_(y)),
+        "one_pass_ms": _time_ms(lambda: wrapper(narrow, narrow_signs)),
+        "no_reuse_ms": _time_ms(two_launches_alike),
+    }
+
+
 def hadamard_phase(peaks):
     """K3 forward and inverse bit-equal to the plain version at every
     shape; inverse(forward(y)) within 1e-5 of y (fedtpu's gate) on normal
-    rows; timed at the rotq row, where a round launches it twice."""
+    rows; timed beside its bound at the rotq row, where a round launches it
+    twice, and at MobileNet's row."""
     dev = torch.device("cuda")
     wrapper, plain = kernels.KERNELS["hadamard_rotate"]
     rng = np.random.default_rng(3)
@@ -317,24 +370,31 @@ def hadamard_phase(peaks):
                     f"kernels: hadamard_rotate (inverse={inverse}) differs from its "
                     f"plain version at {rows}x{h}"
                 )
-            if i == 0:
-                timed[inverse] = (
+            if i < 2:
+                timed[(i, inverse)] = (
                     _time_ms(lambda: wrapper(y, signs, inverse=inverse)),
-                    _time_ms(lambda: plain(y, signs, inverse)),
+                    _time_ms(lambda: plain(y, signs, inverse)) if i == 0 else None,
                 )
+        if i == 0:
+            floors = _floors(wrapper, y, signs)
         normal = torch.from_numpy(rng.standard_normal((rows, h), dtype=np.float32)).to(dev)
         back = wrapper(wrapper(normal, signs), signs, inverse=True)
         err = float((back - normal).abs().max())
         if not torch.allclose(back, normal, rtol=1e-5, atol=1e-5):
             raise RuntimeError(f"kernels: hadamard_rotate round trip at {rows}x{h} off by {err}")
         log(f"kernels: hadamard_rotate {rows}x{h}: forward and inverse bit-equal; round trip max err {err:.3g}")
+    for i, (rows, h) in enumerate(HADAMARD_SHAPES[:2]):
+        for inverse in (False, True):
+            rates = _hadamard_rates(timed[(i, inverse)][0], rows, h, peaks)
+            log(
+                f"kernels: hadamard_rotate {rows}x{h} {'inverse' if inverse else 'forward'}: "
+                + json.dumps(rates)
+            )
+    log(f"kernels: hadamard_rotate {HADAMARD_SHAPES[0]} yardsticks: " + json.dumps(floors))
     rows, h = HADAMARD_SHAPES[0]
-    # Per call: y read once, signs read once, out written once; log2(h)
-    # add/subtracts and two multiplies (signs, 1/sqrt(h)) per element.
-    call_bytes = 8 * rows * h + 4 * h
-    call_ops = rows * h * (int(math.log2(h)) + 2)
-    call_bound, bound_by = _bound(call_bytes, call_ops, peaks)
-    ms = timed[False][0] + timed[True][0]
+    call_bytes, call_bound, bound_by = _hadamard_call(rows, h, peaks)
+    fwd, inv = timed[(0, False)], timed[(0, True)]
+    ms = fwd[0] + inv[0]
     result = {
         "name": "hadamard_rotate",
         "route": "cuda",
@@ -345,22 +405,26 @@ def hadamard_phase(peaks):
         "max_abs_err": max_err,
         "ms": ms,
         "kernel_ms": ms,
-        "plain_ms": timed[False][1] + timed[True][1],
+        "plain_ms": fwd[1] + inv[1],
         "bound_ms": 2 * call_bound,
         "bound_by": bound_by,
         "bytes": 2 * call_bytes,
         "library_ms": None,  # no PyTorch call computes an FWHT at these widths
         "per": f"one rotq round: a forward and an inverse call at [{rows}, {h}]",
-        "forward_ms": timed[False][0],
-        "inverse_ms": timed[True][0],
-        "forward_plain_ms": timed[False][1],
-        "inverse_plain_ms": timed[True][1],
+        "forward_ms": fwd[0],
+        "inverse_ms": inv[0],
+        "forward_plain_ms": fwd[1],
+        "inverse_plain_ms": inv[1],
         "call_bound_ms": call_bound,
+        "forward_share_of_bound": call_bound / fwd[0],
+        "inverse_share_of_bound": call_bound / inv[0],
+        "mobilenet_row_ms": {"forward": timed[(1, False)][0], "inverse": timed[(1, True)][0]},
+        **floors,
     }
     log(
-        f"kernels: hadamard_rotate at {rows}x{h}: forward {timed[False][0]:.4f} ms "
-        f"(plain {timed[False][1]:.4f}), inverse {timed[True][0]:.4f} ms "
-        f"(plain {timed[True][1]:.4f}); bound per call {call_bound:.4f} ms "
+        f"kernels: hadamard_rotate at {rows}x{h}: forward {fwd[0]:.4f} ms "
+        f"(plain {fwd[1]:.4f}), inverse {inv[0]:.4f} ms "
+        f"(plain {inv[1]:.4f}); bound per call {call_bound:.4f} ms "
         f"({call_bytes / 1e6:.1f} MB, {bound_by})"
     )
     return result
@@ -673,7 +737,7 @@ KERNEL_GROUPS = (
     ("copy", "copy|Memcpy"),
     ("K1 threshold_feedback", "threshold_feedback"),
     ("K2 quantdequant_int8", "quantdequant_int8"),
-    ("K3 hadamard_rotate", "fwht_pass"),
+    ("K3 hadamard_rotate", "hadamard_rotate_kernel"),
     ("torch.topk", "topk|RadixSort|radixSort"),
     ("other elementwise and reductions", ""),
 )

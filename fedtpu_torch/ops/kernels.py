@@ -27,7 +27,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +52,7 @@ _SOURCES = {
     "quantdequant_int8": ("quantdequant_int8.cu", [_P, _P, _P, _I64, _I64, _P]),
     "hadamard_rotate": (
         "hadamard_rotate.cu",
-        [_P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_float, _P],
+        [_P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P],
     ),
 }
 _MAX_ROWS = 65535  # the kernels put rows on gridDim.y
@@ -237,7 +237,83 @@ quantdequant_int8.launches = 0
 
 # ------------------------------------------------------------------ K3
 
-_MIN_HADAMARD_WIDTH = 128  # the kernel's smallest tile (one LANE)
+_MIN_HADAMARD_WIDTH = 128  # the narrowest row the kernel compiles a tile for
+
+# The kernel's tile: 2^13 elements, 512 threads of 16 elements each (the
+# source's kTileLog; the kernel refuses a plan made for another).
+# A phase after the first runs at most 13 - 4 stages, so that its segments
+# keep at least 16 contiguous columns (64 bytes).
+HADAMARD_TILE_LOG = 13
+# The byte budget of rows that sit between two phases (written by one, not
+# yet read by the next), kept well under the H100's 50 MB L2 so that the
+# next phase can find the intermediate there (16 MiB timed best, PERF.md).
+HADAMARD_LAG_BYTES = 16 << 20
+
+
+class HadamardPlan(NamedTuple):
+    """How the kernel splits the butterfly of ``rows`` rows of width ``h``.
+
+    The kernel works on ``units`` units of ``unit_len`` elements each: the
+    rows when there are two phases or more, or the whole matrix as one unit
+    (each tile then holding ``2^13 / h`` rows) when one phase does. Phase p
+    is ``phases[p] = (stage_lo, stages, col_log, seg_log)``: it runs the
+    butterfly's stages ``stage_lo .. stage_lo + stages - 1`` on each of
+    ``tiles[p]`` tiles of a unit. A tile's local index ``L`` (``0 <= L <
+    2^13``) splits into a column ``L mod 2^col_log`` and a segment ``L >>
+    col_log`` and lies at unit offset ``base + (segment << seg_log) +
+    column``; its stages are its local bits ``col_log .. col_log + stages -
+    1``. A tile of phase p of unit u waits for every tile of phase p-1 of
+    u. Work items are taken in ticket order, step by step: step s holds
+    every tile of phase p of unit ``s - p * lag``, phase 0 first, so a
+    phase runs ``lag`` units behind the one before it."""
+
+    h: int
+    tile_log: int
+    units: int
+    unit_len: int
+    lag: int
+    phases: Tuple[Tuple[int, int, int, int], ...]
+    tiles: Tuple[int, ...]
+
+    @property
+    def lag_bytes(self) -> int:
+        """Bytes of units written by a phase and not yet read by the next."""
+        return 4 * self.lag * self.unit_len if len(self.phases) > 1 else 0
+
+    def tile_base(self, phase: int, tile: int) -> int:
+        """Unit offset of local index 0 of ``tile`` of ``phase``."""
+        lo, k, c, seg = self.phases[phase]
+        groups = (1 << seg) >> c
+        return ((tile % groups) << c) + ((tile // groups) << (seg + self.tile_log - c))
+
+    def as_array(self) -> np.ndarray:
+        """The plan as the kernel's C entry point reads it (int64)."""
+        head = [self.tile_log, len(self.phases), self.lag, self.units, self.unit_len]
+        body = [v for ph, n in zip(self.phases, self.tiles) for v in (*ph, n)]
+        return np.asarray(head + body, dtype=np.int64)
+
+
+def _hadamard_plan(h: int, rows: int) -> HadamardPlan:
+    """The kernel's plan for ``rows`` rows of width ``h`` (a power of two,
+    at least 128): phase 0 runs stages 0 .. min(m, 13) - 1 on contiguous
+    2^13-element chunks; each later phase up to 9 stages on tiles of 2^k
+    segments, 2^lo apart, 2^(13 - k) columns wide. Phases lag each other
+    by as many rows as HADAMARD_LAG_BYTES holds, at least one and at most
+    ``rows``."""
+    m = h.bit_length() - 1
+    t = HADAMARD_TILE_LOG
+    if m <= t:  # one phase over the whole matrix, 2^(13 - m) rows per tile
+        unit_len = rows * h
+        tiles = (unit_len + (1 << t) - 1) >> t
+        return HadamardPlan(h, t, 1, unit_len, 0, ((0, m, 0, 0),), (tiles,))
+    phases = [(0, t, 0, 0)]
+    lo = t
+    while lo < m:
+        k = min(t - 4, m - lo)
+        phases.append((lo, k, t - k, lo))
+        lo += k
+    lag = max(1, min(rows, HADAMARD_LAG_BYTES // (4 * h)))
+    return HadamardPlan(h, t, rows, h, lag, tuple(phases), (h >> t,) * len(phases))
 
 
 def _hadamard_norm(h: int) -> float:
@@ -313,14 +389,36 @@ def hadamard_rotate(
         raise ValueError(f"hadamard_rotate: at most {_MAX_ROWS} rows, got {rows}")
     if not (y.is_contiguous() and signs.is_contiguous()):
         raise ValueError("hadamard_rotate: operands must be contiguous")
+    if y.data_ptr() % 16:  # the kernel moves 16-byte vectors
+        y = y.clone()
+    if signs.data_ptr() % 16:
+        signs = signs.clone()
     out = torch.empty_like(y)
     if rows:
-        _launch(
-            "hadamard_rotate", y, y.data_ptr(), signs.data_ptr(), out.data_ptr(),
-            rows, h, int(inverse), _hadamard_norm(h),
-        )
-        hadamard_rotate.launches += 1
+        _hadamard_launch(y, signs, out, inverse, _hadamard_plan(h, rows))
     return out
+
+
+def _hadamard_launch(
+    y: torch.Tensor, signs: torch.Tensor, out: torch.Tensor, inverse: bool,
+    plan: HadamardPlan,
+) -> None:
+    """One launch of the kernel on operands ``hadamard_rotate`` checked,
+    as ``plan`` splits it (``chip_smoke.py`` also times a plan that puts
+    every row's phase 0 first)."""
+    # The ticket (64 bits), then one count of finished tiles for each
+    # unit and phase that another phase waits on; fresh for every call,
+    # on the current stream, so calls on two streams never share them.
+    counters = torch.zeros(
+        2 + plan.units * (len(plan.phases) - 1), dtype=torch.int32, device=y.device
+    )
+    arr = plan.as_array()
+    _launch(
+        "hadamard_rotate", y, y.data_ptr(), signs.data_ptr(), out.data_ptr(),
+        counters.data_ptr(), plan.h, int(inverse), _hadamard_norm(plan.h),
+        arr.ctypes.data, len(arr),
+    )
+    hadamard_rotate.launches += 1
 
 
 hadamard_rotate.launches = 0

@@ -9,7 +9,7 @@ JAX nor fedtpu, so they also run where only PyTorch is installed:
 inputs are the CPU tests' (``test_torch_kernels.py``, ``test_torch_flat.py``):
 ties at the threshold, -0.0, zero scales and halfway quotients at smallcnn's
 widths; -0.0, zeros and large magnitudes for the Hadamard rotation at the
-rotq row (2^20), MobileNet's (2^22) and widths around its pass boundary.
+rotq row (2^20), MobileNet's (2^22) and widths around its phase boundary.
 """
 
 import numpy as np
@@ -37,8 +37,13 @@ def _threshold_inputs(rng, rows, cols):
 
 
 # (rows, h): the rotq round's [clients, 2^20], MobileNet's 2^22 row, the
-# smallest width and widths on and around the kernel's 4096-column chunk.
-HADAMARD_SHAPES = [(64, 2**20), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13), (64, 2**14)]
+# smallest width, widths around the kernel's 2^13-element tile (the widest
+# one-phase row and the narrowest two-phase one), row counts that are not a
+# multiple of the kernel's lag between phases, and a 2^21 row.
+HADAMARD_SHAPES = [
+    (64, 2**20), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13), (64, 2**14),
+    (3, 2**20), (65, 2**14), (1, 2**13), (2, 2**21),
+]
 
 
 def _hadamard_inputs(rng, rows, h):
@@ -126,6 +131,60 @@ def test_hadamard_rotate_kernel_bit_equal_on_card(cuda_device, rows, h, inverse)
     assert kernels.hadamard_rotate.launches == before + 1
     ref = kernels.hadamard_rotate_plain(yd, sd, inverse)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h", [(64, 2**20), (65, 2**14)])
+def test_hadamard_rotate_repeats_its_bits_on_card(cuda_device, rows, h):
+    """Blocks take their tiles in a different order on every call, from
+    counters that are fresh for every call: the bits must not change."""
+    y, signs = _hadamard_inputs(np.random.default_rng(h), rows, h)
+    yd, sd = torch.from_numpy(y).to(cuda_device), torch.from_numpy(signs).to(cuda_device)
+    first = kernels.hadamard_rotate(yd, sd)
+    second = kernels.hadamard_rotate(yd, sd)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    ref = kernels.hadamard_rotate_plain(yd, sd)
+    assert torch.equal(first.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_hadamard_rotate_takes_operands_off_16_byte_alignment_on_card(cuda_device):
+    """The kernel moves 16-byte vectors: the wrapper copies operands that
+    start off that alignment, and the result does not change."""
+    rows, h = 3, 2**14
+    y, signs = _hadamard_inputs(np.random.default_rng(11), rows, h)
+    ybuf = torch.zeros(rows * h + 1, device=cuda_device)
+    sbuf = torch.zeros(h + 1, device=cuda_device)
+    ybuf[1:] = torch.from_numpy(y.ravel()).to(cuda_device)
+    sbuf[1:] = torch.from_numpy(signs).to(cuda_device)
+    yd, sd = ybuf[1:].view(rows, h), sbuf[1:]
+    assert yd.data_ptr() % 16 and sd.data_ptr() % 16
+    for inverse in (False, True):
+        out = kernels.hadamard_rotate(yd, sd, inverse=inverse)
+        ref = kernels.hadamard_rotate_plain(yd, sd, inverse)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_hadamard_rotate_on_two_streams_at_once_on_card(cuda_device):
+    """Two calls in flight together on two streams, each with its own
+    counters, both match the plain version."""
+    rng = np.random.default_rng(7)
+    inputs = []
+    for rows, h in [(64, 2**20), (8, 2**22)]:
+        y, signs = _hadamard_inputs(rng, rows, h)
+        inputs.append((torch.from_numpy(y).to(cuda_device), torch.from_numpy(signs).to(cuda_device)))
+    streams = [torch.cuda.Stream(cuda_device) for _ in inputs]
+    torch.cuda.synchronize()
+    outs = []
+    for stream, (y, signs) in zip(streams, inputs):
+        with torch.cuda.stream(stream):
+            outs.append(kernels.hadamard_rotate(y, signs, inverse=len(outs) == 1))
+    torch.cuda.synchronize()
+    for out, (y, signs), inverse in zip(outs, inputs, (False, True)):
+        ref = kernels.hadamard_rotate_plain(y, signs, inverse)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.cuda
