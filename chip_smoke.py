@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (fedtpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # from the repository root
-    python3 chip_smoke.py --profile DIR   # also a torch.profiler table in DIR
+    python3 chip_smoke.py --profile DIR   # also torch.profiler tables in DIR
 
 Phases, each of which raises on failure (exit code not 0, no result line):
 
@@ -29,9 +29,21 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    launch counts reset just before and read after, each round's launches
    checked per codec, round 1's codec re-applied with the plain kernels;
    then timed rounds of every codec and layout, and the flat pack's cost.
+6. mobilenet: the JAX package's flagship round (MobileNet at its published
+   widths and full depth, P = 3,217,226 in 83 leaves, the same data,
+   clients, steps, batch and dtype): a small MobileNet round on the card
+   against the same round on the CPU, both with the global model in f64;
+   then 3 rounds each of per-leaf none, topk and int8 and flat topk and
+   rotq with the counts reset before and read after (83 K1, 83 K2, 1 K1,
+   2 K3 a round, 0 of the others), round 1's codec re-applied with the
+   plain kernels, finite losses and BatchNorm statistics; one gather-layout
+   round and one server-adam round; timed rounds of every case, with the
+   peak device memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
+Each kernel's ``launches`` there is the sum over the two main paths, the
+smallcnn slice and the MobileNet round; ``launches_by_path`` has each.
 """
 
 from __future__ import annotations
@@ -40,19 +52,26 @@ import argparse
 import collections
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# The MobileNet round fills most of the card; segments that grow keep the
+# caching allocator from fragmenting it. Read at the first allocation.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
-from fedtpu_torch import DataConfig, FedConfig, Federation, RoundConfig, models
-from fedtpu_torch.data import datasets
-from fedtpu_torch.ops import compression, flat, kernels
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from fedtpu_torch import DataConfig, FedConfig, Federation, RoundConfig, models  # noqa: E402
+from fedtpu_torch.core.round import init_state  # noqa: E402
+from fedtpu_torch.data import datasets  # noqa: E402
+from fedtpu_torch.ops import compression, flat, kernels  # noqa: E402
 
 NUM_CLIENTS = 64
 BATCH = 128
@@ -93,16 +112,20 @@ KERNEL_INFO = {
     ),
 }
 
-# K3's shapes: the rotq round's row first (the main path: timed), then
-# MobileNet's 2^22 row (timed too), the smallest width, widths around the
+# K3's shapes: the smallcnn rotq round's row first (timed), then the
+# MobileNet rotq round's [64, 2^22] and an [8, 2^22] (both timed), the
+# smallest width, widths around the
 # kernel's 2^13-element tile (the widest one-phase row, the narrowest
 # two-phase one), row counts that are not a multiple of the lag between its
 # phases, and a 2^21 row. The same list as tests/test_torch_cuda.py.
 HADAMARD_SHAPES = [
-    (64, 2**20), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13), (64, 2**14),
-    (3, 2**20), (65, 2**14), (1, 2**13), (2, 2**21),
+    (64, 2**20), (64, 2**22), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13),
+    (64, 2**14), (3, 2**20), (65, 2**14), (1, 2**13), (2, 2**21),
 ]
 FLAT_P = 545_152  # smallcnn's lane-padded flat row
+MOBILENET_FLAT_P = 3_217_280  # MobileNet's: P = 3,217,226 lane-padded
+MOBILENET_LEAVES = 83
+MOBILENET_TIMED_ROUNDS = 3
 
 
 def log(msg: str) -> None:
@@ -157,8 +180,8 @@ def build_phase():
 # ------------------------------------------------------------ 3. kernels
 
 
-def smallcnn_leaf_sizes():
-    model = models.create("smallcnn", 10)
+def leaf_sizes(model_name: str):
+    model = models.create(model_name, 10)
     return {k: p.numel() for k, p in model.named_parameters()}
 
 
@@ -222,48 +245,54 @@ def _bound(bytes_moved, ops, peaks):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
+def _per_round(name, wrapper, plain, rng, dev, shapes, peaks):
+    """Bit-equality at every shape; kernel and plain times, bytes and
+    operations summed over one round's launches at ``shapes``."""
+    info = KERNEL_INFO[name]
+    max_err = ms = plain_ms = bytes_moved = ops = 0.0
+    for rows, cols in shapes:
+        x, v = _inputs(name, rng, rows, cols, dev)
+        max_err = max(max_err, _check_bits(name, wrapper, plain, x, v))
+        ms += _time_ms(lambda: wrapper(x, v))
+        plain_ms += _time_ms(lambda: plain(x, v))
+        bytes_moved += rows * cols * info["bytes_per_elem"] + rows * info["bytes_per_row"]
+        ops += rows * cols * info["ops_per_elem"]
+    bound_ms, bound_by = _bound(bytes_moved, ops, peaks)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": bytes_moved, "launches_per_round": len(shapes)}, max_err
+
+
+def _check_bits(name, wrapper, plain, x, v) -> float:
+    got = _as_tuple(wrapper(x, v))
+    want = _as_tuple(plain(x, v))
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        err = max(err, float((g - w).abs().max()))
+        if not _bits_equal(g, w):
+            raise RuntimeError(f"kernels: {name} differs from its plain version at {tuple(x.shape)}")
+    return err
+
+
 def kernel_phase(peaks):
-    """K1 and K2 at the per-leaf round's shapes (timed, summed over one
-    round's eight leaves) and ragged ones; K1 also at the flat row."""
+    """K1 and K2 at the per-leaf rounds' shapes (timed, summed over one
+    round's leaves: smallcnn's 8, MobileNet's 83) and ragged ones; K1 also
+    at both flat rows."""
     dev = torch.device("cuda")
-    leaves = smallcnn_leaf_sizes()
     ragged = [(1, 1), (1, 700), (3, 257), (2, 1), (64, 1000), (5, 65537)]
     rng = np.random.default_rng(0)
+    per_leaf = {m: [(NUM_CLIENTS, c) for c in leaf_sizes(m).values()] for m in ("smallcnn", "mobilenet")}
+    if len(per_leaf["mobilenet"]) != MOBILENET_LEAVES:
+        raise RuntimeError(f"kernels: MobileNet has {len(per_leaf['mobilenet'])} leaves")
     results = {}
     for name in ("threshold_feedback", "quantdequant_int8"):
         wrapper, plain = kernels.KERNELS[name]
         info = KERNEL_INFO[name]
-        max_err = 0.0
-        ms = plain_ms = bytes_moved = ops = 0.0
-        per_leaf = {}
-        flat = [(NUM_CLIENTS, FLAT_P)] if name == "threshold_feedback" else []
-        shapes = [(NUM_CLIENTS, c) for c in leaves.values()] + flat + ragged
-        for i, (rows, cols) in enumerate(shapes):
-            x, v = _inputs(name, rng, rows, cols, dev)
-            got = _as_tuple(wrapper(x, v))
-            want = _as_tuple(plain(x, v))
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                max_err = max(max_err, float((g - w).abs().max()))
-                if not _bits_equal(g, w):
-                    raise RuntimeError(f"kernels: {name} differs from its plain version at {rows}x{cols}")
-            if i > len(leaves) + len(flat) - 1:
-                continue
-            k = _time_ms(lambda: wrapper(x, v))
-            p = _time_ms(lambda: plain(x, v))
-            b = rows * cols * info["bytes_per_elem"] + rows * info["bytes_per_row"]
-            o = rows * cols * info["ops_per_elem"]
-            if i < len(leaves):  # the per-leaf round: summed over its leaves
-                ms += k
-                plain_ms += p
-                bytes_moved += b
-                ops += o
-                per_leaf[f"{rows}x{cols}"] = {"ms": k, "plain_ms": p}
-            else:  # the flat round's single launch
-                flat_bound, _ = _bound(b, o, peaks)
-                flat_row = {"flat_shape": [rows, cols], "flat_ms": k, "flat_plain_ms": p,
-                            "flat_bound_ms": flat_bound, "flat_bytes": b}
-        bound_ms, bound_by = _bound(bytes_moved, ops, peaks)
+        small, err = _per_round(name, wrapper, plain, rng, dev, per_leaf["smallcnn"], peaks)
+        mobile, err2 = _per_round(name, wrapper, plain, rng, dev, per_leaf["mobilenet"], peaks)
+        max_err = max(err, err2)
+        for rows, cols in ragged:
+            max_err = max(max_err, _check_bits(name, wrapper, plain, *_inputs(name, rng, rows, cols, dev)))
         results[name] = {
             "name": name,
             "route": "cuda",
@@ -272,22 +301,27 @@ def kernel_phase(peaks):
             "tpu_function": info["tpu_function"],
             "bitwise_equal": True,
             "max_abs_err": max_err,
-            "ms": ms,
-            "kernel_ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "bytes": bytes_moved,
+            "ms": small["ms"],
+            "kernel_ms": small["ms"],
+            "plain_ms": small["plain_ms"],
+            "bound_ms": small["bound_ms"],
+            "bound_by": small["bound_by"],
+            "bytes": small["bytes"],
             "library_ms": None,  # no single PyTorch call computes this function
-            "per": f"one per-leaf round (eight launches, {NUM_CLIENTS} clients)",
+            "per": f"one smallcnn per-leaf round (eight launches, {NUM_CLIENTS} clients)",
+            "mobilenet_per_leaf_round": mobile,
         }
-        if flat:
-            results[name].update(flat_row)
+        if name == "threshold_feedback":
+            for model, cols in (("smallcnn", FLAT_P), ("mobilenet", MOBILENET_FLAT_P)):
+                flat_row, _ = _per_round(name, wrapper, plain, rng, dev, [(NUM_CLIENTS, cols)], peaks)
+                results[name][f"{model}_flat_row"] = {"shape": [NUM_CLIENTS, cols], **flat_row}
         log(
-            f"kernels: {name} bit-equal at {len(shapes)} shapes; one round's 8 leaves: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bytes_moved / 1e6:.1f} MB) | per leaf {json.dumps(per_leaf)}"
-            + (f" | flat row: {json.dumps(flat_row)}" if flat else "")
+            f"kernels: {name} bit-equal at {8 + MOBILENET_LEAVES + len(ragged)}+ shapes; "
+            f"one smallcnn round's 8 leaves: kernel {small['ms']:.4f} ms, plain "
+            f"{small['plain_ms']:.4f} ms, bound {small['bound_ms']:.4f} ms; one MobileNet "
+            f"round's 83 leaves: {json.dumps(mobile)}"
+            + "".join(f" | {m} flat row: {json.dumps(results[name][f'{m}_flat_row'])}"
+                      for m in ("smallcnn", "mobilenet") if f"{m}_flat_row" in results[name])
         )
     return results
 
@@ -322,6 +356,19 @@ def _hadamard_rates(ms, rows, h, peaks):
         "implied_tb_per_s": call_bytes / ms / 1e9,
         "bytes_at_peak_rate_mb": ms * 1e-3 * peaks[0] / 1e6,
         "call_bytes_mb": call_bytes / 1e6,
+    }
+
+
+def _hadamard_round(fwd, inv, rows, h, peaks):
+    """One rotq round's two K3 calls at ``[rows, h]``: times beside the
+    bound."""
+    call_bytes, call_bound, bound_by = _hadamard_call(rows, h, peaks)
+    return {
+        "shape": [rows, h], "ms": fwd[0] + inv[0], "plain_ms": fwd[1] + inv[1],
+        "bound_ms": 2 * call_bound, "bound_by": bound_by, "bytes": 2 * call_bytes,
+        "forward_ms": fwd[0], "inverse_ms": inv[0], "call_bound_ms": call_bound,
+        "forward_share_of_bound": call_bound / fwd[0],
+        "inverse_share_of_bound": call_bound / inv[0],
     }
 
 
@@ -370,10 +417,10 @@ def hadamard_phase(peaks):
                     f"kernels: hadamard_rotate (inverse={inverse}) differs from its "
                     f"plain version at {rows}x{h}"
                 )
-            if i < 2:
+            if i < 3:
                 timed[(i, inverse)] = (
                     _time_ms(lambda: wrapper(y, signs, inverse=inverse)),
-                    _time_ms(lambda: plain(y, signs, inverse)) if i == 0 else None,
+                    _time_ms(lambda: plain(y, signs, inverse), runs=5, calls=2) if i < 2 else None,
                 )
         if i == 0:
             floors = _floors(wrapper, y, signs)
@@ -383,7 +430,7 @@ def hadamard_phase(peaks):
         if not torch.allclose(back, normal, rtol=1e-5, atol=1e-5):
             raise RuntimeError(f"kernels: hadamard_rotate round trip at {rows}x{h} off by {err}")
         log(f"kernels: hadamard_rotate {rows}x{h}: forward and inverse bit-equal; round trip max err {err:.3g}")
-    for i, (rows, h) in enumerate(HADAMARD_SHAPES[:2]):
+    for i, (rows, h) in enumerate(HADAMARD_SHAPES[:3]):
         for inverse in (False, True):
             rates = _hadamard_rates(timed[(i, inverse)][0], rows, h, peaks)
             log(
@@ -418,7 +465,8 @@ def hadamard_phase(peaks):
         "call_bound_ms": call_bound,
         "forward_share_of_bound": call_bound / fwd[0],
         "inverse_share_of_bound": call_bound / inv[0],
-        "mobilenet_row_ms": {"forward": timed[(1, False)][0], "inverse": timed[(1, True)][0]},
+        "mobilenet_rotq_round": _hadamard_round(timed[(1, False)], timed[(1, True)], *HADAMARD_SHAPES[1], peaks),
+        "rows8_2p22_ms": {"forward": timed[(2, False)][0], "inverse": timed[(2, True)][0]},
         **floors,
     }
     log(
@@ -454,7 +502,7 @@ def _injected(codec: compression.Compressor, draws) -> compression.Compressor:
     return codec._replace(apply_flat=apply_flat)
 
 
-def _numpy_draws(codec_name):
+def _numpy_draws(codec_name, clients=4):
     """Seeded numpy draws per round: rotq's signs and uniforms, randk's
     coordinates; none for the unseeded codecs."""
 
@@ -462,7 +510,7 @@ def _numpy_draws(codec_name):
         rng = np.random.default_rng(1000 + round_idx)
         if codec_name == "rotq":
             signs = (rng.integers(0, 2, size=lay.padded) * 2 - 1).astype(np.float32)
-            unif = rng.random((4, lay.padded), dtype=np.float32)
+            unif = rng.random((clients, lay.padded), dtype=np.float32)
             return {"signs": torch.from_numpy(signs), "uniforms": torch.from_numpy(unif)}
         k = max(1, math.ceil(TOPK_FRACTION * lay.total))
         return {"indices": torch.from_numpy(rng.choice(lay.total, size=k, replace=False))}
@@ -516,21 +564,90 @@ def reference_phase():
         )
 
 
+# (codec, layout) -> the params' atol: the MobileNet reference rounds. Both
+# devices keep the global model in f64: at init, 27 BatchNorms over
+# 4-example batches make MobileNet's gradient so ill-conditioned that two
+# f32 summation orders (cuDNN's and the CPU's) part by far more than any
+# tolerance within a round; in f64 the codecs (f32 on both) see nearly the
+# same deltas. A last-bit difference of the f32 row can still move a
+# rotated coordinate across a stochastic-rounding step, which moves every
+# coordinate of that client's row by step / 2048 (about 6e-6 here): rotq's
+# params are held to 2e-4, some thirty such steps.
+MOBILENET_REFERENCE_CASES = {
+    ("none", "per_leaf"): 1e-5, ("topk", "per_leaf"): 1e-5,
+    ("int8", "per_leaf"): 1e-5, ("rotq", "flat"): 2e-4,
+}
+
+
+def mobilenet_reference_phase():
+    """A small MobileNet round (2 clients, batch 4, 2 steps, one of them
+    masked) on the card against the same round on the CPU, from the same
+    init in f64: params and BatchNorm statistics within rtol=1e-4 and the
+    case's atol (1e-5 for the statistics) on all but 0.1% of
+    coordinates."""
+    rng = np.random.default_rng(2)
+    images = rng.standard_normal((16, 32, 32, 3), dtype=np.float32)
+    labels = rng.integers(0, 10, size=16).astype(np.int32)
+    for (comp, layout), params_atol in MOBILENET_REFERENCE_CASES.items():
+        cfg = RoundConfig(
+            model="mobilenet",
+            data=DataConfig(dataset="cifar10", batch_size=4, partition="iid", augment=False),
+            fed=FedConfig(num_clients=2, compression=comp, delta_layout=layout),
+            steps_per_round=2,
+        )
+        codec = compression.make_compressor(cfg.fed)
+        if comp == "rotq":
+            codec = _injected(codec, _numpy_draws(comp, clients=2))
+        cpu = Federation(cfg, seed=0, data=(images, labels), device="cpu", compressor=codec)
+        gpu = Federation(cfg, seed=0, data=(images, labels), compressor=codec)
+        init = dict(params=cpu.state.params, batch_stats=cpu.state.batch_stats, dtype=torch.float64)
+        cpu.state = init_state(cpu.model, cfg, codec, **init)
+        gpu.state = init_state(gpu.model, cfg, codec, **init)
+        cpu_b, gpu_b = cpu.device_batch(0, offset=1), gpu.device_batch(0, offset=1)
+        mask = torch.tensor([[True, True], [True, False]])
+        cpu.step(cpu_b._replace(step_mask=mask))
+        gpu.step(gpu_b._replace(step_mask=mask.cuda()))
+        bad = total = 0
+        worst = 0.0
+        for part, atol in (("params", params_atol), ("batch_stats", 1e-5)):
+            for k, w in getattr(cpu.state, part).items():
+                g = getattr(gpu.state, part)[k].cpu()
+                if g.dtype != torch.float64 or not torch.isfinite(g).all():
+                    raise RuntimeError(f"mobilenet reference: {layout} {comp} {k}: {g.dtype}, finite {bool(torch.isfinite(g).all())}")
+                bad += int(((g - w).abs() > atol + 1e-4 * w.abs()).sum())
+                total += w.numel()
+                worst = max(worst, float((g - w).abs().max()))
+        if bad > 0.001 * total:
+            raise RuntimeError(
+                f"mobilenet reference: {layout} {comp}: {bad} of {total} coordinates differ from the CPU"
+            )
+        log(
+            f"mobilenet reference: {layout} {comp}: card vs CPU after one f64 round, "
+            f"{bad} of {total} coordinates (params and statistics) beyond tolerance, "
+            f"largest difference {worst:.3g}"
+        )
+
+
 # -------------------------------------------------------------- 5. slice
 
 
-def bench_cfg(compression_name: str, layout: str = "per_leaf") -> RoundConfig:
-    """bench.py's configuration, with the update codec switched on."""
+def bench_cfg(
+    compression_name: str, layout: str = "per_leaf", model: str = "smallcnn",
+    data_kw=None, fed_kw=None,
+) -> RoundConfig:
+    """bench.py's configuration (smallcnn) or the JAX package's flagship
+    round (``tools/bench_model_tpu.py``: MobileNet, the same clients, data,
+    steps and dtype), with the update codec switched on."""
     return RoundConfig(
-        model="smallcnn",
+        model=model,
         num_classes=10,
         data=DataConfig(
             dataset="cifar10", batch_size=BATCH, partition="iid",
-            num_examples=NUM_CLIENTS * STEPS * BATCH,
+            num_examples=NUM_CLIENTS * STEPS * BATCH, **(data_kw or {}),
         ),
         fed=FedConfig(
             num_clients=NUM_CLIENTS, compression=compression_name,
-            topk_fraction=TOPK_FRACTION, delta_layout=layout,
+            topk_fraction=TOPK_FRACTION, delta_layout=layout, **(fed_kw or {}),
         ),
         steps_per_round=STEPS,
         dtype="bfloat16",
@@ -574,13 +691,15 @@ class Recorder:
 
 
 def _tensors(x):
+    """Every tensor of a tensor, a (nested) dict of them, or ``()``."""
     if isinstance(x, torch.Tensor):
         return [x]
-    return list(x.values()) if isinstance(x, dict) else []
+    return [t for v in x.values() for t in _tensors(v)] if isinstance(x, dict) else []
 
 
 def _state_tensors(state):
     yield from state.params.values()
+    yield from state.batch_stats.values()
     yield from state.opt_state.values()
     yield from _tensors(state.comp_state)
 
@@ -589,35 +708,47 @@ def _launch_counts():
     return {name: wrapper.launches for name, (wrapper, _) in kernels.KERNELS.items()}
 
 
-# (codec, layout) -> (kernel launched, launches per round, the same codec
-# on the plain kernels).
-SLICE_CODECS = {
-    ("topk", "per_leaf"): ("threshold_feedback", 8, lambda: compression.make_topk(
-        TOPK_FRACTION, threshold=kernels.threshold_feedback_plain)),
-    ("int8", "per_leaf"): ("quantdequant_int8", 8, lambda: compression.make_int8(
-        quantdequant=kernels.quantdequant_int8_plain)),
-    ("rotq", "flat"): ("hadamard_rotate", 2, lambda: compression.make_rotq(
-        4, rotate=kernels.hadamard_rotate_plain)),
-    ("topk", "flat"): ("threshold_feedback", 1, lambda: compression.make_topk(
-        TOPK_FRACTION, layout="flat", threshold=kernels.threshold_feedback_plain)),
-    ("int8", "flat"): (None, 0, lambda: compression.make_int8(layout="flat")),
-}
+def slice_codecs(leaves: int):
+    """(codec, layout) -> (kernel launched, launches per round, the same
+    codec on the plain kernels), for a model of ``leaves`` parameter
+    leaves."""
+    return {
+        ("topk", "per_leaf"): ("threshold_feedback", leaves, lambda: compression.make_topk(
+            TOPK_FRACTION, threshold=kernels.threshold_feedback_plain)),
+        ("int8", "per_leaf"): ("quantdequant_int8", leaves, lambda: compression.make_int8(
+            quantdequant=kernels.quantdequant_int8_plain)),
+        ("rotq", "flat"): ("hadamard_rotate", 2, lambda: compression.make_rotq(
+            4, rotate=kernels.hadamard_rotate_plain)),
+        ("topk", "flat"): ("threshold_feedback", 1, lambda: compression.make_topk(
+            TOPK_FRACTION, layout="flat", threshold=kernels.threshold_feedback_plain)),
+        ("int8", "flat"): (None, 0, lambda: compression.make_int8(layout="flat")),
+        ("none", "per_leaf"): (None, 0, None),
+    }
 
 
-def slice_phase(data):
-    """The main path: CHECK_ROUNDS rounds per codec and layout through
-    Federation.step. Returns the engines (for timing) and the launch counts
-    of this run."""
+SMALLCNN_SLICE = [("topk", "per_leaf"), ("int8", "per_leaf"), ("rotq", "flat"), ("topk", "flat"), ("int8", "flat")]
+MOBILENET_SLICE = [("none", "per_leaf"), ("topk", "per_leaf"), ("int8", "per_leaf"), ("topk", "flat"), ("rotq", "flat")]
+
+
+def slice_phase(data, model="smallcnn", cases=SMALLCNN_SLICE, leaves=8):
+    """A main path: CHECK_ROUNDS rounds per codec and layout through
+    Federation.step, the launch counts set to 0 just before and read just
+    after. Returns the engines (for timing) and this path's counts."""
     feds = {}
+    codecs = slice_codecs(leaves)
     kernels.reset_launch_counts()
-    for (codec, layout), (counted, per_round, make_plain) in SLICE_CODECS.items():
-        cfg = bench_cfg(codec, layout)
-        rec = Recorder(compression.make_compressor(cfg.fed))
-        fed = Federation(cfg, seed=0, data=data, compressor=rec.compressor())
-        tag = f"{layout} {codec}"
+    for codec, layout in cases:
+        counted, per_round, make_plain = codecs[(codec, layout)]
+        cfg = bench_cfg(codec, layout, model)
+        rec = Recorder(compression.make_compressor(cfg.fed)) if make_plain else None
+        fed = Federation(cfg, seed=0, data=data, compressor=rec.compressor() if rec else None)
+        tag = f"{model} {layout} {codec}"
         for r in range(CHECK_ROUNDS):
             before = _launch_counts()
-            rec.armed = r == 1
+            if rec:
+                rec.armed = r == 1
+            if model != "smallcnn":
+                torch.cuda.reset_peak_memory_stats()
             m = fed.step()
             torch.cuda.synchronize()
             after = _launch_counts()
@@ -634,25 +765,72 @@ def slice_phase(data):
             for t in _state_tensors(fed.state):
                 if t.device.type != "cuda":
                     raise RuntimeError(f"slice {tag}: a state tensor is on {t.device}")
+                if not bool(torch.isfinite(t).all()):
+                    raise RuntimeError(f"slice {tag} round {r}: a state tensor is not finite")
             if any(not bool(e.any()) for e in _tensors(fed.state.comp_state)):
                 raise RuntimeError(f"slice {tag} round {r}: a residual is all zero")
+            peak = f" peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB" if model != "smallcnn" else ""
             log(
                 f"slice {tag} round {r}: loss {loss:.6f} acc {float(m.accuracy):.4f} "
                 f"update_norm {float(m.update_norm):.6f} launches "
-                f"{ {k: after[k] - before[k] for k in after} }"
+                f"{ {k: after[k] - before[k] for k in after} }{peak}"
             )
-        args, kw, out, new_state = rec.seen
-        plain = make_plain()
-        out_p, new_p = (plain.apply_flat if layout == "flat" else plain.apply)(*args, **kw)
-        if layout == "flat":
-            out, out_p, new_state, new_p = {"": out}, {"": out_p}, {"": new_state}, {"": new_p}
-        for k in out:
-            if not (_bits_equal(out[k], out_p[k]) and _bits_equal(new_state[k], new_p[k])):
-                raise RuntimeError(f"slice {tag}: kernel codec differs from plain at {k!r}")
-        log(f"slice {tag}: round 1's codec output and residuals bit-equal to the plain codec")
-        rec.seen = None
+        if rec:
+            args, kw, out, new_state = rec.seen
+            plain = make_plain()
+            out_p, new_p = (plain.apply_flat if layout == "flat" else plain.apply)(*args, **kw)
+            if layout == "flat":
+                out, out_p, new_state, new_p = {"": out}, {"": out_p}, {"": new_state}, {"": new_p}
+            for k in out:
+                if not (_bits_equal(out[k], out_p[k]) and _bits_equal(new_state[k], new_p[k])):
+                    raise RuntimeError(f"slice {tag}: kernel codec differs from plain at {k!r}")
+            log(f"slice {tag}: round 1's codec output and residuals bit-equal to the plain codec")
+            rec.seen = None
         feds[(codec, layout)] = fed
     return feds, _launch_counts()
+
+
+def mobilenet_options_phase(data, card):
+    """One flagship round each on the gather layout and with the adam
+    server optimizer (no codec): state on the card and finite, the layout
+    and the server state what the config asks for; a second round timed."""
+    out = {}
+    for label, cfg in (
+        ("gather", bench_cfg("none", model="mobilenet", data_kw={"device_layout": "gather"})),
+        ("adam", bench_cfg("none", model="mobilenet", fed_kw={"server_optimizer": "adam", "server_lr": 0.01})),
+    ):
+        fed = Federation(cfg, seed=0, data=data)
+        fed.run_on_device(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = fed.run_on_device(1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        state = list(_state_tensors(fed.state)) + list(_tensors(fed.state.server_opt_state))
+        if not torch.isfinite(m.loss).all() or any(
+            t.device.type != "cuda" or not bool(torch.isfinite(t).all()) for t in state
+        ):
+            raise RuntimeError(f"mobilenet {label}: non-finite or off-card state")
+        if label == "gather" and fed.layout != "gather":
+            raise RuntimeError(f"mobilenet gather: the engine took the {fed.layout} layout")
+        if label == "adam" and int(fed.state.server_opt_state["count"]) != 2:
+            raise RuntimeError("mobilenet adam: the server optimizer did not step twice")
+        out[label] = {"round_s": secs, "loss": float(m.loss[-1]), "card": card}
+        log(f"mobilenet {label}: " + json.dumps(out[label]))
+        del fed
+    return out
+
+
+def mobilenet_flops():
+    """Model FLOPs of one flagship round: 3x the forward's (the backward
+    twice the forward), the forward counted by torch.utils.flop_counter on
+    meta tensors, per example, times the round's examples."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = models.create("mobilenet", 10).to("meta")
+    with FlopCounterMode(display=False) as counter:
+        model(torch.empty((1, 32, 32, 3), device="meta"))
+    return 3 * counter.get_total_flops() * NUM_CLIENTS * STEPS * BATCH
 
 
 TIMED_CASES = (
@@ -661,44 +839,43 @@ TIMED_CASES = (
 )
 
 
-def timing_phase(feds, data, card):
-    """Rounds/s of each codec and layout (and uncompressed) after the
-    checked rounds, through Federation.run_on_device, host clock around a
-    synchronize: TIMING_REPEATS turns over every case (the order reversed
-    on odd turns), the median reported with every turn."""
-    feds = dict(feds)
-    for layout in ("per_leaf", "flat"):
-        feds[("none", layout)] = Federation(bench_cfg("none", layout), seed=0, data=data)
-        feds[("none", layout)].run_on_device(1)  # warm-up
-    secs = {case: [] for case in TIMED_CASES}
+def timing_phase(feds, card, cases=TIMED_CASES, rounds=TIMED_ROUNDS, label="smallcnn"):
+    """Rounds/s of each case after the checked rounds, through
+    Federation.run_on_device, host clock around a synchronize:
+    TIMING_REPEATS turns over every case (the order reversed on odd turns),
+    the median reported with every turn, and each case's peak device
+    memory."""
+    secs = {case: [] for case in cases}
     peak = {}
     for turn in range(TIMING_REPEATS):
-        for case in TIMED_CASES[:: -1 if turn % 2 else 1]:
+        for case in cases[:: -1 if turn % 2 else 1]:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            m = feds[case].run_on_device(TIMED_ROUNDS)
+            m = feds[case].run_on_device(rounds)
             torch.cuda.synchronize()
             secs[case].append(time.perf_counter() - t0)
             peak[case] = torch.cuda.max_memory_allocated() / 1e9
             if not torch.isfinite(m.loss).all():
-                raise RuntimeError(f"timing {case}: non-finite loss {m.loss.tolist()}")
+                raise RuntimeError(f"timing {label} {case}: non-finite loss {m.loss.tolist()}")
     rates = {}
     for (codec, layout), dts in secs.items():
-        per_s = [TIMED_ROUNDS / dt for dt in dts]
+        per_s = [rounds / dt for dt in dts]
         rates[(codec, layout)] = {
+            "model": label,
             "compression": codec,
             "delta_layout": layout,
-            "rounds": TIMED_ROUNDS,
+            "rounds": rounds,
             "repeats": TIMING_REPEATS,
             "rounds_per_s": statistics.median(per_s),
             "rounds_per_s_each": per_s,
             "client_epochs_per_s": statistics.median(per_s) * NUM_CLIENTS,
+            "client_epochs_per_s_each": [r * NUM_CLIENTS for r in per_s],
             "peak_mem_gb": peak[(codec, layout)],
             "card": card,
         }
         log("timing: " + json.dumps(rates[(codec, layout)]))
-    return feds, rates
+    return rates
 
 
 def pack_phase(fed, peaks, card):
@@ -733,7 +910,9 @@ KERNEL_GROUPS = (
     ("max-pool backward", "max_pool_backward"),
     ("max-pool forward", "max_pool_forward"),
     ("layout conversion", "nchwToNhwc|nhwcToNchw"),
-    ("convolution", "convolve|xmma|cutlass|wgrad|dgrad|gemm"),
+    ("depthwise or grouped convolution", "(?i)depthwise|grouped|dgrad2d_grouped|conv2d_c1_k1"),
+    ("convolution", "convolve|xmma|cutlass|wgrad|dgrad|gemm|implicit_convolve|sm90"),
+    ("reductions (BatchNorm statistics, means)", "reduce_kernel"),
     ("copy", "copy|Memcpy"),
     ("K1 threshold_feedback", "threshold_feedback"),
     ("K2 quantdequant_int8", "quantdequant_int8"),
@@ -766,12 +945,12 @@ def _trace_summary(trace_path: Path, rounds: int):
     return by_name, busy / 1e3, span / 1e3
 
 
-def profile_phase(fed, out_dir: Path, label: str):
-    """torch.profiler over two rounds: device time by kernel, by group, and
-    the device's idle share of the window. Returns ms per round by kernel."""
+def profile_phase(fed, out_dir: Path, label: str, rounds: int = 2):
+    """torch.profiler over ``rounds`` rounds: device time by kernel, by
+    group, and the device's idle share of the window. Returns ms per round
+    by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    rounds = 2
     fed.run_on_device(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -782,9 +961,12 @@ def profile_phase(fed, out_dir: Path, label: str):
     out_dir.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     (out_dir / f"profile_{label}.txt").write_text(table)
-    trace = out_dir / f"profile_{label}_trace.json"
-    prof.export_chrome_trace(str(trace))
-    by_name, busy_ms, span_ms = _trace_summary(trace, rounds)
+    # The chrome trace of a MobileNet round runs to hundreds of MB: it is
+    # read here and not kept; the table above stays in out_dir.
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        by_name, busy_ms, span_ms = _trace_summary(trace, rounds)
     groups = collections.Counter()
     for name, ms in by_name.items():
         group = next(g for g, pattern in KERNEL_GROUPS if re.search(pattern, name))
@@ -816,8 +998,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--profile", metavar="DIR",
-        help="also profile two rounds each of per-leaf topk, flat rotq and "
-        "flat int8; write the tables and traces to DIR",
+        help="also profile two rounds each of smallcnn per-leaf topk, flat "
+        "rotq and flat int8 and one round each of MobileNet per-leaf topk "
+        "and flat rotq; write the tables to DIR",
     )
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -826,13 +1009,14 @@ def main(argv=None) -> int:
     results = kernel_phase(peaks)
     results["hadamard_rotate"] = hadamard_phase(peaks)
     reference_phase()
+    mobilenet_reference_phase()
     data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
-    feds, launches = slice_phase(data)
-    for kname, count in launches.items():
-        if count == 0:
-            raise RuntimeError(f"slice: {kname} was never launched on the main path")
-        results[kname]["launches"] = count
-    feds, _ = timing_phase(feds, data, smi)
+    paths = {}
+    feds, paths["smallcnn"] = slice_phase(data)
+    for layout in ("per_leaf", "flat"):
+        feds[("none", layout)] = Federation(bench_cfg("none", layout), seed=0, data=data)
+        feds[("none", layout)].run_on_device(1)  # warm-up
+    timing_phase(feds, smi)
     pack_phase(feds[("none", "flat")], peaks, smi)
     if args.profile:
         base = profile_phase(feds[("topk", "per_leaf")], Path(args.profile), "per_leaf_topk")
@@ -840,6 +1024,28 @@ def main(argv=None) -> int:
             label = f"flat_{codec}"
             profile_diff(base, profile_phase(feds[(codec, "flat")], Path(args.profile), label),
                          label, "per_leaf_topk")
+    del feds
+    torch.cuda.empty_cache()
+    mfeds, paths["mobilenet"] = slice_phase(data, "mobilenet", MOBILENET_SLICE, MOBILENET_LEAVES)
+    for kname in kernels.KERNELS:
+        for path, counts in paths.items():
+            if counts[kname] == 0:
+                raise RuntimeError(f"slice: {kname} was never launched on the {path} path")
+        results[kname]["launches"] = sum(counts[kname] for counts in paths.values())
+        results[kname]["launches_by_path"] = {path: counts[kname] for path, counts in paths.items()}
+    flops = mobilenet_flops()
+    rates = timing_phase(mfeds, smi, MOBILENET_SLICE, MOBILENET_TIMED_ROUNDS, "mobilenet")
+    for rate in rates.values():
+        rate["model_tflop_per_round"] = flops / 1e12
+        rate["model_tflop_per_s"] = flops * rate["rounds_per_s"] / 1e12
+    log(f"mobilenet: {flops / 1e12:.3f} TFLOP of model FLOPs a round (3x the counted forward)")
+    if args.profile:
+        base = profile_phase(mfeds[("topk", "per_leaf")], Path(args.profile), "mobilenet_per_leaf_topk", rounds=1)
+        profile_diff(base, profile_phase(mfeds[("rotq", "flat")], Path(args.profile), "mobilenet_flat_rotq", rounds=1),
+                     "mobilenet_flat_rotq", "mobilenet_per_leaf_topk")
+    del mfeds
+    torch.cuda.empty_cache()
+    mobilenet_options_phase(data, smi)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -16,6 +16,7 @@ from typing import Optional
 
 
 ROTQ_BIT_WIDTHS = (1, 2, 4, 8)
+SERVER_OPTIMIZERS = ("none", "momentum", "adam", "yogi")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +56,7 @@ class DataConfig:
     augment_crop: bool = True
     seed: int = 0
     num_examples: Optional[int] = None
-    device_layout: str = "presharded"  # presharded | gather (not ported)
+    device_layout: str = "presharded"  # presharded | gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +89,11 @@ class FedConfig:
     error_feedback: bool = True
     delta_layout: str = "per_leaf"  # per_leaf | flat
     rotq_bits: int = 4  # 1 | 2 | 4 | 8
-    server_optimizer: str = "none"  # none | momentum, adam, yogi (not ported)
+    server_optimizer: str = "none"  # none | momentum | adam | yogi
+    server_lr: float = 1.0
+    server_momentum: float = 0.9  # momentum's decay; adam's and yogi's b1
+    server_beta2: float = 0.999
+    server_eps: float = 1e-8
     aggregator: str = "mean"  # mean | median, trimmed_mean, krum (not ported)
     dp_clip_norm: float = 0.0
     dp_noise_multiplier: float = 0.0
@@ -108,6 +113,7 @@ class RoundConfig:
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
     steps_per_round: int = 8
     dtype: str = "float32"  # activation dtype; params stay f32
+    remat: bool = False  # per-block rematerialisation (not ported)
 
 
 def resolve_compute_dtype(cfg: RoundConfig) -> str:
@@ -151,15 +157,17 @@ def validate(cfg: RoundConfig) -> RoundConfig:
         raise ValueError(
             f"rotq bits must be one of {ROTQ_BIT_WIDTHS}, got {fed.rotq_bits}"
         )
-    if data.device_layout == "gather":
-        raise not_ported("device_layout='gather'", "slice 3: gather layout")
-    if data.device_layout != "presharded":
-        raise ValueError(f"unknown device_layout {data.device_layout!r}")
-    if fed.server_optimizer != "none":
-        raise not_ported(
-            f"server_optimizer={fed.server_optimizer!r}",
-            "slice 4: server optimizers",
+    if data.device_layout not in ("presharded", "gather"):
+        raise ValueError(
+            f"unknown device_layout {data.device_layout!r}; have presharded | gather"
         )
+    if fed.server_optimizer not in SERVER_OPTIMIZERS:
+        raise ValueError(
+            f"unknown server_optimizer {fed.server_optimizer!r}; "
+            f"have {' | '.join(SERVER_OPTIMIZERS)}"
+        )
+    if cfg.remat:
+        raise not_ported("remat=True", "slice 7: round options")
     if fed.aggregator != "mean":
         raise not_ported(
             f"aggregator={fed.aggregator!r}", "slice 7: round options"

@@ -1,19 +1,24 @@
-"""Carry parameters between a flax tree and the port's torch models.
+"""Carry variables between a flax tree and the port's torch models.
 
-flax keeps ``{module: {"kernel", "bias"}}`` with Conv kernels HWIO and
-Dense kernels ``[in, out]``; torch keeps ``"module.weight"`` OIHW and
-``[out, in]``. Leaves map one to one (kernel and bias stay separate), so a
-per-leaf codec sees the same sets of coordinates in both packages.
+flax keeps nested ``{module: {... {leaf: array}}}`` trees, one per
+collection (``params``, ``batch_stats``), with Conv kernels HWIO and Dense
+kernels ``[in, out]``; torch keeps flat ``"module.sub.leaf"`` names, OIHW
+and ``[out, in]``. The functions here convert either collection: a leaf's
+torch name is its flax path joined by dots, ``kernel`` becomes ``weight``
+(permuted) and every other leaf (``bias``, BatchNorm's ``scale``, and the
+statistics ``mean`` and ``var``) keeps its name and layout. Leaves map one
+to one, so a per-leaf codec sees the same sets of coordinates in both
+packages.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-_TO_TORCH = {"kernel": "weight", "bias": "bias"}
+_TO_TORCH = {"kernel": "weight", "bias": "bias", "scale": "scale", "mean": "mean", "var": "var"}
 _TO_FLAX = {v: k for k, v in _TO_TORCH.items()}
 
 
@@ -39,33 +44,44 @@ def _permute(a: np.ndarray, table) -> np.ndarray:
     return a.transpose(table[a.ndim])
 
 
+def _leaves(tree: Mapping, path: Tuple[str, ...] = ()):
+    """``(path, leaf name, array)`` for every leaf of a nested flax tree."""
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path, key, value
+
+
 def from_flax(
-    params: Mapping[str, Mapping[str, np.ndarray]],
-    device: Optional[torch.device] = None,
+    tree: Mapping, device: Optional[torch.device] = None
 ) -> Dict[str, torch.Tensor]:
-    """flax ``params`` tree -> ``{"Conv_0.weight": tensor, ...}`` (f32,
-    contiguous, on ``device`` or the CPU). Leaves stacked over a leading
-    clients axis (deltas, residuals) convert the same way per client."""
+    """A flax ``params`` or ``batch_stats`` tree -> ``{"Conv_0.weight":
+    tensor, ...}`` (each leaf in its own dtype, contiguous, on ``device``
+    or the CPU). Leaves stacked over a leading clients axis (deltas,
+    residuals, momentum) convert the same way per client."""
     out = {}
-    for mod, leaves in params.items():
-        for leaf, value in leaves.items():
-            a = np.asarray(value, np.float32)
-            if leaf == "kernel":
-                a = _permute(a, _KERNEL_TO_TORCH)
-            out[f"{mod}.{_TO_TORCH[leaf]}"] = torch.tensor(
-                np.ascontiguousarray(a), device=device
-            )
+    for path, leaf, value in _leaves(tree):
+        a = np.asarray(value)
+        if leaf == "kernel":
+            a = _permute(a, _KERNEL_TO_TORCH)
+        out[".".join(path + (_TO_TORCH[leaf],))] = torch.tensor(
+            np.ascontiguousarray(a), device=device
+        )
     return out
 
 
-def to_flax(params: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
-    """Inverse of :func:`from_flax`: numpy arrays in flax's layout, a
-    leading clients axis kept where there is one."""
-    out: Dict[str, Dict[str, np.ndarray]] = {}
-    for name, t in params.items():
-        mod, leaf = name.rsplit(".", 1)
+def to_flax(tensors: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """Inverse of :func:`from_flax`: a nested tree of numpy arrays in
+    flax's layout, a leading clients axis kept where there is one."""
+    out: Dict[str, dict] = {}
+    for name, t in tensors.items():
+        *mods, leaf = name.split(".")
         a = t.detach().cpu().numpy()
         if leaf == "weight":
             a = _permute(a, _WEIGHT_TO_FLAX)
-        out.setdefault(mod, {})[_TO_FLAX[leaf]] = np.ascontiguousarray(a)
+        node = out
+        for mod in mods:
+            node = node.setdefault(mod, {})
+        node[_TO_FLAX[leaf]] = np.ascontiguousarray(a)
     return out

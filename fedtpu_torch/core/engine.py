@@ -2,15 +2,20 @@
 
 Builds the model, data, partition and round step from a
 :class:`fedtpu_torch.config.RoundConfig` and drives rounds on one device.
-The dataset goes to the device once, in the presharded layout and the
-compute dtype; each round takes one window of it per client. The engine
-runs on CUDA unless the caller names another device: without a card and
-without ``device="cpu"`` it raises, it never falls back to the CPU.
+The dataset goes to the device once, in the compute dtype and the layout
+``DataConfig.device_layout`` names (:mod:`fedtpu_torch.data.device`):
+presharded, where each round takes one window per client, or gather, where
+each round gathers its batches by index. A presharded layout that would
+store more than twice the balanced footprint falls back to gather with a
+warning, as fedtpu's engine does. The engine runs on CUDA unless the caller
+names another device: without a card and without ``device="cpu"`` it
+raises, it never falls back to the CPU.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -91,6 +96,19 @@ class Federation:
         self.state: FederatedState = init_state(self.model, cfg, compressor)
         self._round_step = make_round_step(self.model, cfg, compressor)
         self._shuffle = cfg.data.partition != "round_robin"
+        self.layout = cfg.data.device_layout
+        footprint = 2 * n * idx.shape[1]
+        if self.layout == "presharded" and footprint > 4 * len(images):
+            # clients * 2L rows, L the longest shard: a skewed partition
+            # would store far more than the balanced case's twice the data.
+            warnings.warn(
+                f"device_layout='presharded' would store "
+                f"{footprint / len(images):.1f}x the dataset (skewed "
+                f"partition: max shard {idx.shape[1]} of {len(images)} "
+                f"examples x {n} clients); falling back to 'gather'",
+                stacklevel=2,
+            )
+            self.layout = "gather"
         self._device_data = None
         self._generator = torch.Generator(self.device).manual_seed(seed)
         self._evaluate = make_eval_fn(self.model)
@@ -100,15 +118,27 @@ class Federation:
 
     # ------------------------------------------------------------- data
     def _ensure_device_data(self):
+        """``(images, labels)`` on the device in the compute dtype:
+        presharded ``[clients, 2L, F]`` rows, or the flat ``[N, F]`` set
+        with the assignment ``(idx, mask)`` for the gather layout."""
         if self._device_data is None:
             store = getattr(torch, resolve_compute_dtype(self.cfg))
-            xs_c, ys_c = device_data.preshard_arrays(
-                self.images, self.labels, self.client_idx, self.client_mask
-            )
+            if self.layout == "presharded":
+                xs, ys = device_data.preshard_arrays(
+                    self.images, self.labels, self.client_idx, self.client_mask
+                )
+                assign = ()
+            else:
+                xs = np.asarray(self.images, np.float32).reshape(len(self.images), -1)
+                ys = np.asarray(self.labels, np.int32)
+                assign = (
+                    torch.from_numpy(np.asarray(self.client_idx, np.int64)).to(self.device),
+                    torch.from_numpy(self.client_mask).to(self.device),
+                )
             self._device_data = (
-                torch.from_numpy(xs_c).to(self.device).to(store),
-                torch.from_numpy(ys_c).to(self.device),
-            )
+                torch.from_numpy(xs).to(self.device).to(store),
+                torch.from_numpy(ys).to(self.device),
+            ) + assign
         return self._device_data
 
     def _alive_for_round(self, round_idx: int) -> np.ndarray:
@@ -134,18 +164,37 @@ class Federation:
             self._alive_dev = (key, torch.tensor(alive, device=self.device))
         return self._alive_dev[1]
 
-    def device_batch(self, round_idx: int, offset: Optional[int] = None) -> RoundBatch:
-        """Round ``round_idx``'s batch from the device-resident presharded
-        data; ``offset`` overrides the round's rotation offset."""
-        images, labels = self._ensure_device_data()
-        if offset is None:
-            offset = device_data.round_offset(
-                labels.shape[1] // 2, self._shuffle, self.cfg.data.seed, round_idx
+    def device_batch(
+        self,
+        round_idx: int,
+        offset: Optional[int] = None,
+        keys: Optional[torch.Tensor] = None,
+    ) -> RoundBatch:
+        """Round ``round_idx``'s batch from the device-resident data.
+        ``offset`` overrides the presharded layout's rotation offset,
+        ``keys`` the gather layout's ``[clients, shard_len]`` sort keys."""
+        data = self._ensure_device_data()
+        shape, batch = tuple(self.images.shape[1:]), self.cfg.data.batch_size
+        if self.layout == "presharded":
+            images, labels = data
+            if offset is None:
+                offset = device_data.round_offset(
+                    labels.shape[1] // 2, self._shuffle, self.cfg.data.seed, round_idx
+                )
+            x, y = device_data.presharded_window(
+                images, labels, offset, self._steps, batch, shape
             )
-        x, y = device_data.presharded_window(
-            images, labels, offset, self._steps, self.cfg.data.batch_size,
-            tuple(self.images.shape[1:]),
-        )
+        else:
+            images, labels, idx, mask = data
+            if keys is None and self._shuffle:
+                keys = device_data.round_keys(
+                    tuple(idx.shape), self.cfg.data.seed, round_idx, self.device
+                )
+            take = device_data.round_take_indices(
+                idx, mask, self._steps * batch,
+                None if keys is None else keys.to(self.device),
+            )
+            x, y = device_data.gather_window(images, labels, take, self._steps, batch, shape)
         n = self.cfg.fed.num_clients
         return RoundBatch(
             x=x,
@@ -196,6 +245,7 @@ class Federation:
         xs, ys = batch_eval_arrays(images, labels, self.cfg.data.eval_batch_size)
         loss, acc = self._evaluate(
             self.state.params,
+            self.state.batch_stats,
             torch.from_numpy(np.asarray(xs, np.float32)).to(self.device),
             torch.from_numpy(np.asarray(ys, np.int64)).to(self.device),
         )

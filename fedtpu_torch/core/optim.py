@@ -36,5 +36,5 @@ def apply(
         buf = cfg.momentum * momentum[k] + decayed
         direction = decayed + cfg.momentum * buf if cfg.nesterov else buf
         new_params[k] = p - lr * direction
-        new_mom[k] = buf
+        new_mom[k] = buf.to(momentum[k].dtype)  # stored f32, as fedtpu stores it
     return new_params, new_mom

@@ -2,12 +2,15 @@
 the deltas, the weighted mean, the new global model.
 
 The port of ``fedtpu.core.round`` for the mean aggregator, the per-leaf and
-flat delta layouts and ``server_optimizer='none'`` (FedAvg applies the mean
-delta directly). On the flat layout the deltas are packed once into a
-``[clients, P]`` buffer (:mod:`fedtpu_torch.ops.flat`), the codec and the
-mean run on it, and the ``[P]`` mean is unpacked once. Everything stays on
-the state's device; the host supplies only the round's batch and learning
-rate.
+flat delta layouts and the server optimizers (:mod:`fedtpu_torch.core.
+server_opt`; ``'none'`` is FedAvg, which applies the mean delta directly).
+On the flat layout the deltas are packed once into a ``[clients, P]``
+buffer (:mod:`fedtpu_torch.ops.flat`), the codec and the mean run on it,
+and the ``[P]`` mean is unpacked once. BatchNorm's statistics are combined
+beside the params, as fedtpu does: each client's ``client - global`` delta
+goes through the same weighted mean, never through a codec, and the global
+statistics move by the mean delta. Everything stays on the state's device;
+the host supplies only the round's batch and learning rate.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 from torch import nn
 
 from fedtpu_torch.config import RoundConfig, validate
-from fedtpu_torch.core import optim
+from fedtpu_torch.core import optim, server_opt
 from fedtpu_torch.core.client import ClientOutput, make_local_update
 from fedtpu_torch.ops import flat as flat_ops
 
@@ -29,6 +32,8 @@ class FederatedState(NamedTuple):
     """Cross-round state.
 
     - ``params``: the global model, f32.
+    - ``batch_stats``: the global BatchNorm running statistics, f32
+      (``{}`` for a model without BatchNorm).
     - ``opt_state``: per-client momentum, ``[clients, ...]`` per leaf, kept
       across rounds as each reference client keeps its optimizer.
     - ``round_idx``: rounds completed (a host int: it drives the learning
@@ -37,12 +42,16 @@ class FederatedState(NamedTuple):
       a dict of ``[clients, ...]`` leaves per leaf, one ``[clients, P]``
       tensor on the flat layout, ``()`` when compression or error feedback
       is off.
+    - ``server_opt_state``: the server optimizer's moments over the global
+      model (:mod:`fedtpu_torch.core.server_opt`); ``()`` for FedAvg.
     """
 
     params: Tree
+    batch_stats: Tree
     opt_state: Tree
     round_idx: int
     comp_state: object = ()
+    server_opt_state: object = ()
 
 
 class RoundMetrics(NamedTuple):
@@ -73,20 +82,36 @@ def init_state(
     cfg: RoundConfig,
     compressor=None,
     params: Optional[Tree] = None,
+    batch_stats: Optional[Tree] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> FederatedState:
-    """Initial state on the model's device. ``params`` (for example from
-    :func:`fedtpu_torch.convert.from_flax`) replaces the model's own
-    initial weights."""
+    """Initial state on the model's device. ``params`` and
+    ``batch_stats`` (for example from :func:`fedtpu_torch.convert.
+    from_flax`) replace the model's own initial weights and statistics
+    (its buffers). ``dtype`` is the global model's: f32, or f64 for a
+    reference run, whose rounds then compute in f64 apart from the codecs
+    (which work in f32, as fedtpu's do)."""
     if params is None:
-        params = {k: v.detach().clone() for k, v in model.named_parameters()}
+        params = dict(model.named_parameters())
+    if batch_stats is None:
+        batch_stats = dict(model.named_buffers())
     device = next(model.parameters()).device
-    params = {k: v.to(device=device, dtype=torch.float32).contiguous() for k, v in params.items()}
+
+    def own(tree: Tree) -> Tree:
+        return {
+            k: v.detach().to(device=device, dtype=dtype).clone().contiguous()
+            for k, v in tree.items()
+        }
+
+    params, batch_stats = own(params), own(batch_stats)
     n = cfg.fed.num_clients
     return FederatedState(
         params=params,
+        batch_stats=batch_stats,
         opt_state=optim.init(params, n),
         round_idx=0,
         comp_state=() if compressor is None else compressor.init(params, n),
+        server_opt_state=server_opt.init(server_opt.make_server_optimizer(cfg.fed), params),
     )
 
 
@@ -131,6 +156,7 @@ def make_round_step(
                 "'per_leaf': residual state shapes would not match; make both agree"
             )
     local_update = make_local_update(model, cfg)
+    server = server_opt.make_server_optimizer(cfg.fed)
 
     def round_step(
         state: FederatedState,
@@ -140,7 +166,7 @@ def make_round_step(
         # Dead clients do no local work.
         step_mask = batch.step_mask & batch.alive[:, None]
         out: ClientOutput = local_update(
-            state.params, state.opt_state, batch.x, batch.y, step_mask,
+            state.params, state.batch_stats, state.opt_state, batch.x, batch.y, step_mask,
             cfg.opt.lr_at(state.round_idx), generator,
         )
         if cfg.fed.weighted:
@@ -174,7 +200,14 @@ def make_round_step(
             mean_delta = flat_ops.unpack(lay, _mean_over_clients(deltas, agg_w))
         else:
             mean_delta = {k: _mean_over_clients(x, agg_w) for k, x in deltas.items()}
-        new_params = {k: state.params[k] + mean_delta[k] for k in state.params}
+        new_params, new_server_state = server_opt.apply(
+            server, state.params, mean_delta, state.server_opt_state
+        )
+        # The statistics combine by the params' rule, uncompressed.
+        new_stats = {
+            k: g + _mean_over_clients(out.batch_stats[k] - g[None], agg_w)
+            for k, g in state.batch_stats.items()
+        }
 
         alive_f = batch.alive.float()
         n_alive = alive_f.sum()
@@ -188,9 +221,11 @@ def make_round_step(
         )
         new_state = FederatedState(
             params=new_params,
+            batch_stats=new_stats,
             opt_state=out.opt_state,
             round_idx=state.round_idx + 1,
             comp_state=comp_state,
+            server_opt_state=new_server_state,
         )
         return new_state, metrics
 

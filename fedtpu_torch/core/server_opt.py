@@ -1,0 +1,104 @@
+"""Server-side optimization of the aggregated update (the FedOpt family).
+
+The port of ``fedtpu.core.server_opt``. The mean client delta is a
+pseudo-gradient ``g = -mean_delta`` fed to a server optimizer over the
+global model; ``server_optimizer='none'`` is FedAvg (``params +
+mean_delta``). fedtpu builds its optimizers from optax; here each one is
+written out with optax's formulas, in optax's order of operations:
+
+- ``momentum`` (``optax.sgd(lr, momentum)``): ``m = g + b1 * m``, update
+  ``-lr * m``;
+- ``adam`` (``optax.adam``): ``mu = (1 - b1) * g + b1 * mu``, ``nu = (1 -
+  b2) * g^2 + b2 * nu``, both bias-corrected by ``1 - b^t`` with ``t``
+  counted from 1, update ``-lr * mu_hat / (sqrt(nu_hat) + eps)``;
+- ``yogi`` (``optax.yogi``): ``mu`` and ``nu`` start at 1e-6, not 0, and
+  ``nu = nu - (1 - b2) * sign(nu - g^2) * g^2``; bias-corrected and
+  applied as Adam.
+
+The state is a dict of tensors on the params' device: ``{"trace": {...}}``
+for momentum, ``{"count", "mu", "nu"}`` (``count`` an int32 scalar) for
+adam and yogi, ``()`` for FedAvg.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from fedtpu_torch.config import FedConfig, RoundConfig, validate
+
+Tree = Dict[str, torch.Tensor]
+
+_YOGI_INITIAL = 1e-6  # optax's initial_accumulator_value
+_sqrt = torch.sqrt  # a name of its own, so that a check can swap in another rounding
+
+
+class ServerOptimizer(NamedTuple):
+    name: str  # momentum | adam | yogi
+    lr: float
+    b1: float
+    b2: float
+    eps: float
+
+
+def make_server_optimizer(fed: FedConfig) -> Optional[ServerOptimizer]:
+    """The optimizer ``fed.server_optimizer`` names; None for FedAvg."""
+    validate(RoundConfig(fed=fed))
+    if fed.server_optimizer == "none":
+        return None
+    return ServerOptimizer(
+        fed.server_optimizer, fed.server_lr, fed.server_momentum,
+        fed.server_beta2, fed.server_eps,
+    )
+
+
+def init(opt: Optional[ServerOptimizer], params: Tree):
+    """Initial server state over the global ``params``."""
+    if opt is None:
+        return ()
+    if opt.name == "momentum":
+        return {"trace": {k: torch.zeros_like(p) for k, p in params.items()}}
+    fill = _YOGI_INITIAL if opt.name == "yogi" else 0.0
+    device = next(iter(params.values())).device
+    return {
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+        "mu": {k: torch.full_like(p, fill) for k, p in params.items()},
+        "nu": {k: torch.full_like(p, fill) for k, p in params.items()},
+    }
+
+
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """``1 - decay**count`` in f32, as optax computes it."""
+    return 1 - torch.tensor(decay, dtype=torch.float32, device=count.device) ** count
+
+
+def apply(
+    opt: Optional[ServerOptimizer], params: Tree, mean_delta: Tree, state
+) -> Tuple[Tree, object]:
+    """``(new params, new state)`` from the round's mean delta."""
+    if opt is None:
+        return {k: params[k] + mean_delta[k] for k in params}, state
+    g = {k: -d for k, d in mean_delta.items()}
+    if opt.name == "momentum":
+        trace = {k: g[k] + opt.b1 * state["trace"][k] for k in g}
+        return (
+            {k: params[k] + (-opt.lr) * trace[k] for k in params},
+            {"trace": trace},
+        )
+    mu = {k: (1 - opt.b1) * g[k] + opt.b1 * state["mu"][k] for k in g}
+    if opt.name == "adam":
+        nu = {k: (1 - opt.b2) * (g[k] * g[k]) + opt.b2 * state["nu"][k] for k in g}
+    else:
+        nu = {}
+        for k in g:
+            g2 = g[k] * g[k]
+            v = state["nu"][k]
+            nu[k] = v - (1 - opt.b2) * torch.sign(v - g2) * g2
+    count = state["count"] + 1
+    c1, c2 = _bias_correction(opt.b1, count), _bias_correction(opt.b2, count)
+    new_params = {}
+    for k in params:
+        update = (mu[k] / c1) / (_sqrt(nu[k] / c2) + opt.eps)
+        new_params[k] = params[k] + (-opt.lr) * update
+    return new_params, {"count": count, "mu": mu, "nu": nu}

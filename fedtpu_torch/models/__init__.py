@@ -1,6 +1,6 @@
-"""The port's model zoo (smallcnn so far)."""
+"""The port's model zoo (smallcnn and MobileNet so far)."""
 
-from fedtpu_torch.models import smallcnn  # noqa: F401  (registers "smallcnn")
+from fedtpu_torch.models import mobilenet, smallcnn  # noqa: F401  (register themselves)
 from fedtpu_torch.models.registry import available, create
 
 __all__ = ["available", "create"]

@@ -1,0 +1,149 @@
+"""Shared building blocks of the port's model zoo.
+
+The port of ``fedtpu.models.common``: fedtpu's ``BatchNorm`` and
+``global_avg_pool``. Models take NHWC inputs at their public boundary and
+run NCHW inside, torch's default layout for convolutions.
+
+A model with batch statistics follows one calling convention, the torch
+form of flax's ``apply(..., train=True, mutable=["batch_stats"])``:
+
+- ``model(x)`` is eval mode: every ``BatchNorm`` normalizes with the
+  running statistics it holds as buffers (``mean``, ``var``), which a
+  ``functional_call`` replaces with the global ones;
+- ``model(x, train=True)`` returns ``(logits, new_stats)``: every
+  ``BatchNorm`` normalizes with its batch's statistics and *returns* its
+  new running statistics in ``new_stats`` (``{"<path>.mean": ...,
+  "<path>.var": ...}``, the names of its buffers). No buffer is written:
+  an in-place write inside ``torch.func.vmap(grad(...))`` would raise or
+  be lost, so the round carries the statistics as values.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+Stats = Dict[str, torch.Tensor]
+
+BN_MOMENTUM = 0.9  # flax's: new running = 0.9 * old + 0.1 * batch (torch's 0.1)
+BN_EPSILON = 1e-5
+
+
+class BatchNorm(nn.Module):
+    """fedtpu's BatchNorm over the channels of an NCHW tensor.
+
+    It differs from ``nn.BatchNorm2d`` in four ways, all of them fedtpu's:
+
+    - the batch variance is ``E[x^2] - E[x]^2`` over (N, H, W), in f32,
+      clamped at 0 (flax's fast variance), not a two-pass variance;
+    - the running variance takes that *biased* variance;
+    - the running update is ``0.9 * old + 0.1 * new``;
+    - the normalize runs in the compute dtype: ``mean`` and
+      ``rsqrt(var + 1e-5) * scale`` are cast to ``x.dtype`` before the
+      activation-sized math, so a bf16 activation stays bf16.
+
+    The leaves carry flax's names: parameters ``scale`` and ``bias``,
+    buffers (the ``batch_stats`` collection) ``mean`` and ``var``.
+    """
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.path = ""  # its dotted name in the model; see name_batch_norms
+
+    def forward(self, x: torch.Tensor, stats: Optional[Stats] = None) -> torch.Tensor:
+        """Eval mode with ``stats=None``; train mode otherwise, which puts
+        this layer's new running statistics into ``stats``."""
+        if stats is None:
+            return _normalize(x, self.mean, self.var, self.scale, self.bias)
+        y, mean, var, _ = _TrainNorm.apply(x, self.scale, self.bias)
+        stats[self.path + "mean"] = BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean
+        stats[self.path + "var"] = BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var
+        return y
+
+
+_SHAPE = (1, -1, 1, 1)  # a per-channel vector against NCHW
+_DIMS = (0, 2, 3)
+
+
+def _normalize(x, mean, var, scale, bias):
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` with the
+    channel-sized factors cast to ``x.dtype`` first, in fedtpu's order."""
+    y = x - mean.to(x.dtype).view(_SHAPE)
+    mul = torch.rsqrt(var + BN_EPSILON) * scale
+    y = y * mul.to(x.dtype).view(_SHAPE)
+    return y + bias.to(x.dtype).view(_SHAPE)
+
+
+class _TrainNorm(torch.autograd.Function):
+    """Train-mode BatchNorm: ``(y, mean, var, raw_var)`` from ``x``, the
+    batch statistics in ``promote(x.dtype, f32)``, ``var = max(raw_var,
+    0)``.
+
+    The same function as the plain ops (``_normalize`` after fedtpu's
+    statistics), with a hand-written backward so that autograd keeps only
+    ``x`` (in its own dtype) and the channel-sized statistics: the plain
+    ops would keep the f32 upcast of ``x`` (for the square) and the centred
+    value besides, 3x the bytes a bf16 activation element. The backward
+    recomputes the centred value, in the statistics' dtype."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, scale, bias):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(_DIMS)
+        raw = torch.square(xf).mean(_DIMS) - torch.square(mean)
+        var = torch.maximum(raw, torch.zeros_like(raw))
+        return _normalize(x, mean, var, scale, bias), mean, var, raw
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, bias = inputs
+        _, mean, var, raw = output
+        ctx.save_for_backward(x, scale, mean, var, raw)
+        ctx.bias_dtype = bias.dtype
+        ctx.mark_non_differentiable(mean, var, raw)
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar, _graw):
+        # Activation-sized terms stay in x's dtype (the channel sums run in
+        # the statistics' dtype), so a bf16 layer's backward makes no f32
+        # copy of itself; for f32 and f64 this is the plain ops' math.
+        x, scale, mean, var, raw = ctx.saved_tensors
+        ct = mean.dtype
+        count = x.numel() // x.shape[1]
+        rstd = torch.rsqrt(var + BN_EPSILON)
+        mul = rstd * scale
+        centred = x - mean.to(x.dtype).view(_SHAPE)
+        g_mul = (gy * centred).sum(_DIMS, dtype=ct)
+        g_centred = gy * mul.to(x.dtype).view(_SHAPE)
+        # rsqrt, then the clamp at 0 (a tie splits the gradient, as
+        # maximum's does), then var = E[x^2] - E[x]^2.
+        g_var = g_mul * scale * (-0.5) * rstd ** 3
+        g_raw = torch.where(raw > 0, g_var, torch.where(raw == 0, 0.5 * g_var, 0.0 * g_var))
+        g_mean = -g_centred.sum(_DIMS, dtype=ct) - 2 * mean * g_raw
+        g_x = torch.addcmul(
+            g_centred + (g_mean / count).to(x.dtype).view(_SHAPE),
+            x, (2 * g_raw / count).to(x.dtype).view(_SHAPE),
+        )
+        return g_x, (g_mul * rstd).to(scale.dtype), gy.sum(_DIMS, dtype=ct).to(ctx.bias_dtype)
+
+
+def name_batch_norms(model: nn.Module) -> nn.Module:
+    """Give every ``BatchNorm`` of ``model`` its dotted path, so that the
+    statistics it returns in train mode carry its buffers' names."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            mod.path = f"{name}." if name else ""
+    return model
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the spatial dims of an NCHW tensor -> ``[n, c]``."""
+    return x.mean(dim=(2, 3))

@@ -26,7 +26,7 @@ def create(
     if key not in _REGISTRY:
         raise NotImplementedError(
             f"model '{name}' is not ported to fedtpu_torch yet (ROADMAP.md "
-            f"Queue 1, slices 5 and 7: BN + MobileNet, the rest of the zoo); "
+            f"Queue 1, slice 7: the rest of the zoo); "
             f"available: {available()}"
         )
     return _REGISTRY[key](num_classes=num_classes, image_size=tuple(image_size))

@@ -6,7 +6,9 @@ boundary, as in fedtpu. Submodules carry flax's names (``Conv_0`` ...
 flax flattens the last feature map in (H, W, C) order before ``Dense_0``;
 this model moves channels last again before it flattens, so ``Dense_0``'s
 weight is the flax kernel transposed and nothing else
-(``tests/test_torch_models.py`` pins the order).
+(``tests/test_torch_models.py`` pins the order). It has no batch
+statistics: in train mode it returns ``(logits, {})``, the calling
+convention of :mod:`fedtpu_torch.models.common`.
 """
 
 from __future__ import annotations
@@ -29,13 +31,15 @@ class SmallCNN(nn.Module):
         self.Dense_0 = nn.Linear(64 * (h // 4) * (w // 4), 128)
         self.Dense_1 = nn.Linear(128, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x: [n, h, w, c]`` -> logits ``[n, num_classes]``."""
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """``x: [n, h, w, c]`` -> logits ``[n, num_classes]``, or
+        ``(logits, {})`` with ``train=True``."""
         x = x.permute(0, 3, 1, 2)
         x = F.max_pool2d(F.relu(self.Conv_0(x)), 2)
         x = F.max_pool2d(F.relu(self.Conv_1(x)), 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        return self.Dense_1(F.relu(self.Dense_0(x)))
+        logits = self.Dense_1(F.relu(self.Dense_0(x)))
+        return (logits, {}) if train else logits
 
 
 @register("smallcnn")

@@ -9,7 +9,9 @@ JAX nor fedtpu, so they also run where only PyTorch is installed:
 inputs are the CPU tests' (``test_torch_kernels.py``, ``test_torch_flat.py``):
 ties at the threshold, -0.0, zero scales and halfway quotients at smallcnn's
 widths; -0.0, zeros and large magnitudes for the Hadamard rotation at the
-rotq row (2^20), MobileNet's (2^22) and widths around its phase boundary.
+rotq rows (smallcnn's [64, 2^20], MobileNet's [64, 2^22]) and widths around
+its phase boundary; and a small MobileNet round on the card against the same
+round on the CPU.
 """
 
 import numpy as np
@@ -36,13 +38,13 @@ def _threshold_inputs(rng, rows, cols):
     return y, t
 
 
-# (rows, h): the rotq round's [clients, 2^20], MobileNet's 2^22 row, the
-# smallest width, widths around the kernel's 2^13-element tile (the widest
+# (rows, h): the smallcnn rotq round's [clients, 2^20], the MobileNet rotq
+# round's [64, 2^22] (1 GiB a call) and an [8, 2^22], the smallest width, widths around the kernel's 2^13-element tile (the widest
 # one-phase row and the narrowest two-phase one), row counts that are not a
 # multiple of the kernel's lag between phases, and a 2^21 row.
 HADAMARD_SHAPES = [
-    (64, 2**20), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13), (64, 2**14),
-    (3, 2**20), (65, 2**14), (1, 2**13), (2, 2**21),
+    (64, 2**20), (64, 2**22), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13),
+    (64, 2**14), (3, 2**20), (65, 2**14), (1, 2**13), (2, 2**21),
 ]
 
 
@@ -210,3 +212,57 @@ def test_hadamard_rotate_rejects_bad_operands_on_card(cuda_device):
         kernels.hadamard_rotate(y.double(), signs.double())
     with pytest.raises(ValueError, match="contiguous"):
         kernels.hadamard_rotate(torch.zeros((256, 2), device=cuda_device).t(), signs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compression,layout", [("none", "per_leaf"), ("topk", "per_leaf"), ("rotq", "flat")])
+def test_small_mobilenet_round_on_card_matches_cpu(cuda_device, compression, layout):
+    """One MobileNet round (2 clients, batch 4, 2 steps) on the card and on
+    the CPU from the same init, the global model in f64 on both (in f32 the
+    two devices' summation orders part past any tolerance within a round:
+    BatchNorm over 4-example batches leaves the gradient ill-conditioned).
+    rotq takes the same numpy draws on both devices; its params are held to
+    atol=2e-4, as in ``chip_smoke.py``: a last-bit difference of the f32
+    row can move a rotated coordinate across a stochastic-rounding step,
+    which moves every coordinate of the row by step / 2048."""
+    from fedtpu_torch import DataConfig, FedConfig, Federation, RoundConfig
+    from fedtpu_torch.core.round import init_state
+    from fedtpu_torch.ops import compression as comp
+
+    cfg = RoundConfig(
+        model="mobilenet",
+        data=DataConfig(dataset="cifar10", batch_size=4, partition="iid", augment=False),
+        fed=FedConfig(num_clients=2, compression=compression, delta_layout=layout),
+        steps_per_round=2,
+    )
+    rng = np.random.default_rng(2)
+    data = (rng.standard_normal((16, 32, 32, 3), dtype=np.float32),
+            rng.integers(0, 10, size=16).astype(np.int32))
+    codec = comp.make_compressor(cfg.fed)
+    if compression == "rotq":
+        inner = codec
+
+        def apply_flat(y, state, lay, round_idx=0):
+            r = np.random.default_rng(round_idx)
+            signs = torch.from_numpy((r.integers(0, 2, size=lay.padded) * 2 - 1).astype(np.float32))
+            unif = torch.from_numpy(r.random((2, lay.padded), dtype=np.float32))
+            return inner.apply_flat(y, state, lay, round_idx=round_idx,
+                                    signs=signs.to(y.device), uniforms=unif.to(y.device))
+
+        codec = codec._replace(apply_flat=apply_flat)
+    cpu = Federation(cfg, seed=0, data=data, device="cpu", compressor=codec)
+    gpu = Federation(cfg, seed=0, data=data, device=cuda_device, compressor=codec)
+    init = dict(params=cpu.state.params, batch_stats=cpu.state.batch_stats, dtype=torch.float64)
+    cpu.state = init_state(cpu.model, cfg, codec, **init)
+    gpu.state = init_state(gpu.model, cfg, codec, **init)
+    cpu.step(cpu.device_batch(0, offset=1))
+    gpu.step(gpu.device_batch(0, offset=1))
+    bad = total = 0
+    params_atol = 2e-4 if compression == "rotq" else 1e-5
+    for part, atol in (("params", params_atol), ("batch_stats", 1e-5)):
+        for k, w in getattr(cpu.state, part).items():
+            g = getattr(gpu.state, part)[k].cpu()
+            assert g.dtype == torch.float64 and torch.isfinite(g).all(), k
+            bad += int(((g - w).abs() > atol + 1e-4 * w.abs()).sum())
+            total += w.numel()
+    assert bad <= 0.001 * total, f"{bad} of {total} coordinates differ"

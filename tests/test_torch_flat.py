@@ -277,3 +277,24 @@ def test_codec_launches_k3_twice_and_k1_once_per_flat_round():
         calls.clear()
         comp.apply(deltas, comp.init(single, CLIENTS))
         assert calls == want
+
+
+def test_nested_batch_norm_tree_packs_as_fedtpus_row():
+    """BatchNorm's ``scale`` leaf and nested module paths: flax's sorted
+    order (``Block_10`` before ``Block_2``, ``bias`` before ``scale``) and
+    layout, bit for bit."""
+    rng = np.random.default_rng(12)
+    shapes = {
+        "BatchNorm_0": {"scale": (6,), "bias": (6,)},
+        "Block_2": {"Conv_0": {"kernel": (3, 3, 1, 6)}, "BatchNorm_0": {"scale": (6,), "bias": (6,)}},
+        "Block_10": {"Conv_1": {"kernel": (1, 1, 6, 5)}},
+        "Dense_0": {"kernel": (5, 3), "bias": (3,)},
+    }
+    stacked = jax.tree.map(
+        lambda s: rng.normal(size=(CLIENTS,) + s).astype(np.float32), shapes,
+        is_leaf=lambda x: isinstance(x, tuple),
+    )
+    jlay, jrow, tlay, trow = _both_rows(stacked)
+    assert tlay.names[:3] == ("BatchNorm_0.bias", "BatchNorm_0.scale", "Block_10.Conv_1.weight")
+    assert (tlay.offsets, tlay.sizes) == (jlay.offsets, jlay.sizes)
+    _assert_bits(trow, jrow)

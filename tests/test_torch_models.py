@@ -69,4 +69,4 @@ def test_softmax_ce_matches_fedtpu():
 
 def test_unported_model_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.create("MobileNet")
+        tmodels.create("resnet18")

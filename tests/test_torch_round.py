@@ -45,17 +45,19 @@ from fedtpu_torch.data import partition as tpartition
 from fedtpu_torch.ops import compression as tcomp
 
 
-def _both_configs(**fed_kw):
+def _both_configs(data_kw=None, **fed_kw):
     """The same small config in both packages: smallcnn, 4 clients, batch
-    8, 2 steps, no augmentation, f32."""
+    8, 2 steps, no augmentation, f32; ``data_kw`` and ``fed_kw`` set further
+    ``DataConfig`` and ``FedConfig`` fields."""
     kw = dict(
         model="smallcnn",
         steps_per_round=2,
-        data=dict(
-            dataset="cifar10", batch_size=8, eval_batch_size=16, partition="iid",
-            augment=False,
-        ),
-        fed=dict(num_clients=4, **fed_kw),
+        data={
+            **dict(dataset="cifar10", batch_size=8, eval_batch_size=16, partition="iid",
+                   augment=False),
+            **(data_kw or {}),
+        },
+        fed={"num_clients": 4, **fed_kw},
     )
 
     def build(mod):
@@ -125,6 +127,39 @@ def test_presharded_window_bit_equal_with_injected_offset(steps, offset):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _ragged_assignment():
+    """iid shards of 30 examples over 4 clients, client 2's cut to 3
+    examples (ragged) and client 3's empty."""
+    idx, mask = jpartition.iid(30, 4, seed=0)
+    mask = mask.copy()
+    mask[2, 3:] = False
+    mask[3, :] = False
+    return idx, mask
+
+
+@pytest.mark.parametrize("need", [5, 16])
+@pytest.mark.parametrize("shuffle", [True, False], ids=["shuffled", "in_order"])
+def test_round_take_indices_bit_equal_with_injected_keys(shuffle, need):
+    """fedtpu's indices from fedtpu's keys; the padding's +inf keys tie, and
+    the stable sort keeps them in slot order as ``jnp.argsort`` does."""
+    idx, mask = _ragged_assignment()
+    rng = jax.random.fold_in(jax.random.PRNGKey(3), 2) if shuffle else None
+    want = jdevice.round_take_indices(jnp.asarray(idx), jnp.asarray(mask), need, rng)
+    keys = torch.from_numpy(np.array(jax.random.uniform(rng, idx.shape))) if shuffle else None
+    got = tdevice.round_take_indices(
+        torch.from_numpy(idx).long(), torch.from_numpy(mask), need, keys
+    )
+    assert got.shape == (4, need)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_round_keys_are_deterministic_per_round():
+    a = tdevice.round_keys((4, 8), 0, 3, "cpu")
+    assert torch.equal(a, tdevice.round_keys((4, 8), 0, 3, "cpu"))
+    assert not torch.equal(a, tdevice.round_keys((4, 8), 0, 4, "cpu"))
+    assert float(a.min()) >= 0.0 and float(a.max()) < 1.0
+
+
 def test_round_offset_is_deterministic_and_in_range():
     offs = [tdevice.round_offset(13, True, 0, r) for r in range(20)]
     assert offs == [tdevice.round_offset(13, True, 0, r) for r in range(20)]
@@ -179,10 +214,19 @@ def _beyond_tolerance(got, want, atol=1e-5, rtol=1e-4):
     return np.abs(got - want) > atol + rtol * np.abs(want)
 
 
-def _track_fedtpu(compression, delta_layout="per_leaf", wrap=None, rounds=2):
+def _track_fedtpu(
+    compression, delta_layout="per_leaf", wrap=None, rounds=2, fed_kw=None, strict=None
+):
     """``rounds`` rounds of both engines from the same init on the same
-    batches; ``wrap`` turns the port's codec into one fed fedtpu's draws."""
-    jcfg, tcfg = _both_configs(compression=compression, delta_layout=delta_layout)
+    batches; ``wrap`` turns the port's codec into one fed fedtpu's draws;
+    ``fed_kw`` sets further ``FedConfig`` fields in both. ``strict`` (by
+    default: uncompressed) holds every coordinate to the tolerance, else
+    all but 0.1% of them."""
+    if strict is None:
+        strict = compression == "none"
+    jcfg, tcfg = _both_configs(
+        compression=compression, delta_layout=delta_layout, **(fed_kw or {})
+    )
     rng = np.random.default_rng(7)
     images = rng.normal(size=(64, 32, 32, 3)).astype(np.float32)
     labels = rng.integers(0, 10, size=64).astype(np.int32)
@@ -209,7 +253,7 @@ def _track_fedtpu(compression, delta_layout="per_leaf", wrap=None, rounds=2):
         bad = total = 0
         for mod in want:
             for leaf in want[mod]:
-                if compression == "none":
+                if strict:
                     np.testing.assert_allclose(
                         got[mod][leaf], want[mod][leaf], atol=1e-5, rtol=1e-4,
                         err_msg=f"round {r} {mod}/{leaf}",
@@ -286,6 +330,77 @@ def test_flat_round_bit_equal_to_per_leaf_round(compression):
             assert torch.equal(flat.state.params[k].view(torch.int32), v.view(torch.int32)), k
 
 
+def test_gather_rounds_track_fedtpu():
+    """Two rounds of both engines on the gather layout, each batch gathered
+    from the device-resident set by fedtpu's per-round keys."""
+    jcfg, tcfg = _both_configs(data_kw=dict(device_layout="gather"))
+    rng = np.random.default_rng(9)
+    data = (rng.normal(size=(60, 32, 32, 3)).astype(np.float32),
+            rng.integers(0, 10, size=60).astype(np.int32))
+    jfed = JFederation(jcfg, seed=0, data=data)
+    tfed = TFederation(tcfg, seed=0, data=data, device="cpu")
+    assert jfed._layout == tfed.layout == "gather"
+    tfed.state = tfed.state._replace(params=from_flax(jax.tree.map(np.asarray, jfed.state.params)))
+    for r in range(2):
+        key = jax.random.fold_in(jax.random.PRNGKey(jcfg.data.seed), r)
+        keys = torch.from_numpy(np.array(jax.random.uniform(key, tfed.client_idx.shape)))
+        jm = jfed.step()
+        tm = tfed.step(tfed.device_batch(r, keys=keys))
+        np.testing.assert_allclose(float(tm.loss), float(jm.loss), rtol=1e-5)
+        got, want = to_flax(tfed.state.params), jax.tree.map(np.asarray, jfed.state.params)
+        for mod in want:
+            for leaf in want[mod]:
+                np.testing.assert_allclose(
+                    got[mod][leaf], want[mod][leaf], atol=1e-5, rtol=1e-4,
+                    err_msg=f"round {r} {mod}/{leaf}",
+                )
+
+
+@pytest.mark.parametrize("layout", ["presharded", "gather"])
+def test_unshuffled_layouts_give_the_same_batches(layout):
+    """With shuffling off (round_robin) both layouts take every client's
+    shard from its head, as in fedtpu."""
+    _, tcfg = _both_configs(data_kw=dict(partition="round_robin", device_layout=layout))
+    rng = np.random.default_rng(10)
+    data = (rng.normal(size=(64, 32, 32, 3)).astype(np.float32),
+            rng.integers(0, 10, size=64).astype(np.int32))
+    _, base = _both_configs(data_kw=dict(partition="round_robin"))
+    want = TFederation(base, data=data, device="cpu").device_batch(1)
+    got = TFederation(tcfg, data=data, device="cpu").device_batch(1)
+    assert torch.equal(got.x, want.x) and torch.equal(got.y.long(), want.y.long())
+
+
+def test_skewed_presharded_footprint_falls_back_to_gather():
+    """round_robin deals 4 batches of 16 to 16 clients: 12 empty shards
+    make the presharded rows 8x the data, so both engines warn and take the
+    gather layout; a round runs."""
+    jcfg, tcfg = _both_configs(
+        data_kw=dict(partition="round_robin", batch_size=16), num_clients=16
+    )
+    rng = np.random.default_rng(11)
+    data = (rng.normal(size=(64, 32, 32, 3)).astype(np.float32),
+            rng.integers(0, 10, size=64).astype(np.int32))
+    with pytest.warns(UserWarning, match="falling back to 'gather'"):
+        tfed = TFederation(tcfg, data=data, device="cpu")
+    with pytest.warns(UserWarning, match="falling back to 'gather'"):
+        jfed = JFederation(jcfg, data=data)
+    assert tfed.layout == jfed._layout == "gather"
+    assert np.isfinite(float(tfed.step().loss))
+    _, balanced = _both_configs(data_kw=dict(partition="round_robin", batch_size=16))
+    assert TFederation(balanced, data=data, device="cpu").layout == "presharded"
+
+
+def test_default_config_builds_a_federation():
+    """``RoundConfig()`` names MobileNet, the reference's default model."""
+    data = (np.zeros((64, 32, 32, 3), np.float32), np.zeros(64, np.int32))
+    fed = TFederation(tconfig.RoundConfig(), data=data, device="cpu")
+    assert fed.cfg.model == "MobileNet"
+    assert fed.state.batch_stats["DepthwiseSeparable_12.BatchNorm_1.var"].shape == (1024,)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TFederation(tconfig.RoundConfig(), data=data)
+
+
 def test_participation_sampling_matches_fedtpu():
     """The seeded numpy draw of a round's participants, on the same alive
     mask (client 1 dead)."""
@@ -312,12 +427,10 @@ _F, _D, _O = tconfig.FedConfig, tconfig.DataConfig, tconfig.OptimizerConfig
 
 @pytest.mark.parametrize("part", [
     _F(aggregator="median"),
-    _F(server_optimizer="adam"),
     _F(dp_clip_norm=1.0),
     _F(megabatch_clients=2),
     _F(screen=tconfig.ScreenConfig(norm_max=1.0)),
     _F(algorithm="fedprox"),
-    _D(device_layout="gather"),
     _D(partition="dirichlet"),
     _D(dataset="mnist"),
     _O(momentum_dtype="bfloat16"),
