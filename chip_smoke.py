@@ -9,10 +9,15 @@ Phases, each of which raises on failure (exit code not 0, no result line):
 1. device: a CUDA card is required; its name and power limit as
    ``nvidia-smi`` reports them; TF32 off for the parity phases.
 2. build: ``nvcc`` builds every kernel from ``fedtpu_torch/csrc``.
-3. kernels: K1 and K2 against their plain PyTorch versions at the
-   per-leaf round's shapes (eight leaves x 64 clients), K1 also at the flat
-   row [64, 545,152], and at ragged shapes; K3 forward and inverse at the
-   rotq row [64, 2^20], MobileNet's [8, 2^22] and widths and row counts
+3. kernels: K1 against its plain PyTorch version at both per-leaf
+   rounds' shapes (smallcnn's 8 and MobileNet's 83 leaves x 64 clients),
+   at both flat rows and at ragged shapes; the grouped K2 against its plain
+   version over each round's leaves as one call, ragged and empty leaves,
+   views off 16-byte alignment and 200 leaves (one launch per table of
+   leaves), timed in turns as one launch a round, one launch a leaf,
+   torch.fake_quantize_per_channel_affine one call a leaf and a device
+   copy of the same bytes; K3 forward and inverse at the rotq row
+   [64, 2^20], MobileNet's [8, 2^22] and widths and row counts
    around its phase boundary and lag, with -0.0, zeros and large
    magnitudes. Outputs must be bit-equal, and K3's inverse(forward(y))
    within 1e-5 of y. Kernel and plain version are timed with CUDA events,
@@ -34,7 +39,7 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    clients, steps, batch and dtype): a small MobileNet round on the card
    against the same round on the CPU, both with the global model in f64;
    then 3 rounds each of per-leaf none, topk and int8 and flat topk and
-   rotq with the counts reset before and read after (83 K1, 83 K2, 1 K1,
+   rotq with the counts reset before and read after (83 K1, 1 K2, 1 K1,
    2 K3 a round, 0 of the others), round 1's codec re-applied with the
    plain kernels, finite losses and BatchNorm statistics; one gather-layout
    round and one server-adam round; timed rounds of every case, with the
@@ -180,9 +185,18 @@ def build_phase():
 # ------------------------------------------------------------ 3. kernels
 
 
-def leaf_sizes(model_name: str):
+def per_leaf_shapes(model_name: str):
+    """``[clients, leaf size]`` of every leaf of a model, as a per-leaf
+    codec sees them."""
     model = models.create(model_name, 10)
-    return {k: p.numel() for k, p in model.named_parameters()}
+    shapes = [(NUM_CLIENTS, p.numel()) for p in model.parameters()]
+    if model_name == "mobilenet" and len(shapes) != MOBILENET_LEAVES:
+        raise RuntimeError(f"kernels: MobileNet has {len(shapes)} leaves")
+    return shapes
+
+
+# Ragged (rows, cols) beside the rounds' shapes.
+RAGGED = [(1, 1), (1, 700), (3, 257), (2, 1), (64, 1000), (5, 65537)]
 
 
 def _inputs(name, rng, rows, cols, dev):
@@ -215,23 +229,42 @@ def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def _time_ms(fn, runs=21, calls=10) -> float:
+def _time_ms(fn, runs=21, calls=10, own_syncs=False) -> float:
     """Device time of one call, in ms: the median over ``runs`` of
     ``calls`` calls enqueued back to back between two CUDA events, divided
-    by ``calls``. Each run is queued behind a device-side sleep, so the
-    events time the card's work and not the host's launch overhead."""
+    by ``calls``. Each run is queued behind a device-side sleep that must
+    still be running when the host has enqueued the run's last call (else
+    the run is dropped and the sleep doubled), so the events time the
+    card's work and never a card waiting for the host. A call that
+    synchronizes with the card itself (``own_syncs``) cannot be enqueued
+    ahead: its time includes the card's waits for it. A run of many
+    launches can fill the card's queue of pending launches, which makes
+    the host wait too: keep ``calls`` times the launches a call under a
+    hundred or so."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    sleep = 4_000_000  # cycles, ~2 ms
     pairs = []
-    for _ in range(runs):
+    while len(pairs) < runs:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(4_000_000)  # ~2 ms: the host enqueues meanwhile
+        torch.cuda._sleep(sleep)
         a.record()
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
+        host_s = time.perf_counter() - t0
         b.record()
+        if not own_syncs and a.query():  # the card was past its sleep before the host was done
+            torch.cuda.synchronize()
+            sleep *= 2
+            if sleep > 1 << 34:
+                raise RuntimeError(
+                    f"timing: the card finished a {sleep // 2}-cycle sleep before the host "
+                    f"had enqueued {calls} calls (the last enqueue took {host_s * 1e3:.2f} ms)"
+                )
+            continue
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) / calls for a, b in pairs)
@@ -275,55 +308,203 @@ def _check_bits(name, wrapper, plain, x, v) -> float:
 
 
 def kernel_phase(peaks):
-    """K1 and K2 at the per-leaf rounds' shapes (timed, summed over one
-    round's leaves: smallcnn's 8, MobileNet's 83) and ragged ones; K1 also
-    at both flat rows."""
+    """K1 at the per-leaf rounds' shapes (timed, summed over one round's
+    leaves: smallcnn's 8, MobileNet's 83), at ragged ones and at both flat
+    rows."""
     dev = torch.device("cuda")
-    ragged = [(1, 1), (1, 700), (3, 257), (2, 1), (64, 1000), (5, 65537)]
     rng = np.random.default_rng(0)
-    per_leaf = {m: [(NUM_CLIENTS, c) for c in leaf_sizes(m).values()] for m in ("smallcnn", "mobilenet")}
-    if len(per_leaf["mobilenet"]) != MOBILENET_LEAVES:
-        raise RuntimeError(f"kernels: MobileNet has {len(per_leaf['mobilenet'])} leaves")
-    results = {}
-    for name in ("threshold_feedback", "quantdequant_int8"):
-        wrapper, plain = kernels.KERNELS[name]
-        info = KERNEL_INFO[name]
-        small, err = _per_round(name, wrapper, plain, rng, dev, per_leaf["smallcnn"], peaks)
-        mobile, err2 = _per_round(name, wrapper, plain, rng, dev, per_leaf["mobilenet"], peaks)
-        max_err = max(err, err2)
-        for rows, cols in ragged:
-            max_err = max(max_err, _check_bits(name, wrapper, plain, *_inputs(name, rng, rows, cols, dev)))
-        results[name] = {
-            "name": name,
-            "route": "cuda",
-            "source": info["source"],
-            "replaces": info["replaces"],
-            "tpu_function": info["tpu_function"],
-            "bitwise_equal": True,
-            "max_abs_err": max_err,
-            "ms": small["ms"],
-            "kernel_ms": small["ms"],
-            "plain_ms": small["plain_ms"],
-            "bound_ms": small["bound_ms"],
-            "bound_by": small["bound_by"],
-            "bytes": small["bytes"],
-            "library_ms": None,  # no single PyTorch call computes this function
-            "per": f"one smallcnn per-leaf round (eight launches, {NUM_CLIENTS} clients)",
-            "mobilenet_per_leaf_round": mobile,
-        }
-        if name == "threshold_feedback":
-            for model, cols in (("smallcnn", FLAT_P), ("mobilenet", MOBILENET_FLAT_P)):
-                flat_row, _ = _per_round(name, wrapper, plain, rng, dev, [(NUM_CLIENTS, cols)], peaks)
-                results[name][f"{model}_flat_row"] = {"shape": [NUM_CLIENTS, cols], **flat_row}
-        log(
-            f"kernels: {name} bit-equal at {8 + MOBILENET_LEAVES + len(ragged)}+ shapes; "
-            f"one smallcnn round's 8 leaves: kernel {small['ms']:.4f} ms, plain "
-            f"{small['plain_ms']:.4f} ms, bound {small['bound_ms']:.4f} ms; one MobileNet "
-            f"round's 83 leaves: {json.dumps(mobile)}"
-            + "".join(f" | {m} flat row: {json.dumps(results[name][f'{m}_flat_row'])}"
-                      for m in ("smallcnn", "mobilenet") if f"{m}_flat_row" in results[name])
-        )
-    return results
+    name = "threshold_feedback"
+    wrapper, plain = kernels.KERNELS[name]
+    info = KERNEL_INFO[name]
+    small, err = _per_round(name, wrapper, plain, rng, dev, per_leaf_shapes("smallcnn"), peaks)
+    mobile, err2 = _per_round(name, wrapper, plain, rng, dev, per_leaf_shapes("mobilenet"), peaks)
+    max_err = max(err, err2)
+    for rows, cols in RAGGED:
+        max_err = max(max_err, _check_bits(name, wrapper, plain, *_inputs(name, rng, rows, cols, dev)))
+    result = {
+        "name": name,
+        "route": "cuda",
+        "source": info["source"],
+        "replaces": info["replaces"],
+        "tpu_function": info["tpu_function"],
+        "bitwise_equal": True,
+        "max_abs_err": max_err,
+        "ms": small["ms"],
+        "kernel_ms": small["ms"],
+        "plain_ms": small["plain_ms"],
+        "bound_ms": small["bound_ms"],
+        "bound_by": small["bound_by"],
+        "bytes": small["bytes"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "per": f"one smallcnn per-leaf round (eight launches, {NUM_CLIENTS} clients)",
+        "mobilenet_per_leaf_round": mobile,
+    }
+    for model, cols in (("smallcnn", FLAT_P), ("mobilenet", MOBILENET_FLAT_P)):
+        flat_row, _ = _per_round(name, wrapper, plain, rng, dev, [(NUM_CLIENTS, cols)], peaks)
+        result[f"{model}_flat_row"] = {"shape": [NUM_CLIENTS, cols], **flat_row}
+    log(
+        f"kernels: {name} bit-equal at {8 + MOBILENET_LEAVES + len(RAGGED)}+ shapes; "
+        f"one smallcnn round's 8 leaves: kernel {small['ms']:.4f} ms, plain "
+        f"{small['plain_ms']:.4f} ms, bound {small['bound_ms']:.4f} ms; one MobileNet "
+        f"round's 83 leaves: {json.dumps(mobile)}"
+        + "".join(f" | {m} flat row: {json.dumps(result[f'{m}_flat_row'])}"
+                  for m in ("smallcnn", "mobilenet"))
+    )
+    return result
+
+
+def _int8_leaves(rng, shapes, dev, misaligned=()):
+    """K2's operands at ``shapes`` (``_inputs``; zeros for an empty leaf),
+    the leaves at ``misaligned`` as views one float past 16-byte alignment."""
+    xs, scales = [], []
+    for i, (rows, cols) in enumerate(shapes):
+        if rows * cols == 0:
+            x, s = torch.zeros((rows, cols), device=dev), torch.zeros((rows,), device=dev)
+        else:
+            x, s = _inputs("quantdequant_int8", rng, rows, cols, dev)
+        if i in misaligned:
+            buf = torch.zeros(x.numel() + 1, device=dev)
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(rows, cols)
+        xs.append(x)
+        scales.append(s)
+    return xs, scales
+
+
+def _check_int8_group(label, xs, scales) -> float:
+    """One grouped K2 call bit-equal to the plain version leaf by leaf, in
+    one launch per table of leaves."""
+    before = kernels.quantdequant_int8.launches
+    got = kernels.quantdequant_int8_grouped(xs, scales)
+    want = kernels.quantdequant_int8_grouped_plain(xs, scales)
+    torch.cuda.synchronize()
+    launches = kernels.quantdequant_int8.launches - before
+    tables = -(-sum(x.numel() > 0 for x in xs) // kernels.INT8_GROUP_CAPACITY)
+    if launches != tables:
+        raise RuntimeError(f"kernels: grouped K2 over {label} launched {launches} times, expected {tables}")
+    err = 0.0
+    for x, g, w in zip(xs, got, want):
+        if not _bits_equal(g, w):
+            raise RuntimeError(f"kernels: grouped K2 differs from its plain version at {tuple(x.shape)} ({label})")
+        if x.numel():
+            err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def _fake_quantize(x, safe, zero_point):
+    """The library yardstick on one leaf: ``torch.fake_quantize_per_channel_affine``
+    with K2's safe scale (``s > 0 ? s : 1``) and zero point 0. It multiplies
+    by ``1 / s`` where K2 divides, and reads its zero points' range back to
+    the host before it launches."""
+    return torch.fake_quantize_per_channel_affine(x, safe, zero_point, 0, -127, 127)
+
+
+def _int8_round(label, xs, scales, peaks):
+    """K2 over one per-leaf int8 round's leaves, timed in turns (grouped,
+    per leaf, library, copy, then the same backwards): (a) one grouped
+    launch, (b) the same kernel one leaf a launch, (c) the library call one
+    leaf a call, and a device copy of the same bytes as a yardstick; each
+    beside the bytes bound. The forms that launch per leaf are timed leaf
+    by leaf and summed (a run of 83 leaves' launches fills the card's
+    queue of pending launches). Also the plain version's time, the host's
+    time to enqueue a grouped call, and how far the library call is from
+    K2."""
+    info = KERNEL_INFO["quantdequant_int8"]
+    safe = [torch.where(s > 0, s, torch.ones_like(s)) for s in scales]
+    zero_points = [torch.zeros(s.shape, dtype=torch.int32, device=s.device) for s in scales]
+    copy_in = torch.cat([x.reshape(-1) for x in xs])
+    copy_out = torch.empty_like(copy_in)
+
+    def leaf_by_leaf(fn, operands, own_syncs=False):
+        return lambda: sum(_time_ms(lambda: fn(*ops), own_syncs=own_syncs) for ops in operands)
+
+    forms = {
+        "grouped": lambda: _time_ms(lambda: kernels.quantdequant_int8_grouped(xs, scales)),
+        "per_leaf": leaf_by_leaf(kernels.quantdequant_int8, list(zip(xs, scales))),
+        # fake_quantize checks its zero points on the host: it synchronizes.
+        "library": leaf_by_leaf(_fake_quantize, list(zip(xs, safe, zero_points)), own_syncs=True),
+        "copy": lambda: _time_ms(lambda: copy_out.copy_(copy_in)),
+    }
+    turns = {k: [] for k in forms}
+    for form in [*forms, *reversed(forms)]:
+        turns[form].append(forms[form]())
+    plain_ms = leaf_by_leaf(kernels.quantdequant_int8_plain, list(zip(xs, scales)))()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        kernels.quantdequant_int8_grouped(xs, scales)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    bytes_moved = sum(x.numel() * info["bytes_per_elem"] + x.shape[0] * info["bytes_per_row"] for x in xs)
+    ops = sum(x.numel() * info["ops_per_elem"] for x in xs)
+    bound_ms, bound_by = _bound(bytes_moved, ops, peaks)
+    got = kernels.quantdequant_int8_grouped(xs, scales)
+    lib = [_fake_quantize(*leaf) for leaf in zip(xs, safe, zero_points)]
+    torch.cuda.synchronize()
+    differ, steps = 0, 0.0
+    for g, l, s in zip(got, lib, safe):
+        d = (g - l).abs()
+        differ += int((d > 0).sum())
+        steps = max(steps, float((d / s[:, None]).max()))
+    ms = {k: statistics.mean(v) for k, v in turns.items()}
+    out = {
+        "leaves": len(xs), "ms": ms["grouped"], "per_leaf_ms": ms["per_leaf"],
+        "library_ms": ms["library"], "copy_ms": ms["copy"],
+        "plain_ms": plain_ms, "turns_ms": turns, "host_ms_per_grouped_call": host_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
+        **{f"{k}_share_of_bound": bound_ms / v for k, v in ms.items()},
+        "implied_tb_per_s": bytes_moved / ms["grouped"] / 1e9,
+        "launches_per_round": -(-len(xs) // kernels.INT8_GROUP_CAPACITY),
+        "library_elements_differing": differ,
+        "library_elements": sum(x.numel() for x in xs),
+        "library_max_diff_in_steps": steps,
+    }
+    log(f"kernels: quantdequant_int8 over one {label} per-leaf int8 round: " + json.dumps(out))
+    return out
+
+
+def int8_phase(peaks):
+    """The grouped K2 bit-equal to its plain version over each per-leaf
+    round's leaves as one call (smallcnn's 8, MobileNet's 83), ragged
+    leaves, a list that mixes empty, 1-, 10- and 65,537-column leaves,
+    leaves passed as views off 16-byte alignment, and 200 leaves (more than
+    one launch's table); then timed over each round's leaves."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    rounds = {m: _int8_leaves(rng, per_leaf_shapes(m), dev) for m in ("smallcnn", "mobilenet")}
+    cases = {
+        **rounds,
+        "ragged": _int8_leaves(rng, RAGGED, dev),
+        "mixed": _int8_leaves(rng, [(0, 5), (3, 0), (2, 1), (3, 10), (2, 65537), (1, 1), (5, 7)], dev),
+        "misaligned": _int8_leaves(
+            rng, [(3, 4099), (1, 2), (2, 65537), (4, 10), (64, 1000)], dev, misaligned=(0, 1, 2, 4)),
+        "200 leaves": _int8_leaves(rng, [(2, 1 + i % 37) for i in range(200)], dev),
+    }
+    max_err = max(_check_int8_group(label, *leaves) for label, leaves in cases.items())
+    log(f"kernels: quantdequant_int8 grouped bit-equal over {', '.join(cases)}")
+    small = _int8_round("smallcnn", *rounds["smallcnn"], peaks)
+    mobile = _int8_round("MobileNet", *rounds["mobilenet"], peaks)
+    info = KERNEL_INFO["quantdequant_int8"]
+    return {
+        "name": "quantdequant_int8",
+        "route": "cuda",
+        "source": info["source"],
+        "replaces": info["replaces"],
+        "tpu_function": info["tpu_function"],
+        "bitwise_equal": True,
+        "max_abs_err": max_err,
+        "ms": small["ms"],
+        "kernel_ms": small["ms"],
+        "plain_ms": small["plain_ms"],
+        "bound_ms": small["bound_ms"],
+        "bound_by": small["bound_by"],
+        "bytes": small["bytes"],
+        # torch.fake_quantize_per_channel_affine, one call a leaf: not
+        # bit-equal (x * (1/s) where K2 computes x / s).
+        "library_ms": small["library_ms"],
+        "per": f"one smallcnn per-leaf int8 round (eight leaves in one launch, {NUM_CLIENTS} clients)",
+        "smallcnn_per_leaf_round": small,
+        "mobilenet_per_leaf_round": mobile,
+    }
 
 
 def _hadamard_inputs(rng, rows, h, dev):
@@ -715,8 +896,9 @@ def slice_codecs(leaves: int):
     return {
         ("topk", "per_leaf"): ("threshold_feedback", leaves, lambda: compression.make_topk(
             TOPK_FRACTION, threshold=kernels.threshold_feedback_plain)),
-        ("int8", "per_leaf"): ("quantdequant_int8", leaves, lambda: compression.make_int8(
-            quantdequant=kernels.quantdequant_int8_plain)),
+        ("int8", "per_leaf"): ("quantdequant_int8", -(-leaves // kernels.INT8_GROUP_CAPACITY),
+                               lambda: compression.make_int8(
+                                   quantdequant=kernels.quantdequant_int8_grouped_plain)),
         ("rotq", "flat"): ("hadamard_rotate", 2, lambda: compression.make_rotq(
             4, rotate=kernels.hadamard_rotate_plain)),
         ("topk", "flat"): ("threshold_feedback", 1, lambda: compression.make_topk(
@@ -1006,7 +1188,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi, name, peaks = device_phase()
     build_phase()
-    results = kernel_phase(peaks)
+    results = {"threshold_feedback": kernel_phase(peaks), "quantdequant_int8": int8_phase(peaks)}
     results["hadamard_rotate"] = hadamard_phase(peaks)
     reference_phase()
     mobilenet_reference_phase()

@@ -7,7 +7,8 @@ would carry plus the new residual:
 
 - ``topk``: keep each row's ``ceil(fraction * size)`` largest magnitudes
   (ties at the threshold kept) through :func:`kernels.threshold_feedback`;
-- ``int8``: symmetric per-row int8 through :func:`kernels.quantdequant_int8`.
+- ``int8``: symmetric per-row int8 through
+  :func:`kernels.quantdequant_int8_grouped`, every leaf in one call.
 
 On the flat layout (:mod:`fedtpu_torch.ops.flat`) the codec sees one
 ``[clients, P]`` buffer and its residual is one buffer too:
@@ -300,24 +301,32 @@ def make_topk(
 def make_int8(
     error_feedback: bool = True,
     layout: str = "per_leaf",
-    quantdequant: Callable = kernels.quantdequant_int8,
+    quantdequant: Callable = kernels.quantdequant_int8_grouped,
 ) -> Compressor:
-    """Symmetric int8, scale ``max|y| / 127`` per client per leaf."""
+    """Symmetric int8, scale ``max|y| / 127`` per client per leaf. Per leaf,
+    every leaf's ``y`` and scales are formed first and ``quantdequant``
+    (``(ys, scales) -> outs``) takes them all in one call: the values of
+    fedtpu's one-leaf-at-a-time codec, one kernel launch a round."""
     _check_layout(layout)
     if layout == "flat":
         return _make_int8_flat(error_feedback)
 
-    def leaf(d: torch.Tensor, e: Optional[torch.Tensor]):
-        shape = d.shape
-        y = _flatten_leaf(d)
-        if e is not None:
-            y = y + e.reshape(y.shape)
-        scale = y.abs().amax(dim=1) / 127.0
-        out = quantdequant(y.contiguous(), scale)
-        new_e = None if e is None else (y - out).reshape(shape)
-        return out.reshape(shape).to(d.dtype), new_e
+    def apply(deltas: Tree, state):
+        ys = []
+        for k, d in deltas.items():
+            y = _flatten_leaf(d)
+            if error_feedback:
+                y = y + state[k].reshape(y.shape)
+            ys.append(y.contiguous())
+        outs = quantdequant(ys, [y.abs().amax(dim=1) / 127.0 for y in ys])
+        out, new_state = {}, {}
+        for (k, d), y, q in zip(deltas.items(), ys, outs):
+            out[k] = q.reshape(d.shape).to(d.dtype)
+            if error_feedback:
+                new_state[k] = (y - q).reshape(d.shape)
+        return out, (new_state if error_feedback else state)
 
-    return Compressor(init=_make_init(error_feedback), apply=_make_apply(leaf, error_feedback))
+    return Compressor(init=_make_init(error_feedback), apply=apply)
 
 
 def make_rotq(

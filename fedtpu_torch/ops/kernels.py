@@ -8,8 +8,9 @@ at its first use (or by :func:`build`) and called through ``ctypes``:
 
 - :func:`threshold_feedback` (``csrc/threshold_feedback.cu``) replaces
   ``threshold_with_feedback``: top-k masking with error feedback.
-- :func:`quantdequant_int8` (``csrc/quantdequant_int8.cu``) replaces
-  ``quantdequant_int8``: the simulated int8 codec.
+- :func:`quantdequant_int8_grouped` (``csrc/quantdequant_int8.cu``)
+  replaces ``quantdequant_int8``: the simulated int8 codec, every leaf of
+  a round in one launch (:func:`quantdequant_int8` is its one-leaf case).
 - :func:`hadamard_rotate` (``csrc/hadamard_rotate.cu``) replaces
   ``hadamard_rotate``: the seeded Hadamard rotation of the ``rotq`` codec.
 
@@ -27,7 +28,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,13 +50,13 @@ _I64 = ctypes.c_int64
 # name -> (source file, C entry point argument types)
 _SOURCES = {
     "threshold_feedback": ("threshold_feedback.cu", [_P, _P, _P, _P, _I64, _I64, _P]),
-    "quantdequant_int8": ("quantdequant_int8.cu", [_P, _P, _P, _I64, _I64, _P]),
+    "quantdequant_int8": ("quantdequant_int8.cu", [_P, _I64, _P]),
     "hadamard_rotate": (
         "hadamard_rotate.cu",
         [_P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P],
     ),
 }
-_MAX_ROWS = 65535  # the kernels put rows on gridDim.y
+_MAX_ROWS = 65535  # K1 puts rows on gridDim.y; K3 keeps the same limit
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -150,9 +151,12 @@ def _launch(name: str, tensor: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed ({code}: {msg})")
 
 
-def _check_rows(name: str, x: torch.Tensor, per_row: torch.Tensor) -> None:
+def _check_rows(
+    name: str, x: torch.Tensor, per_row: torch.Tensor, max_rows: Optional[int] = _MAX_ROWS
+) -> None:
     """The kernels take a contiguous f32 ``[rows, cols]`` CUDA matrix and a
-    contiguous f32 ``[rows]`` vector on the same card."""
+    contiguous f32 ``[rows]`` vector on the same card (at most ``max_rows``
+    rows, where the kernel puts them on a grid axis)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: needs a CUDA (or CPU) tensor, got {x.device}")
     if per_row.device != x.device:
@@ -164,8 +168,8 @@ def _check_rows(name: str, x: torch.Tensor, per_row: torch.Tensor) -> None:
             f"{name}: needs [rows, cols] and [rows], got {tuple(x.shape)} and "
             f"{tuple(per_row.shape)}"
         )
-    if x.shape[0] > _MAX_ROWS:
-        raise ValueError(f"{name}: at most {_MAX_ROWS} rows, got {x.shape[0]}")
+    if max_rows is not None and x.shape[0] > max_rows:
+        raise ValueError(f"{name}: at most {max_rows} rows, got {x.shape[0]}")
     if not (x.is_contiguous() and per_row.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous")
 
@@ -206,6 +210,62 @@ threshold_feedback.launches = 0
 
 # ------------------------------------------------------------------ K2
 
+# The kernel's tile: 256 threads x 4 vectors of 4 floats (the source's kTile).
+INT8_TILE = 4096
+# Leaves in one launch: the kernel's table of leaves travels in its 4 KB of
+# parameters (the source's kMaxLeaves; its entry point refuses a longer one).
+INT8_GROUP_CAPACITY = 90
+
+
+class Int8Leaf(NamedTuple):
+    """One leaf of a K2 launch: its position ``index`` in the caller's list,
+    its ``numel`` elements, the ``head`` leading elements done one by one
+    before ``x`` and ``out`` reach 16-byte alignment (at most 3, and at most
+    ``numel``), the ``tail`` elements after the body's last whole 4-element
+    vector, also done one by one, and its ``tiles``: tile ``t`` covers
+    elements ``[head + t * INT8_TILE, head + (t + 1) * INT8_TILE)`` cut at
+    ``numel``, and tile 0 also does the head."""
+
+    index: int
+    numel: int
+    head: int
+    tail: int
+    tiles: int
+
+    def tile_span(self, tile: int) -> Tuple[int, int]:
+        """The ``[start, stop)`` elements of ``tile``'s vectors and tail."""
+        start = self.head + tile * INT8_TILE
+        return start, min(start + INT8_TILE, self.numel)
+
+
+def _int8_group_plan(
+    sizes: Sequence[int], offsets: Optional[Sequence[int]] = None
+) -> List[Tuple[Int8Leaf, ...]]:
+    """The K2 launches for leaves of ``sizes`` elements whose ``x`` (and
+    ``out``) start ``offsets`` bytes past a 16-byte boundary (default 0;
+    multiples of 4): the non-empty leaves in order, at most
+    ``INT8_GROUP_CAPACITY`` a launch."""
+    offsets = [0] * len(sizes) if offsets is None else offsets
+    leaves = []
+    for i, (numel, offset) in enumerate(zip(sizes, offsets)):
+        if numel == 0:
+            continue
+        head = min(numel, (16 - offset % 16) % 16 // 4)
+        tiles = max(1, -(-(numel - head) // INT8_TILE))
+        leaves.append(Int8Leaf(i, numel, head, (numel - head) % 4, tiles))
+    cap = INT8_GROUP_CAPACITY
+    return [tuple(leaves[i : i + cap]) for i in range(0, len(leaves), cap)]
+
+
+def _empty_at_offset_of(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor like ``x`` that starts at ``x``'s byte
+    offset modulo 16, so that K2 moves both in 16-byte vectors after the
+    same head."""
+    skip = x.data_ptr() % 16 // x.element_size()
+    if skip == 0:
+        return torch.empty_like(x)
+    return torch.empty(x.numel() + skip, dtype=x.dtype, device=x.device)[skip:].view(x.shape)
+
 
 def quantdequant_int8_plain(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``clip(round(x / s'), -127, 127) * s'`` with ``s' = s > 0 ? s : 1``
@@ -215,21 +275,49 @@ def quantdequant_int8_plain(x: torch.Tensor, scale: torch.Tensor) -> torch.Tenso
     return torch.clamp(torch.round(x / safe), -127.0, 127.0) * safe
 
 
-def quantdequant_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Simulated symmetric int8 codec of ``x [rows, cols]`` f32 with per-row
-    ``scale [rows]`` (each row's max|x| / 127)."""
-    if x.device.type == "cpu":
-        return quantdequant_int8_plain(x, scale)
-    _check_rows("quantdequant_int8", x, scale)
-    out = torch.empty_like(x)
-    if x.numel():
-        rows, cols = x.shape
-        _launch(
-            "quantdequant_int8", x, x.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), rows, cols,
+def quantdequant_int8_grouped_plain(
+    xs: Sequence[torch.Tensor], scales: Sequence[torch.Tensor]
+) -> List[torch.Tensor]:
+    """:func:`quantdequant_int8_plain` of every leaf."""
+    return [quantdequant_int8_plain(x, s) for x, s in zip(xs, scales)]
+
+
+def quantdequant_int8_grouped(
+    xs: Sequence[torch.Tensor], scales: Sequence[torch.Tensor]
+) -> List[torch.Tensor]:
+    """Simulated symmetric int8 codec of every leaf ``xs[i] [rows, cols]``
+    f32 with per-row ``scales[i] [rows]`` (each row's max|x| / 127), in one
+    launch for up to ``INT8_GROUP_CAPACITY`` leaves."""
+    xs, scales = list(xs), list(scales)
+    if len(xs) != len(scales):
+        raise ValueError(f"quantdequant_int8: {len(xs)} leaves and {len(scales)} scales")
+    if all(x.device.type == "cpu" for x in xs):
+        return quantdequant_int8_grouped_plain(xs, scales)
+    for x, s in zip(xs, scales):
+        _check_rows("quantdequant_int8", x, s, max_rows=None)
+        if x.device != xs[0].device:
+            raise ValueError(f"quantdequant_int8: leaves on {xs[0].device} and {x.device}")
+    outs = [_empty_at_offset_of(x) for x in xs]
+    plan = _int8_group_plan([x.numel() for x in xs], [x.data_ptr() % 16 for x in xs])
+    for launch in plan:
+        table = np.asarray(
+            [
+                (xs[leaf.index].data_ptr(), scales[leaf.index].data_ptr(),
+                 outs[leaf.index].data_ptr(), *xs[leaf.index].shape, leaf.head, leaf.tiles)
+                for leaf in launch
+            ],
+            dtype=np.int64,
         )
+        _launch("quantdequant_int8", xs[0], table.ctypes.data, len(launch))
         quantdequant_int8.launches += 1
-    return out
+    return outs
+
+
+def quantdequant_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Simulated symmetric int8 codec of one ``x [rows, cols]`` f32 with
+    per-row ``scale [rows]``: the one-leaf case of
+    :func:`quantdequant_int8_grouped`."""
+    return quantdequant_int8_grouped([x], [scale])[0]
 
 
 quantdequant_int8.launches = 0

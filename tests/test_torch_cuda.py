@@ -11,7 +11,9 @@ ties at the threshold, -0.0, zero scales and halfway quotients at smallcnn's
 widths; -0.0, zeros and large magnitudes for the Hadamard rotation at the
 rotq rows (smallcnn's [64, 2^20], MobileNet's [64, 2^22]) and widths around
 its phase boundary; and a small MobileNet round on the card against the same
-round on the CPU.
+round on the CPU. The grouped int8 kernel also takes lists of leaves: the
+83 of a MobileNet round, empty and ragged leaves, views off 16-byte
+alignment, and more leaves than one launch's table holds.
 """
 
 import numpy as np
@@ -105,6 +107,90 @@ def test_quantdequant_int8_kernel_bit_equal_on_card(cuda_device, rows, cols):
     assert kernels.quantdequant_int8.launches == before + 1
     ref = kernels.quantdequant_int8_plain(xd, sd)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def _quant_leaves(rng, shapes):
+    """One ``_quant_inputs`` leaf per shape (zeros for an empty one), a NaN
+    in the last column of every leaf of more than 3 columns."""
+    leaves = []
+    for rows, cols in shapes:
+        if rows * cols == 0:
+            leaves.append((np.zeros((rows, cols), np.float32), np.zeros(rows, np.float32)))
+            continue
+        x, s = _quant_inputs(rng, rows, cols)
+        if cols > 3:
+            x[0, -1] = np.nan
+        leaves.append((x, s))
+    return leaves
+
+
+def _mobilenet_leaf_shapes(clients=64):
+    from fedtpu_torch import models
+
+    model = models.create("mobilenet", 10)
+    return [(clients, p.numel()) for p in model.parameters()]
+
+
+# Lists of K2 leaves, each one grouped call: leaves of every edge width
+# (empty, one column, cols not a multiple of 4, 65,537 columns), and a list
+# longer than one launch's table of leaves.
+GROUPED_CASES = {
+    "ragged": [(1, 1), (1, 700), (3, 257), (2, 1), (64, 1000), (5, 65537), (4, 10)],
+    "mixed": [(0, 5), (3, 0), (2, 1), (3, 10), (0, 0), (2, 65537), (1, 3), (5, 7)],
+    "longer_than_a_table": [(2, 1 + i % 37) for i in range(200)],
+}
+
+
+def _grouped_on_card(cuda_device, leaves, misaligned=()):
+    """The grouped kernel on ``leaves`` (numpy pairs), the leaves at
+    ``misaligned`` passed as views one float off 16-byte alignment: bit-equal
+    to the plain version leaf by leaf, with one launch per table of
+    leaves."""
+    xs, ss = [], []
+    for i, (x, s) in enumerate(leaves):
+        xd = torch.from_numpy(x).to(cuda_device)
+        if i in misaligned:
+            buf = torch.zeros(x.size + 1, device=cuda_device)
+            buf[1:] = xd.reshape(-1)
+            xd = buf[1:].view(x.shape)
+            assert xd.data_ptr() % 16
+        xs.append(xd)
+        ss.append(torch.from_numpy(s).to(cuda_device))
+    before = kernels.quantdequant_int8.launches
+    outs = kernels.quantdequant_int8_grouped(xs, ss)
+    torch.cuda.synchronize()
+    nonempty = sum(x.numel() > 0 for x in xs)
+    want = -(-nonempty // kernels.INT8_GROUP_CAPACITY)
+    assert kernels.quantdequant_int8.launches == before + want
+    for x, s, out in zip(xs, ss, outs):
+        ref = kernels.quantdequant_int8_plain(x, s)
+        assert out.shape == x.shape
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), tuple(x.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUPED_CASES))
+def test_quantdequant_int8_grouped_bit_equal_on_card(cuda_device, case):
+    leaves = _quant_leaves(np.random.default_rng(len(case)), GROUPED_CASES[case])
+    _grouped_on_card(cuda_device, leaves)
+
+
+@pytest.mark.cuda
+def test_quantdequant_int8_grouped_mobilenet_round_in_one_launch_on_card(cuda_device):
+    """MobileNet's 83 leaves at 64 clients, as a per-leaf int8 round
+    quantizes them: one launch."""
+    shapes = _mobilenet_leaf_shapes()
+    assert len(shapes) == 83
+    _grouped_on_card(cuda_device, _quant_leaves(np.random.default_rng(83), shapes))
+
+
+@pytest.mark.cuda
+def test_quantdequant_int8_grouped_takes_misaligned_views_on_card(cuda_device):
+    """Leaves that start one float past 16-byte alignment (narrow, ragged
+    and wide) beside aligned ones."""
+    shapes = [(3, 4099), (1, 2), (2, 65537), (4, 10), (64, 1000), (1, 1)]
+    leaves = _quant_leaves(np.random.default_rng(5), shapes)
+    _grouped_on_card(cuda_device, leaves, misaligned=(0, 1, 2, 5))
 
 
 @pytest.mark.cuda
