@@ -44,17 +44,39 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    plain kernels, finite losses and BatchNorm statistics; one gather-layout
    round and one server-adam round; timed rounds of every case, with the
    peak device memory.
+7. options reference: the round options (median, trimmed mean, Krum, DP
+   with the noise drawn once on the CPU, screening against a boosted
+   sign-flipping attacker, FedProx on a Dirichlet assignment, megabatch,
+   bf16 momentum) in small rounds (4 smallcnn clients, f32) on the card
+   against the same rounds on the CPU: params within the reference
+   tolerance, Krum's chosen client and the screened rows equal.
+8. options: the round options at MobileNet's full width (64 clients, batch
+   128, 6 steps, bf16): (a) Dirichlet(0.5) on the gather layout, FedProx,
+   loss-sampled half participation and per-leaf int8 (1 K2 a round); (b)
+   the same with flat top-k, screening and 8 boosted sign-flipping
+   attackers (1 K1 a round); (c) the same with flat rotq (2 K3 a round);
+   (d) median, trimmed mean and Krum, and DP on smallcnn at full width (DP
+   refuses a model with BatchNorm, as fedtpu does), no kernel; (e)
+   megabatch k=4, bf16 momentum and remat, beside the plain uncompressed
+   rounds of both models. Each engine is built, driven two rounds and
+   freed in turn, three turns over the cases; the launch counts are set to
+   0 before the phase, checked every round and read after it; every
+   round's losses and state must be finite. Then one local step with and
+   without remat, for the memory its forward holds and its peak.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
-Each kernel's ``launches`` there is the sum over the two main paths, the
-smallcnn slice and the MobileNet round; ``launches_by_path`` has each.
+Each kernel's ``launches`` there is the sum over the main paths, the
+smallcnn slice, the MobileNet round and the round options;
+``launches_by_path`` has each.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -73,8 +95,10 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from fedtpu_torch import DataConfig, FedConfig, Federation, RoundConfig, models  # noqa: E402
-from fedtpu_torch.core.round import init_state  # noqa: E402
+from fedtpu_torch import DataConfig, FedConfig, Federation, OptimizerConfig, RoundConfig, models  # noqa: E402
+from fedtpu_torch.config import ScreenConfig, SimConfig  # noqa: E402
+from fedtpu_torch.core import round as round_lib  # noqa: E402
+from fedtpu_torch.core.round import RoundDraws, init_state  # noqa: E402
 from fedtpu_torch.data import datasets  # noqa: E402
 from fedtpu_torch.ops import compression, flat, kernels  # noqa: E402
 
@@ -822,10 +846,11 @@ def bench_cfg(
     return RoundConfig(
         model=model,
         num_classes=10,
-        data=DataConfig(
-            dataset="cifar10", batch_size=BATCH, partition="iid",
-            num_examples=NUM_CLIENTS * STEPS * BATCH, **(data_kw or {}),
-        ),
+        data=DataConfig(**{
+            **dict(dataset="cifar10", batch_size=BATCH, partition="iid",
+                   num_examples=NUM_CLIENTS * STEPS * BATCH),
+            **(data_kw or {}),
+        }),
         fed=FedConfig(
             num_clients=NUM_CLIENTS, compression=compression_name,
             topk_fraction=TOPK_FRACTION, delta_layout=layout, **(fed_kw or {}),
@@ -1173,6 +1198,262 @@ def profile_diff(base, other, label: str, base_label: str):
         log(f"profile {label} - {base_label}: {ms:+8.3f} ms/round  {name[:100]}")
 
 
+# --------------------------------------------------- 7. options reference
+
+
+# name -> (DataConfig, FedConfig, OptimizerConfig fields) of a small round.
+OPTIONS_REFERENCE_CASES = {
+    "median": ({}, dict(aggregator="median", weighted=False), {}),
+    "trimmed_mean": ({}, dict(aggregator="trimmed_mean", trim_fraction=0.1, weighted=False), {}),
+    "krum": ({}, dict(aggregator="krum", trim_fraction=0.25, weighted=False), {}),
+    "dp": ({}, dict(dp_clip_norm=1.0, dp_noise_multiplier=1.0, weighted=False), {}),
+    "screen": ({}, dict(weighted=False, screen=ScreenConfig(zmax=6.0, cos_min=-0.5),
+                        sim=SimConfig(malicious_fraction=0.25, attack="scale:factor=-8")), {}),
+    "fedprox_dirichlet": (dict(partition="dirichlet", dirichlet_alpha=0.5),
+                          dict(algorithm="fedprox", fedprox_mu=0.01), {}),
+    "megabatch": ({}, dict(megabatch_clients=2), {}),
+    "bf16_momentum": ({}, {}, dict(momentum_dtype="bfloat16")),
+}
+
+
+def _cpu_normals(round_idx, tree):
+    """DP noise drawn on the CPU, the same on both devices."""
+    g = torch.Generator().manual_seed(1000 + round_idx)
+    return {k: torch.randn(tree[k].shape, generator=g) for k in sorted(tree)}
+
+
+def _same_batch(fed, r):
+    """Round ``r``'s batch with the same draws on either device: the
+    presharded rotation offset, or the gather layout's sort keys."""
+    if fed.layout == "gather":
+        keys = torch.rand(fed.client_idx.shape, generator=torch.Generator().manual_seed(100 + r))
+        return fed.device_batch(r, keys=keys)
+    return fed.device_batch(r, offset=r + 3)
+
+
+class KrumSpy:
+    """Records the client Krum chooses in each round while armed: the row
+    of the deltas that equals its output."""
+
+    def __init__(self):
+        self.chosen = []
+        self.inner = round_lib._krum_over_clients
+
+    def __call__(self, trees, alive_w, trim):
+        out = self.inner(trees, alive_w, trim)
+        rows = torch.cat([x.reshape(x.shape[0], -1).float() for t in trees for x in round_lib._items(t).values()], 1)
+        pick = torch.cat([x.reshape(-1).float() for t in out for x in round_lib._items(t).values()])
+        hits = torch.nonzero((rows == pick[None]).all(1)).flatten().tolist()
+        if len(hits) != 1:
+            raise RuntimeError(f"options reference: Krum's output matches rows {hits}")
+        self.chosen.append(hits[0])
+        return out
+
+    def __enter__(self):
+        round_lib._krum_over_clients = self
+        return self
+
+    def __exit__(self, *exc):
+        round_lib._krum_over_clients = self.inner
+
+
+def options_reference_phase():
+    """Each round option in one small round (4 smallcnn clients, f32) on the
+    card and on the CPU from the same init: params within atol=1e-5,
+    rtol=1e-4 on all but 0.1% of coordinates (the reference phase's
+    tolerance), the screened rows and Krum's chosen client equal, finite
+    state."""
+    rng = np.random.default_rng(3)
+    images = rng.standard_normal((64, 32, 32, 3), dtype=np.float32)
+    labels = rng.integers(0, 10, size=64).astype(np.int32)
+    for name, (data_kw, fed_kw, opt_kw) in OPTIONS_REFERENCE_CASES.items():
+        cfg = RoundConfig(
+            model="smallcnn",
+            data=DataConfig(**{**dict(dataset="cifar10", batch_size=8, partition="iid", augment=False), **data_kw}),
+            fed=FedConfig(num_clients=4, **fed_kw),
+            opt=OptimizerConfig(**opt_kw),
+            steps_per_round=2,
+        )
+        draws = RoundDraws(dp_noise=_cpu_normals) if name == "dp" else None
+        cpu = Federation(cfg, seed=0, data=(images, labels), device="cpu", draws=draws)
+        gpu = Federation(cfg, seed=0, data=(images, labels), draws=draws)
+        gpu.state = gpu.state._replace(params={k: v.cuda() for k, v in cpu.state.params.items()})
+        runs = {}
+        for dev, fed in (("cpu", cpu), ("cuda", gpu)):
+            with KrumSpy() as spy:
+                m = fed.step(_same_batch(fed, 0))
+            runs[dev] = (fed, m, spy.chosen)
+        (cpu, m_cpu, k_cpu), (gpu, m_gpu, k_gpu) = runs["cpu"], runs["cuda"]
+        bad = total = 0
+        for k, w in cpu.state.params.items():
+            g = gpu.state.params[k].cpu()
+            if not torch.isfinite(g).all():
+                raise RuntimeError(f"options reference: {name}: non-finite {k}")
+            bad += int(((g - w).abs() > 1e-5 + 1e-4 * w.abs()).sum())
+            total += w.numel()
+        if bad > 0.001 * total:
+            raise RuntimeError(f"options reference: {name}: {bad} of {total} coordinates differ from the CPU")
+        if k_cpu != k_gpu:
+            raise RuntimeError(f"options reference: {name}: Krum chose {k_gpu} on the card, {k_cpu} on the CPU")
+        if not torch.equal(m_gpu.screened.cpu(), m_cpu.screened):
+            raise RuntimeError(
+                f"options reference: {name}: screened {m_gpu.screened.tolist()} on the card, "
+                f"{m_cpu.screened.tolist()} on the CPU"
+            )
+        if name == "screen" and not bool(m_cpu.screened[torch.from_numpy(cpu.attacker_clients)].all()):
+            raise RuntimeError("options reference: screen: the attacker was not screened")
+        log(
+            f"options reference: {name}: card vs CPU after one round, {bad} of {total} coordinates "
+            f"beyond tolerance; screened {m_gpu.screened.tolist()}; Krum chose {k_gpu}; layout {gpu.layout}"
+        )
+
+
+# ---------------------------------------------------------------- 8. options
+
+
+# (label, model, codec, layout, DataConfig / FedConfig / OptimizerConfig /
+# RoundConfig fields, K launches a round by kernel). Dirichlet(0.5) over
+# 64 clients skews the shards, so (a)-(c) take the gather layout.
+_SKEWED = dict(partition="dirichlet", dirichlet_alpha=0.5)
+_PROX = dict(algorithm="fedprox", fedprox_mu=0.01)
+OPTIONS_CASES = (
+    ("mean", "mobilenet", "none", "per_leaf", {}, dict(weighted=False), {}, {}, {}),
+    ("a: dirichlet fedprox loss-sampled int8", "mobilenet", "int8", "per_leaf", _SKEWED,
+     dict(_PROX, participation_fraction=0.5, participation_sampling="loss"), {}, {}, {"quantdequant_int8": 1}),
+    ("b: dirichlet fedprox flat topk screened attacked", "mobilenet", "topk", "flat", _SKEWED,
+     dict(_PROX, weighted=False, screen=ScreenConfig(zmax=6.0, cos_min=-0.5),
+          sim=SimConfig(malicious_fraction=0.125, attack="scale:factor=-8")), {}, {}, {"threshold_feedback": 1}),
+    ("c: dirichlet fedprox flat rotq", "mobilenet", "rotq", "flat", _SKEWED, _PROX, {}, {}, {"hadamard_rotate": 2}),
+    ("d: median", "mobilenet", "none", "per_leaf", {}, dict(aggregator="median", weighted=False), {}, {}, {}),
+    ("d: trimmed_mean 0.1", "mobilenet", "none", "per_leaf", {},
+     dict(aggregator="trimmed_mean", trim_fraction=0.1, weighted=False), {}, {}, {}),
+    ("d: krum 0.1", "mobilenet", "none", "per_leaf", {}, dict(aggregator="krum", trim_fraction=0.1, weighted=False),
+     {}, {}, {}),
+    ("e: megabatch 4", "mobilenet", "none", "per_leaf", {}, dict(weighted=False, megabatch_clients=4), {}, {}, {}),
+    ("e: bf16 momentum", "mobilenet", "none", "per_leaf", {}, dict(weighted=False),
+     dict(momentum_dtype="bfloat16"), {}, {}),
+    ("e: remat", "mobilenet", "none", "per_leaf", {}, dict(weighted=False), {}, dict(remat=True), {}),
+    ("smallcnn mean", "smallcnn", "none", "per_leaf", {}, dict(weighted=False), {}, {}, {}),
+    ("d: smallcnn dp", "smallcnn", "none", "per_leaf", {},
+     dict(weighted=False, dp_clip_norm=1.0, dp_noise_multiplier=1.0), {}, {}, {}),
+)
+OPTIONS_ROUNDS = 2  # a turn's rounds per engine; the last one is timed
+
+
+def options_cfg(model, codec, layout, data_kw, fed_kw, opt_kw, round_kw) -> RoundConfig:
+    cfg = bench_cfg(codec, layout, model, data_kw=data_kw, fed_kw=fed_kw)
+    return dataclasses.replace(cfg, opt=OptimizerConfig(**opt_kw), **round_kw)
+
+
+def _finite_state(fed) -> bool:
+    state = list(_state_tensors(fed.state)) + list(_tensors(fed.state.server_opt_state))
+    return all(t.device.type == "cuda" and bool(torch.isfinite(t).all()) for t in state)
+
+
+def remat_probe(data, card):
+    """Where remat's memory goes, in one local step of the full-width
+    MobileNet round (64 clients x 128 examples, bf16) taken through
+    torch.func.vjp of the vmapped loss, with and without remat: the device
+    memory the forward leaves held for the backward, and the step's peak
+    (both above the memory held before the step)."""
+    from torch.func import functional_call, vjp, vmap
+
+    from fedtpu_torch.ops.losses import softmax_ce_int_labels
+
+    out = {}
+    for remat in (False, True):
+        fed = Federation(options_cfg("mobilenet", "none", "per_leaf", {}, {}, {}, dict(remat=remat)), seed=0, data=data)
+        batch = fed.device_batch(0)
+        x, y = batch.x[:, 0].to(torch.bfloat16), batch.y[:, 0]
+        n = x.shape[0]
+        params = {k: v.expand((n,) + tuple(v.shape)) for k, v in fed.state.params.items()}
+        stats = {k: v.expand((n,) + tuple(v.shape)) for k, v in fed.state.batch_stats.items()}
+
+        def loss(p, s, x, y, model=fed.model):
+            cast = {k: v.to(torch.bfloat16) for k, v in p.items()}
+            logits, _ = functional_call(model, (cast, s), (x,), {"train": True})
+            return softmax_ce_int_labels(logits.float(), y).mean()
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, back = vjp(lambda p: vmap(loss)(p, stats, x, y), params)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        grads = back(torch.ones_like(losses))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if not all(bool(torch.isfinite(g).all()) for g in grads[0].values()):
+            raise RuntimeError(f"remat probe: non-finite gradients (remat={remat})")
+        out["remat" if remat else "plain"] = {"held_after_forward_gb": held / 1e9, "step_peak_gb": peak / 1e9}
+        del fed, batch, x, y, params, stats, losses, back, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("options: remat probe, one local step: " + json.dumps({**out, "card": card}))
+    return out
+
+
+def options_phase(data, card):
+    """This slice's main path: every case of OPTIONS_CASES through
+    Federation.run, TIMING_REPEATS turns over the cases (the order reversed
+    on the middle turn), each engine built, driven OPTIONS_ROUNDS rounds
+    and freed before the next. The counts are set to 0 before the phase
+    and read after it; each round's launches are checked against the
+    case's. Returns the per-case results and the phase's counts."""
+    secs = {c[0]: [] for c in OPTIONS_CASES}
+    peak, rounds_log = {}, {c[0]: [] for c in OPTIONS_CASES}
+    kernels.reset_launch_counts()
+    for turn in range(TIMING_REPEATS):
+        for label, model, codec, layout, data_kw, fed_kw, opt_kw, round_kw, want in OPTIONS_CASES[:: -1 if turn % 2 else 1]:
+            fed = Federation(options_cfg(model, codec, layout, data_kw, fed_kw, opt_kw, round_kw), seed=0, data=data)
+            if data_kw and fed.layout != "gather":
+                raise RuntimeError(f"options {label}: Dirichlet shards took the {fed.layout} layout")
+            for r in range(OPTIONS_ROUNDS):
+                before = _launch_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                m = fed.run(1)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                after = _launch_counts()
+                launched = {k: after[k] - before[k] for k in after}
+                if any(launched[k] != want.get(k, 0) for k in launched):
+                    raise RuntimeError(f"options {label} turn {turn} round {r}: launches {launched}, expected {want}")
+                rec = fed.history[-1]
+                if "screened" in rec:
+                    caught = m.screened.cpu()[torch.from_numpy(fed.attacker_clients)]
+                    rec["attackers_screened"] = int(caught.sum())
+                    if not bool(caught.all()):
+                        raise RuntimeError(f"options {label} turn {turn} round {r}: an attacker was not screened")
+                if not math.isfinite(rec["loss"]) or not _finite_state(fed):
+                    raise RuntimeError(f"options {label} turn {turn} round {r}: non-finite loss or state")
+                rounds_log[label].append({
+                    k: rec[k] for k in ("round", "loss", "active", "screened", "attackers_fired", "attackers_screened")
+                    if k in rec
+                })
+            secs[label].append(dt)
+            peak[label] = torch.cuda.max_memory_allocated() / 1e9
+            del fed
+            gc.collect()
+            torch.cuda.empty_cache()
+    results = {}
+    for label, dts in secs.items():
+        per_s = [1.0 / dt for dt in dts]
+        results[label] = {
+            "rounds_per_s": statistics.median(per_s),
+            "rounds_per_s_each": per_s,
+            "peak_mem_gb": peak[label],
+            "launches_per_round": next(c[-1] for c in OPTIONS_CASES if c[0] == label),
+            "rounds": rounds_log[label],
+            "card": card,
+        }
+        log(f"options {label}: " + json.dumps(results[label]))
+    for label, base in (("e: remat", "mean"),):
+        log(f"options: remat peak {peak[label]:.2f} GB against {peak[base]:.2f} GB without remat")
+    return results, _launch_counts()
+
+
 # --------------------------------------------------------------- main
 
 
@@ -1192,6 +1473,7 @@ def main(argv=None) -> int:
     results["hadamard_rotate"] = hadamard_phase(peaks)
     reference_phase()
     mobilenet_reference_phase()
+    options_reference_phase()
     data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
     paths = {}
     feds, paths["smallcnn"] = slice_phase(data)
@@ -1209,12 +1491,6 @@ def main(argv=None) -> int:
     del feds
     torch.cuda.empty_cache()
     mfeds, paths["mobilenet"] = slice_phase(data, "mobilenet", MOBILENET_SLICE, MOBILENET_LEAVES)
-    for kname in kernels.KERNELS:
-        for path, counts in paths.items():
-            if counts[kname] == 0:
-                raise RuntimeError(f"slice: {kname} was never launched on the {path} path")
-        results[kname]["launches"] = sum(counts[kname] for counts in paths.values())
-        results[kname]["launches_by_path"] = {path: counts[kname] for path, counts in paths.items()}
     flops = mobilenet_flops()
     rates = timing_phase(mfeds, smi, MOBILENET_SLICE, MOBILENET_TIMED_ROUNDS, "mobilenet")
     for rate in rates.values():
@@ -1228,6 +1504,14 @@ def main(argv=None) -> int:
     del mfeds
     torch.cuda.empty_cache()
     mobilenet_options_phase(data, smi)
+    _, paths["options"] = options_phase(data, smi)
+    remat_probe(data, smi)
+    for kname in kernels.KERNELS:
+        for path, counts in paths.items():
+            if counts[kname] == 0:
+                raise RuntimeError(f"slice: {kname} was never launched on the {path} path")
+        results[kname]["launches"] = sum(counts[kname] for counts in paths.values())
+        results[kname]["launches_by_path"] = {path: counts[kname] for path, counts in paths.items()}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -2,17 +2,38 @@
 
 An own copy of the fields of ``fedtpu.config`` that the ported round reads,
 with the same names and defaults, so that one set of keyword arguments
-builds the same run in both packages. Options the port does not run yet are
-kept as fields and rejected by :func:`validate` with ``NotImplementedError``
-naming the ROADMAP.md item that ports them: a setting is never silently
-ignored.
+builds the same run in both packages. :func:`validate` raises fedtpu's
+``ValueError`` for a combination fedtpu forbids, and ``NotImplementedError``
+naming the ROADMAP.md item that ports an option the port does not run yet
+(the massive-cohort population, the datasets and models of the rest of the
+zoo): a setting is never silently ignored.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
+
+import numpy as np
+
+from fedtpu_torch.sim.adversary import parse_attack
+
+
+@functools.lru_cache(maxsize=None)
+def _cosf() -> Callable[[float], float]:
+    """The C library's f32 cosine, the one XLA's CPU backend calls for an
+    f32 ``cos``; the correctly rounded cosine where there is no C library
+    to load."""
+    name = ctypes.util.find_library("m")
+    if name:
+        fn = ctypes.CDLL(name).cosf
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+        return fn
+    return math.cos
 
 
 ROTQ_BIT_WIDTHS = (1, 2, 4, 8)
@@ -30,18 +51,30 @@ class OptimizerConfig:
     schedule: str = "constant"  # constant | cosine
     cosine_t_max: int = 200
     nesterov: bool = False
-    momentum_dtype: str = "float32"  # float32 | bfloat16 (not ported)
+    # HBM dtype of the per-client momentum buffers: the update is computed
+    # in f32 either way, only the stored buffer is rounded.
+    momentum_dtype: str = "float32"  # float32 | bfloat16
 
     def lr_at(self, round_idx: int) -> float:
-        """Learning rate for a round (a host-side float)."""
+        """Learning rate for a round: a host-side float that is an f32
+        value, the rate fedtpu's compiled round computes.
+
+        The cosine schedule is fedtpu's expression
+        ``lr * 0.5 * (1 + cos(pi * t / t_max))`` in f32 on the int32 round
+        ``t = min(round, t_max)``, as XLA compiles it on the CPU: the
+        constants fold to ``t * f32(f32(pi) * f32(1 / t_max))``, the f32
+        cosine is the C library's ``cosf`` (not correctly rounded
+        everywhere, and neither ``torch.cos`` nor numpy's f32 cosine is the
+        same function), then ``(cos + 1) * f32(lr * 0.5)``."""
         if self.schedule == "constant":
             return float(self.learning_rate)
         if self.schedule != "cosine":
             raise ValueError(f"unknown schedule: {self.schedule!r}")
-        t = min(round_idx, self.cosine_t_max)
-        return self.learning_rate * 0.5 * (
-            1.0 + math.cos(math.pi * t / self.cosine_t_max)
-        )
+        f32 = np.float32
+        t = f32(min(int(round_idx), self.cosine_t_max))
+        step = f32(f32(math.pi) * f32(1.0 / self.cosine_t_max))
+        c = f32(_cosf()(float(f32(t * step))))
+        return float(f32(f32(c + f32(1.0)) * f32(self.learning_rate * 0.5)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +84,8 @@ class DataConfig:
     dataset: str = "cifar10"  # cifar10 | cifar100 | mnist | synthetic
     batch_size: int = 128
     eval_batch_size: int = 100
-    partition: str = "round_robin"  # round_robin | iid | dirichlet (not ported)
+    partition: str = "round_robin"  # round_robin | iid | dirichlet
+    dirichlet_alpha: float = 0.5
     augment: bool = True
     augment_crop: bool = True
     seed: int = 0
@@ -60,17 +94,63 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """The seeded-adversary fields of ``fedtpu.config.SimConfig``, and
+    ``population``, which the port does not run yet (ROADMAP.md slice 8).
+
+    ``malicious_fraction`` of the clients are seeded attackers, chosen by
+    ``(data.seed + seed + the attack's own seed)``; ``attack`` is the spec
+    :func:`fedtpu_torch.sim.adversary.parse_attack` reads (``sign_flip``,
+    ``scale:factor=F``, ``noise:std=S``, ``label_flip:offset=K``, with
+    ``p=``, ``rounds=lo-hi``, ``collude=1`` and ``seed=``)."""
+
+    population: int = 0
+    seed: int = 0
+    malicious_fraction: float = 0.0
+    attack: str = "sign_flip"
+
+
+@dataclasses.dataclass(frozen=True)
 class ScreenConfig:
-    """The three screening statistics of ``fedtpu.config.ScreenConfig``;
-    any of them armed turns screening on, which the port does not run."""
+    """fedtpu's update screening: three per-row statistics of the flat
+    ``[clients, P]`` deltas (:func:`fedtpu_torch.ops.flat.screen_rows`), each
+    armed by its own threshold (0, or -1 for ``cos_min``, is off). The
+    reputation fields serve fedtpu's distributed server; the engine reads
+    only the thresholds, and all are validated as fedtpu validates them."""
 
     norm_max: float = 0.0
     zmax: float = 0.0
     cos_min: float = -1.0
+    ewma: float = 0.5
+    quarantine_at: float = 0.75
+    release_at: float = 0.25
+    evict_after: int = 0
 
 
 def screening_enabled(screen: ScreenConfig) -> bool:
+    """True when any screening statistic is armed."""
     return screen.norm_max > 0 or screen.zmax > 0 or screen.cos_min > -1.0
+
+
+def validate_screen_config(screen: ScreenConfig) -> ScreenConfig:
+    """fedtpu's ``validate_screen_config``."""
+    if screen.norm_max < 0:
+        raise ValueError(f"screen norm_max must be >= 0, got {screen.norm_max}")
+    if screen.zmax < 0:
+        raise ValueError(f"screen zmax must be >= 0, got {screen.zmax}")
+    if not -1.0 <= screen.cos_min <= 1.0:
+        raise ValueError(f"screen cos_min must be in [-1, 1], got {screen.cos_min}")
+    if not 0.0 < screen.ewma <= 1.0:
+        raise ValueError(f"screen ewma must be in (0, 1], got {screen.ewma}")
+    if not 0.0 <= screen.release_at <= screen.quarantine_at <= 1.0:
+        raise ValueError(
+            "screen thresholds must satisfy 0 <= release_at <= "
+            f"quarantine_at <= 1, got release_at={screen.release_at} "
+            f"quarantine_at={screen.quarantine_at}"
+        )
+    if screen.evict_after < 0:
+        raise ValueError(f"screen evict_after must be >= 0, got {screen.evict_after}")
+    return screen
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,10 +160,12 @@ class FedConfig:
     num_clients: int = 2
     num_rounds: int = 20
     local_epochs: int = 1
-    algorithm: str = "fedavg"  # fedavg | fedprox (not ported)
+    algorithm: str = "fedavg"  # fedavg | fedprox
+    fedprox_mu: float = 0.0
     weighted: bool = True
     participation_fraction: float = 1.0
-    participation_sampling: str = "uniform"  # uniform | loss (not ported)
+    # uniform, or in proportion to each client's last training loss
+    participation_sampling: str = "uniform"  # uniform | loss
     compression: str = "none"  # none | topk | int8 | rotq | randk (flat only)
     topk_fraction: float = 0.01
     error_feedback: bool = True
@@ -94,11 +176,14 @@ class FedConfig:
     server_momentum: float = 0.9  # momentum's decay; adam's and yogi's b1
     server_beta2: float = 0.999
     server_eps: float = 1e-8
-    aggregator: str = "mean"  # mean | median, trimmed_mean, krum (not ported)
+    aggregator: str = "mean"  # mean | median | trimmed_mean | krum
+    trim_fraction: float = 0.1  # trimmed_mean's band; krum's assumed attackers
     dp_clip_norm: float = 0.0
     dp_noise_multiplier: float = 0.0
+    sim: SimConfig = dataclasses.field(default_factory=SimConfig)
     screen: ScreenConfig = dataclasses.field(default_factory=ScreenConfig)
     compute_dtype: str = "float32"  # float32 | bfloat16_mixed
+    # k > 0 trains each group of k clients as one [k * batch] forward
     megabatch_clients: int = 0
 
 
@@ -113,7 +198,7 @@ class RoundConfig:
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
     steps_per_round: int = 8
     dtype: str = "float32"  # activation dtype; params stay f32
-    remat: bool = False  # per-block rematerialisation (not ported)
+    remat: bool = False  # per-block recompute (MobileNet's blocks)
 
 
 def resolve_compute_dtype(cfg: RoundConfig) -> str:
@@ -139,8 +224,72 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+AGGREGATORS = ("mean", "median", "trimmed_mean", "krum")
+
+
+def validate_megabatch(fed: FedConfig) -> None:
+    """fedtpu's ``validate_megabatch``."""
+    k = fed.megabatch_clients
+    if k < 0:
+        raise ValueError(f"megabatch_clients must be >= 0, got {k}")
+    if k and fed.num_clients % k:
+        raise ValueError(
+            f"megabatch_clients={k} must divide num_clients="
+            f"{fed.num_clients}: the group regrouping is a static reshape "
+            "of the [clients] axis"
+        )
+
+
+def validate_round_options(cfg: RoundConfig, compressed: bool) -> None:
+    """fedtpu's checks of the round options (``make_round_step``), with its
+    messages: a robust aggregator or DP with a codec, DP with example-count
+    weights or another aggregator than the mean, ``trim_fraction`` outside
+    ``[0, 0.5)``, a bad screen or megabatch setting. ``compressed``: the
+    round runs a codec."""
+    fed = cfg.fed
+    if fed.aggregator not in AGGREGATORS:
+        raise ValueError(
+            f"unknown aggregator {fed.aggregator!r}; "
+            "have mean | median | trimmed_mean | krum"
+        )
+    if screening_enabled(fed.screen):
+        validate_screen_config(fed.screen)
+    validate_megabatch(fed)
+    if fed.aggregator != "mean":
+        if compressed:
+            raise ValueError(
+                f"aggregator={fed.aggregator!r} cannot compose with "
+                "delta compression: sparse deltas zero out coordinate-wise "
+                "robust statistics. Use compression='none'."
+            )
+        if not 0.0 <= fed.trim_fraction < 0.5:
+            raise ValueError(
+                f"trim_fraction must be in [0, 0.5), got {fed.trim_fraction}"
+            )
+    if fed.dp_clip_norm > 0:
+        if compressed:
+            raise ValueError(
+                "DP clipping cannot compose with delta compression: error "
+                "feedback re-injects unclipped residual, voiding the "
+                "sensitivity bound. Use compression='none'."
+            )
+        if fed.weighted:
+            raise ValueError(
+                "DP requires uniform weighting (FedConfig(weighted=False)): "
+                "example-count weights change per-client sensitivity."
+            )
+        if fed.aggregator != "mean":
+            raise ValueError(
+                "DP noise std clip*sigma/n assumes the mean aggregator; "
+                f"aggregator={fed.aggregator!r} has per-client "
+                "sensitivity up to ~clip, so the accounting would be "
+                "silently invalid. Use aggregator='mean'."
+            )
+
+
 def validate(cfg: RoundConfig) -> RoundConfig:
-    """Raise on a setting the port does not run, before any build work."""
+    """Raise on a setting the port does not run or fedtpu forbids, before
+    any build work."""
     fed, data, opt = cfg.fed, cfg.data, cfg.opt
     resolve_compute_dtype(cfg)
     if fed.delta_layout not in ("per_leaf", "flat"):
@@ -166,31 +315,27 @@ def validate(cfg: RoundConfig) -> RoundConfig:
             f"unknown server_optimizer {fed.server_optimizer!r}; "
             f"have {' | '.join(SERVER_OPTIMIZERS)}"
         )
-    if cfg.remat:
-        raise not_ported("remat=True", "slice 7: round options")
-    if fed.aggregator != "mean":
-        raise not_ported(
-            f"aggregator={fed.aggregator!r}", "slice 7: round options"
+    if fed.algorithm not in ("fedavg", "fedprox"):
+        raise ValueError(f"unknown algorithm {fed.algorithm!r}; have fedavg | fedprox")
+    if fed.participation_sampling not in ("uniform", "loss"):
+        raise ValueError(
+            f"unknown participation_sampling {fed.participation_sampling!r}; "
+            "have uniform | loss"
         )
-    if fed.dp_clip_norm > 0 or fed.dp_noise_multiplier > 0:
-        raise not_ported("differential privacy", "slice 7: round options")
-    if screening_enabled(fed.screen):
-        raise not_ported("update screening", "slice 7: round options")
-    if fed.megabatch_clients:
-        raise not_ported("megabatch_clients", "slice 7: round options")
-    if fed.algorithm != "fedavg":
-        raise not_ported(f"algorithm={fed.algorithm!r}", "slice 7: round options")
-    if fed.participation_sampling != "uniform":
-        raise not_ported(
-            f"participation_sampling={fed.participation_sampling!r}",
-            "slice 7: round options",
-        )
-    if data.partition == "dirichlet":
-        raise not_ported("partition='dirichlet'", "slice 7: round options")
-    if data.partition not in ("round_robin", "iid"):
+    if data.partition not in ("round_robin", "iid", "dirichlet"):
         raise ValueError(f"unknown partition {data.partition!r}")
-    if opt.momentum_dtype == "bfloat16":
-        raise not_ported("momentum_dtype='bfloat16'", "slice 7: round options")
-    if opt.momentum_dtype != "float32":
-        raise ValueError(f"unknown momentum_dtype {opt.momentum_dtype!r}")
+    if opt.momentum_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"unknown momentum_dtype {opt.momentum_dtype!r}; have float32 | bfloat16"
+        )
+    if not 0.0 <= fed.sim.malicious_fraction < 1.0:
+        raise ValueError(
+            f"sim.malicious_fraction must be in [0, 1), got "
+            f"{fed.sim.malicious_fraction}"
+        )
+    if fed.sim.malicious_fraction > 0:
+        parse_attack(fed.sim.attack)  # raises on a malformed spec
+    if fed.sim.population > 0:
+        raise not_ported("sim.population > 0", "slice 8")
+    validate_round_options(cfg, compressed=fed.compression != "none")
     return cfg

@@ -11,6 +11,14 @@ convention of :mod:`fedtpu_torch.models.common`), which come out of
 ``grad`` as aux outputs. A masked step (ragged shard, dead client) leaves
 a client's params, statistics and momentum exactly as they were, through
 ``torch.where``.
+
+With ``algorithm='fedprox'`` the loss carries FedProx's proximal term
+``0.5 * mu * ||w - anchor||^2``, the anchor being the round's global
+params (an un-batched input of the vmapped gradient); the reported loss
+stays the cross-entropy. With ``megabatch_clients=k``
+(:func:`make_local_update_mega`) each group of k clients trains as one
+``[k * batch]`` forward on one shared trajectory, broadcast back to its
+members.
 """
 
 from __future__ import annotations
@@ -57,23 +65,19 @@ def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., Clien
     f32. With ``dtype='float32'`` the step computes in the params' dtype:
     f32, or f64 for a reference run.
     """
+    forward = _make_forward(model, cfg)
+    mu = _fedprox_mu(cfg)
+    use_augment = _use_augment(cfg)
     compute_dtype = getattr(torch, resolve_compute_dtype(cfg))
-    use_augment = cfg.data.augment and cfg.data.dataset in ("cifar10", "cifar100")
 
-    def loss_fn(params: Tree, stats: Tree, x: torch.Tensor, y: torch.Tensor):
-        if compute_dtype != torch.float32:
-            params = {k: p.to(compute_dtype) for k, p in params.items()}
-        else:
-            # flax's layers compute in the promotion of the input's and the
-            # params' dtypes: f64 params (a reference run) take f64 inputs.
-            x = x.to(torch.promote_types(x.dtype, next(iter(params.values())).dtype))
-        logits, new_stats = functional_call(model, (params, stats), (x,), {"train": True})
-        logits = logits.float()
+    def loss_fn(params: Tree, stats: Tree, anchor: Tree, x: torch.Tensor, y: torch.Tensor):
+        logits, new_stats = forward(params, stats, x)
         ce = softmax_ce_int_labels(logits, y).mean()
+        loss = ce + _proximal(params, anchor, mu) if mu > 0.0 else ce
         acc = (logits.argmax(-1) == y).float().mean()
-        return ce, (new_stats, ce.detach(), acc)
+        return loss, (new_stats, ce.detach(), acc)
 
-    per_client_grad = vmap(grad(loss_fn, has_aux=True))
+    per_client_grad = vmap(grad(loss_fn, has_aux=True), in_dims=(0, 0, None, 0, 0))
 
     def local_update(
         global_params: Tree,
@@ -92,11 +96,8 @@ def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., Clien
         for s in range(steps):
             x = xs[:, s].to(compute_dtype)
             if use_augment:
-                flat = x.reshape((-1,) + tuple(x.shape[2:]))
-                x = augment_batch(
-                    flat, crop=cfg.data.augment_crop, generator=generator
-                ).reshape(x.shape)
-            grads, (new_stats, ce, acc) = per_client_grad(params, stats, x, ys[:, s])
+                x = _augment(x, cfg, generator)
+            grads, (new_stats, ce, acc) = per_client_grad(params, stats, global_params, x, ys[:, s])
             new_params, new_momentum = optim.apply(params, grads, momentum, lr, cfg.opt)
             live = step_mask[:, s]
             params = {k: _where_rows(live, new_params[k], params[k]) for k in params}
@@ -113,6 +114,141 @@ def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., Clien
             opt_state=momentum,
             loss=torch.stack(ces).sum(0) / denom,
             accuracy=torch.stack(accs).sum(0) / denom,
+        )
+
+    return local_update
+
+
+def _fedprox_mu(cfg: RoundConfig) -> float:
+    return cfg.fed.fedprox_mu if cfg.fed.algorithm == "fedprox" else 0.0
+
+
+def _use_augment(cfg: RoundConfig) -> bool:
+    return cfg.data.augment and cfg.data.dataset in ("cifar10", "cifar100")
+
+
+def _make_forward(model: nn.Module, cfg: RoundConfig):
+    """``forward(params, stats, x) -> (f32 logits, new_stats)`` in train
+    mode, in the compute dtype."""
+    compute_dtype = getattr(torch, resolve_compute_dtype(cfg))
+
+    def forward(params: Tree, stats: Tree, x: torch.Tensor):
+        if compute_dtype != torch.float32:
+            params = {k: p.to(compute_dtype) for k, p in params.items()}
+        else:
+            # flax's layers compute in the promotion of the input's and the
+            # params' dtypes: f64 params (a reference run) take f64 inputs.
+            x = x.to(torch.promote_types(x.dtype, next(iter(params.values())).dtype))
+        logits, new_stats = functional_call(model, (params, stats), (x,), {"train": True})
+        return logits.float(), new_stats
+
+    return forward
+
+
+def _proximal(params: Tree, anchor: Tree, mu: float) -> torch.Tensor:
+    """FedProx's ``0.5 * mu * ||params - anchor||^2`` over every leaf, each
+    leaf's squares summed in f32 as fedtpu's ``tree_sq_norm`` sums them."""
+    sq = sum(torch.sum(torch.square((params[k] - anchor[k]).float())) for k in params)
+    return 0.5 * mu * sq
+
+
+def _augment(x: torch.Tensor, cfg: RoundConfig, generator) -> torch.Tensor:
+    """Crop and flip ``[clients, batch, ...]`` images, as one batch."""
+    flat = x.reshape((-1,) + tuple(x.shape[2:]))
+    return augment_batch(flat, crop=cfg.data.augment_crop, generator=generator).reshape(x.shape)
+
+
+def make_local_update_mega(model: nn.Module, cfg: RoundConfig, k: int) -> Callable[..., ClientOutput]:
+    """:func:`make_local_update` with ``megabatch_clients=k``: the same
+    call and output, computed per group of k clients (clients ``0..k-1``
+    form group 0) as fedtpu's ``make_local_update_mega`` and
+    ``_megabatch_wrap`` compute it.
+
+    Each step, a group's ``k * batch`` examples go through one forward
+    under one set of params; the loss is the mean cross-entropy over the
+    examples of the members whose step is live (weights 1 or 0), and the
+    group steps when any member is live. The group's momentum starts from
+    the mean of its members' buffers (accumulated in f32). Afterwards the
+    group's params, statistics and momentum are broadcast to its members; a
+    member that never trained this round keeps the global params and
+    statistics and its own momentum. A member's loss and accuracy are
+    measured on its own examples under the group's model. At k=1 every
+    array is bit-identical to the per-client path's. At k>1, BatchNorm's
+    statistics are shared over the ``k * batch`` examples."""
+    forward = _make_forward(model, cfg)
+    mu = _fedprox_mu(cfg)
+    use_augment = _use_augment(cfg)
+    compute_dtype = getattr(torch, resolve_compute_dtype(cfg))
+
+    def loss_fn(params, stats, anchor, x, y, exw):
+        logits, new_stats = forward(params, stats, x)
+        per = softmax_ce_int_labels(logits, y)  # [k * batch]
+        loss = torch.sum(per * exw) / torch.clamp(torch.sum(exw), min=1.0)
+        if mu > 0.0:
+            loss = loss + _proximal(params, anchor, mu)
+        correct = (logits.argmax(-1) == y).float()
+        ce_m = per.detach().reshape(k, -1).mean(1)
+        acc_m = correct.reshape(k, -1).mean(1)
+        return loss, (new_stats, ce_m, acc_m)
+
+    group_grad = vmap(grad(loss_fn, has_aux=True), in_dims=(0, 0, None, 0, 0, 0))
+
+    def local_update(
+        global_params: Tree,
+        global_stats: Tree,
+        momentum: Tree,
+        xs: torch.Tensor,
+        ys: torch.Tensor,
+        step_mask: torch.Tensor,
+        lr: float,
+        generator: Optional[torch.Generator] = None,
+    ) -> ClientOutput:
+        n, steps = step_mask.shape
+        g = n // k
+        batch = ys.shape[2]
+
+        def group(t: torch.Tensor) -> torch.Tensor:
+            return t.reshape((g, k) + tuple(t.shape[1:]))
+
+        params = {kk: p.expand((g,) + tuple(p.shape)) for kk, p in global_params.items()}
+        stats = {kk: s.expand((g,) + tuple(s.shape)) for kk, s in global_stats.items()}
+        mom = {kk: group(m).float().mean(1).to(m.dtype) for kk, m in momentum.items()}
+        member_mask = group(step_mask)  # [G, k, steps]
+        ces, accs, lives = [], [], []
+        for s in range(steps):
+            x = xs[:, s].to(compute_dtype)
+            if use_augment:
+                x = _augment(x, cfg, generator)
+            x = x.reshape((g, k * batch) + tuple(x.shape[2:]))
+            y = ys[:, s].reshape(g, k * batch)
+            live_m = member_mask[:, :, s]
+            live_f = live_m.float()
+            exw = live_f[:, :, None].expand(g, k, batch).reshape(g, k * batch)
+            grads, (new_stats, ce_m, acc_m) = group_grad(params, stats, global_params, x, y, exw)
+            new_params, new_mom = optim.apply(params, grads, mom, lr, cfg.opt)
+            live = live_m.any(1)
+            params = {kk: _where_rows(live, new_params[kk], params[kk]) for kk in params}
+            stats = {kk: _where_rows(live, new_stats[kk], stats[kk]) for kk in stats}
+            mom = {kk: _where_rows(live, new_mom[kk], mom[kk]) for kk in mom}
+            ces.append(ce_m * live_f)
+            accs.append(acc_m * live_f)
+            lives.append(live_f)
+        denom = torch.clamp(torch.stack(lives).sum(0), min=1.0)
+        trained = step_mask.any(1)
+
+        def bcast(t: torch.Tensor) -> torch.Tensor:
+            return t[:, None].expand((g, k) + tuple(t.shape[1:])).reshape((n,) + tuple(t.shape[1:]))
+
+        def members(tree: Tree, fallback: Tree) -> Tree:
+            return {kk: _where_rows(trained, bcast(v), fallback[kk]) for kk, v in tree.items()}
+
+        expand = lambda tree: {kk: v.expand((n,) + tuple(v.shape)) for kk, v in tree.items()}
+        return ClientOutput(
+            params=members(params, expand(global_params)),
+            batch_stats=members(stats, expand(global_stats)),
+            opt_state=members(mom, momentum),
+            loss=(torch.stack(ces).sum(0) / denom).reshape(n),
+            accuracy=(torch.stack(accs).sum(0) / denom).reshape(n),
         )
 
     return local_update

@@ -7,9 +7,12 @@ The dataset goes to the device once, in the compute dtype and the layout
 presharded, where each round takes one window per client, or gather, where
 each round gathers its batches by index. A presharded layout that would
 store more than twice the balanced footprint falls back to gather with a
-warning, as fedtpu's engine does. The engine runs on CUDA unless the caller
-names another device: without a card and without ``device="cpu"`` it
-raises, it never falls back to the CPU.
+warning, as fedtpu's engine does. The client assignment is a partition
+(round_robin, iid, Dirichlet label skew) or the caller's ``(idx, mask)``;
+a round's participants are a seeded draw, uniform or in proportion to the
+clients' last losses; seeded attackers take their seats at build time. The
+engine runs on CUDA unless the caller names another device: without a card
+and without ``device="cpu"`` it raises, it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -22,17 +25,21 @@ import numpy as np
 import torch
 
 from fedtpu_torch import models
-from fedtpu_torch.config import RoundConfig, resolve_compute_dtype, validate
+from fedtpu_torch.config import RoundConfig, resolve_compute_dtype, screening_enabled, validate
 from fedtpu_torch.core.client import batch_eval_arrays, make_eval_fn
 from fedtpu_torch.core.round import (
     FederatedState,
     RoundBatch,
+    RoundDraws,
     RoundMetrics,
     init_state,
     make_round_step,
 )
 from fedtpu_torch.data import datasets, device as device_data, partition
 from fedtpu_torch.ops.compression import Compressor, make_compressor
+from fedtpu_torch.sim import adversary
+from fedtpu_torch.sim.sampling import loss_weights
+from fedtpu_torch.utils.metrics import MetricsLogger
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,10 +63,15 @@ class Federation:
         data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         device=None,
         compressor: Optional[Compressor] = None,
+        assignment: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        draws: Optional[RoundDraws] = None,
     ):
         """``data``: ``(images, labels)`` instead of loading
         ``cfg.data.dataset``. ``compressor``: a codec instead of the one
-        ``cfg.fed.compression`` names."""
+        ``cfg.fed.compression`` names. ``assignment``: the client→example
+        map ``(idx, mask)``, each ``[num_clients, shard_len]``, instead of
+        ``cfg.data.partition``'s. ``draws``: the round's seeded draws
+        replaced (:class:`fedtpu_torch.core.round.RoundDraws`)."""
         validate(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -74,27 +86,61 @@ class Federation:
         self._steps = cfg.steps_per_round * max(1, cfg.fed.local_epochs)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.model = models.create(cfg.model, cfg.num_classes, shape)
+            self.model = models.create(cfg.model, cfg.num_classes, shape, remat=cfg.remat)
         self.model.to(self.device)
 
         if data is None:
             images, labels = datasets.load(
                 cfg.data.dataset, "train", seed=cfg.data.seed, num=cfg.data.num_examples
             )
+            self._data_source = datasets.data_source(cfg.data.dataset, "train")
         else:
             images, labels = data
+            self._data_source = "caller"
         self.images, self.labels = images, labels
         n = cfg.fed.num_clients
-        if cfg.data.partition == "round_robin":
+        if assignment is not None:
+            idx, mask = np.asarray(assignment[0]), np.asarray(assignment[1])
+            if idx.shape[0] != n or idx.shape != mask.shape:
+                raise ValueError(
+                    f"assignment must be [num_clients={n}, shard_len] "
+                    f"idx/mask pairs, got {idx.shape} vs {mask.shape}"
+                )
+        elif cfg.data.partition == "round_robin":
             idx, mask = partition.round_robin(len(images), n, cfg.data.batch_size)
-        else:
+        elif cfg.data.partition == "iid":
             idx, mask = partition.iid(len(images), n, seed=cfg.data.seed)
+        else:
+            idx, mask = partition.dirichlet(
+                labels, n, alpha=cfg.data.dirichlet_alpha, seed=cfg.data.seed
+            )
         self.client_idx, self.client_mask = idx, mask
         self.weights = torch.tensor(partition.shard_sizes(mask), device=self.device)
         self._has_data = torch.tensor(mask.any(axis=1), device=self.device)
 
+        # Seeded attackers: the seat is the client, so the attacker mask is
+        # fixed for the run. label_flip poisons the attackers' labels here,
+        # once; the other attacks act on the deltas in the round.
+        self._attack_plan = None
+        self._attack_seats = None
+        self._attack_seats_dev = ()
+        if cfg.fed.sim.malicious_fraction > 0:
+            plan = adversary.parse_attack(cfg.fed.sim.attack)
+            self._attack_plan = plan
+            amask = adversary.attacker_mask(
+                n, cfg.fed.sim.malicious_fraction, cfg.data.seed + cfg.fed.sim.seed + plan.seed
+            )
+            self.attacker_clients = amask
+            if plan.kind == "label_flip":
+                self.labels = adversary.flip_labels(
+                    labels, idx, mask, amask, plan.label_offset, cfg.num_classes
+                )
+            else:
+                self._attack_seats = amask.astype(np.float32)
+                self._attack_seats_dev = torch.tensor(self._attack_seats, device=self.device)
+
         self.state: FederatedState = init_state(self.model, cfg, compressor)
-        self._round_step = make_round_step(self.model, cfg, compressor)
+        self._round_step = make_round_step(self.model, cfg, compressor, draws)
         self._shuffle = cfg.data.partition != "round_robin"
         self.layout = cfg.data.device_layout
         footprint = 2 * n * idx.shape[1]
@@ -141,24 +187,68 @@ class Federation:
             ) + assign
         return self._device_data
 
-    def _alive_for_round(self, round_idx: int) -> np.ndarray:
+    def set_assignment(
+        self, idx: np.ndarray, mask: np.ndarray, weights: Optional[np.ndarray] = None
+    ) -> None:
+        """Swap the client→example assignment in place, at the same shapes,
+        as fedtpu's ``set_assignment``: gather layout only (presharded
+        bakes the assignment into the uploaded rows). ``weights``: the
+        clients' weights, by default their example counts."""
+        if self.layout != "gather":
+            raise ValueError(
+                "set_assignment requires device_layout='gather' (presharded "
+                "bakes the assignment into the uploaded data rows)"
+            )
+        idx = np.asarray(idx, np.int32)
+        mask = np.asarray(mask, bool)
+        if idx.shape != self.client_idx.shape or mask.shape != idx.shape:
+            raise ValueError(
+                f"assignment shape {idx.shape} must match the engine's "
+                f"{self.client_idx.shape} (static program shapes)"
+            )
+        self.client_idx, self.client_mask = idx, mask
+        w = partition.shard_sizes(mask) if weights is None else weights
+        self.weights = torch.tensor(np.asarray(w, np.float32), device=self.device)
+        self._has_data = torch.tensor(mask.any(axis=1), device=self.device)
+        if self._device_data is not None:
+            images, labels = self._device_data[:2]
+            self._device_data = (
+                images,
+                labels,
+                torch.from_numpy(idx.astype(np.int64)).to(self.device),
+                torch.from_numpy(mask).to(self.device),
+            )
+
+    def _alive_for_round(self, round_idx: int, losses: Optional[np.ndarray] = None) -> np.ndarray:
         """Alive clients, subsampled to ``participation_fraction`` with the
-        same seeded numpy draw as fedtpu."""
+        same seeded numpy draw as fedtpu: uniform, or with
+        ``participation_sampling='loss'`` in proportion to each client's
+        last loss (``losses``, else read from the state), uniform until a
+        loss has been observed."""
         alive = self.alive.copy()
         frac = self.cfg.fed.participation_fraction
         if frac < 1.0:
             rng = np.random.default_rng(self.cfg.data.seed * 7919 + round_idx)
             live = np.flatnonzero(alive)
             k = max(1, int(round(frac * len(live))))
-            keep = rng.choice(live, size=k, replace=False)
+            p = None
+            if self.cfg.fed.participation_sampling == "loss":
+                if losses is None:
+                    losses = self.state.last_client_loss.cpu().numpy()
+                p = loss_weights(np.asarray(losses)[live])
+            keep = rng.choice(live, size=k, replace=False, p=p)
             alive = np.zeros_like(alive)
             alive[keep] = True
         return alive
 
-    def _alive_tensor(self, round_idx: int) -> torch.Tensor:
+    def _loss_sampled(self) -> bool:
+        fed = self.cfg.fed
+        return fed.participation_fraction < 1.0 and fed.participation_sampling == "loss"
+
+    def _alive_tensor(self, round_idx: int, losses: Optional[np.ndarray] = None) -> torch.Tensor:
         # Re-upload only when the mask changes: a host-to-device copy from
         # pageable memory waits for the device.
-        alive = self._alive_for_round(round_idx)
+        alive = self._alive_for_round(round_idx, losses)
         key = alive.tobytes()
         if self._alive_dev is None or self._alive_dev[0] != key:
             self._alive_dev = (key, torch.tensor(alive, device=self.device))
@@ -169,10 +259,13 @@ class Federation:
         round_idx: int,
         offset: Optional[int] = None,
         keys: Optional[torch.Tensor] = None,
+        losses: Optional[np.ndarray] = None,
     ) -> RoundBatch:
         """Round ``round_idx``'s batch from the device-resident data.
         ``offset`` overrides the presharded layout's rotation offset,
-        ``keys`` the gather layout's ``[clients, shard_len]`` sort keys."""
+        ``keys`` the gather layout's ``[clients, shard_len]`` sort keys;
+        ``losses`` are the last losses loss-proportional sampling draws
+        from (by default read from the state)."""
         data = self._ensure_device_data()
         shape, batch = tuple(self.images.shape[1:]), self.cfg.data.batch_size
         if self.layout == "presharded":
@@ -201,8 +294,37 @@ class Federation:
             y=y,
             step_mask=self._has_data[:, None].expand(n, self._steps),
             weights=self.weights,
-            alive=self._alive_tensor(round_idx),
+            alive=self._alive_tensor(round_idx, losses),
+            attack_seats=self._attack_seats_dev,
         )
+
+    def round_batch(self, round_idx: int) -> RoundBatch:
+        """Round ``round_idx``'s batch built on the host, as fedtpu's
+        ``round_batch`` builds it (:func:`fedtpu_torch.data.partition.
+        make_client_batches`, seeded ``data.seed + round_idx``), then moved
+        to the device. For tests and callers that inject batches; the
+        rounds themselves take :meth:`device_batch`."""
+        cfg = self.cfg
+        x, y, step_mask = partition.make_client_batches(
+            self.images, self.labels, self.client_idx, self.client_mask,
+            cfg.data.batch_size, self._steps, seed=cfg.data.seed + round_idx,
+            shuffle=cfg.data.partition != "round_robin",
+        )
+        dev = self.device
+        return RoundBatch(
+            x=torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev),
+            y=torch.from_numpy(np.asarray(y)).to(dev),
+            step_mask=torch.from_numpy(step_mask).to(dev),
+            weights=self.weights,
+            alive=torch.from_numpy(self._alive_for_round(round_idx)).to(dev),
+            attack_seats=self._attack_seats_dev,
+        )
+
+    @property
+    def data_source(self) -> str:
+        """'disk' | 'synthetic' | 'caller': where the training data came
+        from, recorded at construction."""
+        return self._data_source
 
     # ----------------------------------------------------------- rounds
     def step(self, batch: Optional[RoundBatch] = None) -> RoundMetrics:
@@ -214,29 +336,65 @@ class Federation:
 
     def run_on_device(self, num_rounds: int) -> RoundMetrics:
         """``num_rounds`` rounds with no host sync between them; metrics
-        come back stacked ``[num_rounds, ...]`` on the device."""
+        come back stacked ``[num_rounds, ...]`` on the device. Loss-
+        proportional sampling draws every round's participants from the
+        losses known when the block starts (one device read a call), as
+        fedtpu's fused block does."""
         if num_rounds < 1:
             raise ValueError(f"num_rounds must be >= 1, got {num_rounds}")
-        per_round = [self.step() for _ in range(num_rounds)]
+        losses = self.state.last_client_loss.cpu().numpy() if self._loss_sampled() else None
+        r = self.state.round_idx
+        per_round = [self.step(self.device_batch(r + i, losses=losses)) for i in range(num_rounds)]
         return RoundMetrics(*(torch.stack(f) for f in zip(*per_round)))
 
-    def run(self, num_rounds: Optional[int] = None) -> RoundMetrics:
-        """Rounds with a per-round record in ``self.history`` (reading the
-        metrics syncs with the device each round)."""
+    def run(
+        self,
+        num_rounds: Optional[int] = None,
+        logger: Optional[MetricsLogger] = None,
+        eval_every: int = 0,
+        eval_data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    ) -> RoundMetrics:
+        """Rounds with fedtpu's per-round record, kept in ``self.history``
+        and passed to ``logger``: ``loss``, ``acc``, ``active``,
+        ``worst_client_loss``, ``round_s``, ``dataset``, ``data_source``;
+        ``screened`` (rows rejected) when screening is armed;
+        ``attackers_fired`` when an attack is; ``test_loss`` and
+        ``test_acc`` every ``eval_every`` rounds on ``eval_data``. Reading
+        the record syncs with the device each round."""
         if num_rounds is None:
             num_rounds = self.cfg.fed.num_rounds
         metrics = None
-        for _ in range(num_rounds):
+        self.eval_history = []
+        screen_on = screening_enabled(self.cfg.fed.screen)
+        for r in range(num_rounds):
             t0 = time.perf_counter()
-            r = self.state.round_idx
+            ridx = self.state.round_idx
             metrics = self.step()
-            self.history.append({
-                "round": r,
+            rec = {
                 "loss": float(metrics.loss),
                 "acc": float(metrics.accuracy),
                 "active": float(metrics.num_active),
-                "round_s": time.perf_counter() - t0,
-            })
+                # The worst live client: a diverging or poisoned client
+                # shows here rounds before it moves the mean.
+                "worst_client_loss": float(metrics.per_client_loss.max()),
+            }
+            rec["round_s"] = time.perf_counter() - t0
+            rec["dataset"] = self.cfg.data.dataset
+            rec["data_source"] = self._data_source
+            if screen_on:
+                rec["screened"] = int(metrics.screened.sum())
+            if self._attack_plan is not None:
+                if self._attack_seats is not None:
+                    fired = adversary.fires_this_round(self._attack_plan, self._attack_seats, ridx)
+                    rec["attackers_fired"] = int(fired.sum())
+                else:  # label_flip: the poisoned shards train every round
+                    rec["attackers_fired"] = int(self.attacker_clients.sum())
+            if eval_every and (r + 1) % eval_every == 0 and eval_data is not None:
+                rec["test_loss"], rec["test_acc"] = self.evaluate(*eval_data)
+                self.eval_history.append((r, rec["test_loss"], rec["test_acc"]))
+            self.history.append({"round": ridx, **rec})
+            if logger is not None:
+                logger.log(r, **rec)
         return metrics
 
     # ------------------------------------------------------------- eval

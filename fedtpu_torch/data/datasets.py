@@ -16,6 +16,9 @@ import numpy as np
 
 from fedtpu_torch.config import not_ported
 
+# (dataset, split) -> "disk" | "synthetic": the source of the last load.
+_SOURCE = {}
+
 CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.array([0.2023, 0.1994, 0.2010], np.float32)
 
@@ -67,7 +70,9 @@ def load_cifar10(split: str = "train", seed: int = 0):
     n = 50000 if split == "train" else 10000
     if root is None:
         _fallback_warning("cifar10")
+        _SOURCE[("cifar10", split)] = "synthetic"
         return _synthetic(n, (32, 32, 3), 10, seed, split)
+    _SOURCE[("cifar10", split)] = "disk"
     files = (
         [f"data_batch_{i}" for i in range(1, 6)] if split == "train" else ["test_batch"]
     )
@@ -103,11 +108,18 @@ def load(dataset: str, split: str = "train", seed: int = 0, num: Optional[int] =
     loader, shape, classes = _entry(dataset)
     if loader is None:
         x, y = _synthetic(num or 8192, shape, classes, seed, split)
+        _SOURCE[(dataset, split)] = "synthetic"
     else:
         x, y = loader(split, seed)
     if num is not None:
         x, y = x[:num], y[:num]
     return x, y
+
+
+def data_source(dataset: str, split: str = "train") -> str:
+    """'disk' | 'synthetic' | 'unknown': the source of the last
+    ``load(dataset, split)``."""
+    return _SOURCE.get((dataset, split), "unknown")
 
 
 def dataset_info(dataset: str) -> Tuple[Tuple[int, ...], int]:

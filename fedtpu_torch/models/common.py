@@ -135,6 +135,58 @@ class _TrainNorm(torch.autograd.Function):
         return g_x, (g_mul * rstd).to(scale.dtype), gy.sum(_DIMS, dtype=ct).to(ctx.bias_dtype)
 
 
+class _Recompute(torch.autograd.Function):
+    """A block's train-mode forward that keeps only its inputs for the
+    backward, which runs the forward again under ``torch.func.vjp``: fedtpu's
+    per-block rematerialisation (``nn.remat``), the activations inside the
+    block traded for a second forward. ``torch.utils.checkpoint`` does not
+    compose with ``torch.func`` transforms (saved-tensor hooks); this
+    Function does, its vmap rule generated. ``run(x, *tensors) -> (y,
+    *stats)``: the block as a pure function of its input and its params
+    and buffers; the statistics are not differentiable. The backward
+    recomputes the same ops on the same inputs, so its gradients are the
+    plain block's, bit for bit."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, x, *tensors):
+        return run(x, *tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, x, *tensors = inputs
+        ctx.run = run
+        ctx.save_for_backward(x, *tensors)
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
+    def backward(ctx, gy, *_gstats):
+        x, *tensors = ctx.saved_tensors
+        run = ctx.run
+        _, vjp = torch.func.vjp(lambda *a: run(*a)[0], x, *tensors)
+        return (None,) + tuple(vjp(gy))
+
+
+def recompute_block(block: nn.Module, x: torch.Tensor, stats: Stats) -> torch.Tensor:
+    """``block(x, stats)`` in train mode through :class:`_Recompute`: the
+    block's params and buffers (whatever ``functional_call`` has put in
+    them) go in as inputs, its new statistics come out into ``stats``."""
+    names = [n for n, _ in block.named_parameters()] + [n for n, _ in block.named_buffers()]
+    tensors = [t for _, t in block.named_parameters()] + [t for _, t in block.named_buffers()]
+    keys = []
+
+    def run(x, *tensors):
+        inner: Stats = {}
+        y = torch.func.functional_call(block, dict(zip(names, tensors)), (x, inner), strict=True)
+        keys[:] = list(inner)
+        return (y, *inner.values())
+
+    y, *new = _Recompute.apply(run, x, *tensors)
+    stats.update(zip(keys, new))
+    return y
+
+
 def name_batch_norms(model: nn.Module) -> nn.Module:
     """Give every ``BatchNorm`` of ``model`` its dotted path, so that the
     statistics it returns in train mode carry its buffers' names."""

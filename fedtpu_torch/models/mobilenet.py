@@ -10,8 +10,11 @@ is its flax path joined by dots. The depthwise conv is ``groups=in_ch``:
 flax's ``[3, 3, 1, C]`` kernel is torch's ``[C, 1, 3, 3]`` through the
 same HWIO -> OIHW permutation as every conv (:mod:`fedtpu_torch.convert`).
 Inputs are NHWC at the public boundary. Train and eval mode follow
-:mod:`fedtpu_torch.models.common`. fedtpu's per-block rematerialisation
-(``RoundConfig.remat``) is not ported: ``validate`` rejects it.
+:mod:`fedtpu_torch.models.common`. With ``remat=True`` (fedtpu's
+``RoundConfig.remat``) each block's train-mode forward keeps only its
+input and recomputes itself in the backward
+(:func:`fedtpu_torch.models.common.recompute_block`); the parameter names
+do not change.
 """
 
 from __future__ import annotations
@@ -22,7 +25,13 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from fedtpu_torch.models.common import BatchNorm, Stats, global_avg_pool, name_batch_norms
+from fedtpu_torch.models.common import (
+    BatchNorm,
+    Stats,
+    global_avg_pool,
+    name_batch_norms,
+    recompute_block,
+)
 from fedtpu_torch.models.registry import register
 
 _CFG: Sequence[Union[int, Tuple[int, int]]] = (
@@ -58,8 +67,14 @@ class DepthwiseSeparable(nn.Module):
 
 
 class MobileNet(nn.Module):
-    def __init__(self, num_classes: int = 10, image_size: Tuple[int, int, int] = (32, 32, 3)):
+    def __init__(
+        self,
+        num_classes: int = 10,
+        image_size: Tuple[int, int, int] = (32, 32, 3),
+        remat: bool = False,
+    ):
         super().__init__()
+        self.remat = remat
         self.Conv_0 = nn.Conv2d(image_size[-1], 32, 3, padding=1, bias=False)
         self.BatchNorm_0 = BatchNorm(32)
         in_ch = 32
@@ -80,11 +95,15 @@ class MobileNet(nn.Module):
         x = x.permute(0, 3, 1, 2)
         x = F.relu(self.BatchNorm_0(self.Conv_0(x), stats))
         for count in range(len(_CFG)):
-            x = getattr(self, f"DepthwiseSeparable_{count}")(x, stats)
+            block = getattr(self, f"DepthwiseSeparable_{count}")
+            if self.remat and train and torch.is_grad_enabled():
+                x = recompute_block(block, x, stats)
+            else:
+                x = block(x, stats)
         logits = self.Dense_0(global_avg_pool(x))
         return (logits, stats) if train else logits
 
 
 @register("mobilenet")
-def make_mobilenet(num_classes: int = 10, image_size=(32, 32, 3)) -> nn.Module:
-    return MobileNet(num_classes, image_size)
+def make_mobilenet(num_classes: int = 10, image_size=(32, 32, 3), remat: bool = False) -> nn.Module:
+    return MobileNet(num_classes, image_size, remat)

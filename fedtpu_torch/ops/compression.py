@@ -179,7 +179,7 @@ _ROTQ_SEED = 0x5EED0
 _RANDK_SEED = 0x5EED1
 
 
-def _round_generator(base: int, round_idx: int, device) -> torch.Generator:
+def round_generator(base: int, round_idx: int, device) -> torch.Generator:
     """The generator of one round's draws of a seeded codec, on ``device``."""
     return torch.Generator(device=device).manual_seed((base << 32) | (round_idx & 0xFFFFFFFF))
 
@@ -187,7 +187,7 @@ def _round_generator(base: int, round_idx: int, device) -> torch.Generator:
 def _rotq_draws(rows: int, h: int, round_idx: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """``rotq``'s draws for a round: Rademacher ``signs [h]`` and
     ``uniforms [rows, h]`` in [0, 1), f32."""
-    g = _round_generator(_ROTQ_SEED, round_idx, device)
+    g = round_generator(_ROTQ_SEED, round_idx, device)
     signs = torch.randint(0, 2, (h,), generator=g, device=device).float() * 2.0 - 1.0
     uniforms = torch.rand((rows, h), generator=g, device=device)
     return signs, uniforms
@@ -196,7 +196,7 @@ def _rotq_draws(rows: int, h: int, round_idx: int, device) -> Tuple[torch.Tensor
 def _randk_indices(total: int, k: int, round_idx: int, device) -> torch.Tensor:
     """``randk``'s coordinate set for a round: ``k`` distinct coordinates
     of ``[0, total)``."""
-    g = _round_generator(_RANDK_SEED, round_idx, device)
+    g = round_generator(_RANDK_SEED, round_idx, device)
     return torch.randperm(total, generator=g, device=device)[:k]
 
 

@@ -1,7 +1,7 @@
 """Flat delta layout: every parameter leaf in one contiguous row.
 
-The port of ``fedtpu.ops.flat`` for what the round and the flat codecs
-need. A client's update becomes one ``[P]`` row and the clients one
+The port of ``fedtpu.ops.flat`` for what the round, the flat codecs and
+update screening (:func:`screen_rows`) need. A client's update becomes one ``[P]`` row and the clients one
 ``[clients, P]`` f32 buffer, so a codec, its error feedback and the
 weighted mean each run as one op over the whole model.
 
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from fedtpu_torch.convert import _TO_FLAX, _WEIGHT_TO_FLAX
+from fedtpu_torch.ops.quantile import nanquantile
 
 Tree = Dict[str, torch.Tensor]
 
@@ -71,10 +72,15 @@ def _flax_path(name: str) -> Tuple[str, ...]:
     return tuple(mods) + (_TO_FLAX[leaf],)
 
 
+def flax_order(names) -> Tuple[str, ...]:
+    """Torch leaf names in flax's ``tree_flatten`` order."""
+    return tuple(sorted(names, key=_flax_path))
+
+
 def make_layout(params: Tree, pow2: bool = False) -> FlatLayout:
     """Layout of a single (unstacked) torch-named params dict; only shapes
     and dtypes are read."""
-    names = tuple(sorted(params, key=_flax_path))
+    names = flax_order(params)
     shapes = tuple(tuple(params[k].shape) for k in names)
     sizes = tuple(math.prod(s) for s in shapes)
     total = sum(sizes)
@@ -179,3 +185,63 @@ def int8_scales(y: torch.Tensor, layout: FlatLayout) -> torch.Tensor:
         for off, size in bounds
     ]
     return torch.cat(maxes, dim=1) / 127.0
+
+
+def _nanmedian(x: torch.Tensor) -> torch.Tensor:
+    return nanquantile(x, 0.5, "midpoint")
+
+
+def screen_rows(
+    rows: torch.Tensor,
+    alive: torch.Tensor,
+    norm_max: float = 0.0,
+    zmax: float = 0.0,
+    cos_min: float = -1.0,
+):
+    """fedtpu's update screening over a ``[clients, P]`` delta buffer:
+    ``(keep [clients] bool, {"norm", "cos", "z"} f32 [clients])``.
+
+    - ``norm``: each row's L2 norm, rejected above ``norm_max``;
+    - ``cos``: the row's cosine against the sum of the other live rows'
+      unit vectors (leave one out), rejected below ``cos_min``;
+    - ``z``: ``0.6745 * (norm - median) / MAD`` over the live rows' norms,
+      the MAD floored at 5% of the median, rejected above ``zmax``.
+
+    A disarmed threshold (0, or -1 for ``cos_min``) rejects nothing, and
+    with fewer than 3 live rows only ``norm_max`` applies. ``alive``
+    (weights, > 0 is live) picks the rows the references are taken over;
+    every row gets a verdict. The medians are ``jnp.nanmedian``'s (the mean
+    of the two middle values). The dot product of the rows with the
+    reference direction is an elementwise product and a sum in f32, never
+    a matmul that TF32 could round."""
+    rows = rows.float()
+    live = alive.float() > 0
+    live_f = live.float()
+    norms = torch.sqrt(torch.clamp(torch.sum(rows * rows, dim=1), min=0.0))
+    eps = 1e-12
+    unit = rows / (norms + eps)[:, None]
+    ref = torch.sum(unit * live_f[:, None], dim=0)
+    del unit
+    ref_sq = torch.clamp(torch.sum(ref * ref), min=0.0)
+    d = torch.sum(rows * ref, dim=1)
+    u = d / (norms + eps)
+    loo_dot = d - live_f * norms
+    loo_sq = torch.clamp(ref_sq - live_f * (2.0 * u - 1.0), min=0.0)
+    cos = loo_dot / (norms * torch.sqrt(loo_sq) + eps)
+    nan = torch.full_like(norms, float("nan"))
+    norm_med = torch.nan_to_num(_nanmedian(torch.where(live, norms, nan)), nan=0.0)
+    mad = torch.nan_to_num(
+        _nanmedian(torch.where(live, torch.abs(norms - norm_med), nan)), nan=0.0
+    )
+    mad = torch.maximum(mad, 0.05 * norm_med)
+    z = 0.6745 * (norms - norm_med) / (mad + eps)
+    keep = torch.ones_like(live)
+    if norm_max > 0:
+        keep = keep & (norms <= norm_max)
+    if zmax > 0:
+        keep = keep & (z <= zmax)
+    if cos_min > -1.0:
+        keep = keep & (cos >= cos_min)
+    few = norms <= norm_max if norm_max > 0 else torch.ones_like(keep)
+    keep = torch.where(live.sum() >= 3, keep, few)
+    return keep, {"norm": norms, "cos": cos, "z": z}

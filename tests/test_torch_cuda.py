@@ -352,3 +352,99 @@ def test_small_mobilenet_round_on_card_matches_cpu(cuda_device, compression, lay
             bad += int(((g - w).abs() > atol + 1e-4 * w.abs()).sum())
             total += w.numel()
     assert bad <= 0.001 * total, f"{bad} of {total} coordinates differ"
+
+
+# ------------------------------------------------------ round options
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,q", [("lower", 0.1), ("higher", 0.9), ("midpoint", 0.5)])
+def test_nanquantile_on_card_bit_equal_to_cpu(cuda_device, method, q):
+    """The sort-based quantile at MobileNet's widest leaf's rows (64
+    clients, two of them dead as NaN rows) is the CPU's, bit for bit."""
+    from fedtpu_torch.ops.quantile import nanquantile
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 1_048_576), dtype=np.float32))
+    x[[3, 40]] = float("nan")
+    got = nanquantile(x.to(cuda_device), q, method).cpu()
+    assert torch.equal(got.view(torch.int32), nanquantile(x, q, method).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregator", ["median", "trimmed_mean", "krum"])
+def test_robust_combines_on_card_match_cpu(cuda_device, aggregator):
+    """Bit-equal to the CPU's: the sort and the band's sum in client order
+    are exact the same way on both, and Krum's Gram matrix is f64 whatever
+    the TF32 flags say."""
+    from fedtpu_torch.core import round as tround
+
+    rng = np.random.default_rng(1)
+    x = {"a": torch.from_numpy(rng.standard_normal((64, 3000), dtype=np.float32)),
+         "b": torch.from_numpy(rng.standard_normal((64, 7, 5), dtype=np.float32))}
+    w = torch.ones(64)
+    w[[5, 9]] = 0.0
+    on = lambda t: {k: v.to(cuda_device) for k, v in t.items()}
+    if aggregator == "krum":
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            (got,) = tround._krum_over_clients((on(x),), w.to(cuda_device), 0.1)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        (want,) = tround._krum_over_clients((x,), w, 0.1)
+    else:
+        got = tround._robust_over_clients(on(x), w.to(cuda_device), aggregator, 0.1)
+        want = tround._robust_over_clients(x, w, aggregator, 0.1)
+    for k in x:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+def test_screen_rows_on_card_match_cpu(cuda_device):
+    from fedtpu_torch.ops.flat import screen_rows
+
+    rng = np.random.default_rng(2)
+    rows = rng.standard_normal((1, 200_000), dtype=np.float32) + 0.5 * rng.standard_normal((64, 200_000), dtype=np.float32)
+    rows[:8] *= -8.0  # boosted sign-flippers
+    rows = torch.from_numpy(rows)
+    w = torch.ones(64)
+    keep_c, stats_c = screen_rows(rows, w, zmax=6.0, cos_min=-0.5)
+    keep_g, stats_g = screen_rows(rows.to(cuda_device), w.to(cuda_device), zmax=6.0, cos_min=-0.5)
+    assert torch.equal(keep_g.cpu(), keep_c) and not keep_c[:8].any() and keep_c[8:].all()
+    for k in stats_c:
+        np.testing.assert_allclose(stats_g[k].cpu().numpy(), stats_c[k].numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_small_mobilenet_option_round_on_card_matches_cpu(cuda_device, remat):
+    """One f64 MobileNet round (2 clients, batch 4) with FedProx and bf16
+    momentum, with and without remat, on the card against the CPU: the
+    reference tolerance (atol=1e-5, rtol=1e-4 on all but 0.1%)."""
+    from fedtpu_torch import DataConfig, FedConfig, Federation, OptimizerConfig, RoundConfig
+    from fedtpu_torch.core.round import init_state
+
+    cfg = RoundConfig(
+        model="mobilenet", remat=remat, steps_per_round=2,
+        data=DataConfig(dataset="cifar10", batch_size=4, partition="iid", augment=False),
+        fed=FedConfig(num_clients=2, algorithm="fedprox", fedprox_mu=0.01),
+        opt=OptimizerConfig(momentum_dtype="bfloat16"),
+    )
+    rng = np.random.default_rng(3)
+    data = (rng.standard_normal((16, 32, 32, 3), dtype=np.float32), rng.integers(0, 10, size=16).astype(np.int32))
+    cpu = Federation(cfg, seed=0, data=data, device="cpu")
+    gpu = Federation(cfg, seed=0, data=data, device=cuda_device)
+    init = dict(params=cpu.state.params, batch_stats=cpu.state.batch_stats, dtype=torch.float64)
+    cpu.state = init_state(cpu.model, cfg, None, **init)
+    gpu.state = init_state(gpu.model, cfg, None, **init)
+    cpu.step(cpu.device_batch(0, offset=1))
+    gpu.step(gpu.device_batch(0, offset=1))
+    bad = total = 0
+    for part in ("params", "batch_stats"):
+        for k, w in getattr(cpu.state, part).items():
+            g = getattr(gpu.state, part)[k].cpu()
+            assert torch.isfinite(g).all(), k
+            bad += int(((g - w).abs() > 1e-5 + 1e-4 * w.abs()).sum())
+            total += w.numel()
+    assert bad <= 0.001 * total, f"{bad} of {total} coordinates differ"
+    assert all(v.dtype == torch.bfloat16 for v in gpu.state.opt_state.values())

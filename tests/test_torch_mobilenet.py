@@ -231,8 +231,14 @@ def test_convert_round_trips_mobilenet_exactly(flax_mobilenet, collection):
 
 
 def test_mobilenet_remat_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfig.validate(tconfig.RoundConfig(model="mobilenet", remat=True))
+    """remat, once an unported item of ROADMAP.md, is ported: the config
+    validates and the model recomputes its blocks under the same names."""
+    tconfig.validate(tconfig.RoundConfig(model="mobilenet", remat=True))
+    model = tmodels.create("mobilenet", 10, remat=True)
+    assert model.remat
+    assert [n for n, _ in model.named_parameters()] == [
+        n for n, _ in tmodels.create("mobilenet", 10).named_parameters()
+    ]
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])

@@ -191,10 +191,17 @@ def test_one_optimizer_step_matches_fedtpu(nesterov):
 
 
 def test_cosine_schedule_matches_fedtpu():
-    jcfg = jconfig.OptimizerConfig(schedule="cosine", cosine_t_max=10)
-    tcfg = tconfig.OptimizerConfig(schedule="cosine", cosine_t_max=10)
-    for r in (0, 3, 10, 15):
-        assert tcfg.lr_at(r) == pytest.approx(float(jcfg.lr_at(r)), rel=1e-6)
+    """The f32 rates of fedtpu's compiled schedule, bit for bit, at both
+    horizons (every round of ``0..t_max + 60`` in
+    ``test_torch_options.py``), and the SGD step takes the rate as f32."""
+    for t_max in (200, 10):
+        jcfg = jconfig.OptimizerConfig(schedule="cosine", cosine_t_max=t_max)
+        tcfg = tconfig.OptimizerConfig(schedule="cosine", cosine_t_max=t_max)
+        rate = jax.jit(jcfg.lr_at)
+        for r in (0, 3, 4, 10, 15, 128, 148, 155, 160, 195, 260):
+            got = tcfg.lr_at(r)
+            assert np.float32(got) == got
+            assert np.float32(got).view(np.int32) == np.float32(rate(jnp.int32(r))).view(np.int32), (t_max, r)
 
 
 # ------------------------------------------------------- the whole slice
@@ -426,20 +433,69 @@ _F, _D, _O = tconfig.FedConfig, tconfig.DataConfig, tconfig.OptimizerConfig
 
 
 @pytest.mark.parametrize("part", [
-    _F(aggregator="median"),
-    _F(dp_clip_norm=1.0),
-    _F(megabatch_clients=2),
-    _F(screen=tconfig.ScreenConfig(norm_max=1.0)),
-    _F(algorithm="fedprox"),
-    _D(partition="dirichlet"),
     _D(dataset="mnist"),
-    _O(momentum_dtype="bfloat16"),
+    _F(sim=tconfig.SimConfig(population=100)),
+    "ResNet18",
 ], ids=repr)
 def test_unported_options_raise_naming_the_roadmap(part):
-    field = {_F: "fed", _D: "data", _O: "opt"}[type(part)]
-    cfg = tconfig.RoundConfig(model="smallcnn", **{field: part})
+    if isinstance(part, str):
+        cfg = tconfig.RoundConfig(model=part)
+    else:
+        field = {_F: "fed", _D: "data", _O: "opt"}[type(part)]
+        cfg = tconfig.RoundConfig(model="smallcnn", **{field: part})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TFederation(cfg, device="cpu")
+        TFederation(cfg, data=(np.zeros((64, 32, 32, 3), np.float32), np.zeros(64, np.int32)),
+                    device="cpu")
+
+
+@pytest.mark.parametrize("fed,match", [
+    (dict(aggregator="median", compression="topk"), "cannot compose with delta compression"),
+    (dict(aggregator="krum", compression="int8", delta_layout="flat"), "cannot compose with delta compression"),
+    (dict(dp_clip_norm=1.0, compression="int8", weighted=False), "DP clipping cannot compose"),
+    (dict(dp_clip_norm=1.0), "DP requires uniform weighting"),
+    (dict(dp_clip_norm=1.0, weighted=False, aggregator="median"), "assumes the mean aggregator"),
+    (dict(aggregator="trimmed_mean", trim_fraction=0.5), r"trim_fraction must be in \[0, 0.5\)"),
+    (dict(megabatch_clients=3, num_clients=4), "must divide"),
+    (dict(screen=dict(cos_min=1.5)), "cos_min must be in"),
+    (dict(screen=dict(norm_max=1.0, release_at=0.9)), "release_at"),
+    (dict(aggregator="mode"), "unknown aggregator"),
+], ids=lambda v: v if isinstance(v, str) else repr(v))
+def test_forbidden_combinations_raise_fedtpus_errors(fed, match):
+    """The port refuses what fedtpu refuses, with fedtpu's message: both
+    packages raise ``ValueError`` on the same config."""
+    def build(mod):
+        kw = dict(fed)
+        if "screen" in kw:
+            kw["screen"] = mod.ScreenConfig(**kw["screen"])
+        return mod.RoundConfig(
+            model="smallcnn",
+            data=mod.DataConfig(batch_size=8, partition="iid", augment=False),
+            fed=mod.FedConfig(**{"num_clients": 4, **kw}),
+        )
+
+    data = (np.zeros((64, 32, 32, 3), np.float32), np.zeros(64, np.int32))
+    with pytest.raises(ValueError, match=match):
+        TFederation(build(tconfig), data=data, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        JFederation(build(jconfig), data=data)
+
+
+def test_dp_refuses_a_batchnorm_model_like_fedtpu():
+    cfg = tconfig.RoundConfig(
+        model="mobilenet", data=_D(batch_size=4, partition="iid", augment=False),
+        fed=_F(num_clients=2, dp_clip_norm=1.0, weighted=False),
+    )
+    with pytest.raises(ValueError, match="BatchNorm-free"):
+        TFederation(cfg, data=(np.zeros((16, 32, 32, 3), np.float32), np.zeros(16, np.int32)), device="cpu")
+
+
+def test_robust_aggregator_with_weights_warns_once(caplog):
+    tround._WEIGHTED_ROBUST_WARNED.discard("median")
+    cfg = tconfig.RoundConfig(model="smallcnn", fed=_F(num_clients=4, aggregator="median"))
+    with caplog.at_level("WARNING", logger="fedtpu_torch.round"):
+        tround.make_round_step(tmodels.create("smallcnn", 10), cfg)
+        tround.make_round_step(tmodels.create("smallcnn", 10), cfg)
+    assert sum("ignores example-count weights" in r.message for r in caplog.records) == 1
 
 
 @pytest.mark.parametrize("compression", ["rotq", "randk"])
