@@ -63,6 +63,24 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    0 before the phase, checked every round and read after it; every
    round's losses and state must be finite. Then one local step with and
    without remat, for the memory its forward holds and its peak.
+9. edge: the port's gRPC client (``LocalTrainer``) and the coordinator's
+   math, with neither grpc nor msgpack. First a small smallcnn
+   ``train_round`` (f32) on the card against the same call on the CPU, per
+   codec and layout of the reference phase, replies held within its
+   tolerance. Then at
+   MobileNet's full width: 4 trainers (ranks 0-3 of 64, 768 examples, 6
+   steps of batch 128, bf16) on one copy of the data, per leaf (none, topk,
+   int8) and flat (topk, int8, rotq, randk), a dense round 0 and 2 rounds a
+   codec after the global model lands as FTP1 bytes; every reply decoded
+   into a [64, P] f32 buffer on the card (P = 3,239,114: params and
+   BatchNorm statistics, as fedtpu's edge row; rows 4-63 copies of 0-3)
+   and checked against its delta within the codec's own error;
+   finalize_stream and aggregate (mean, median, trimmed mean, Krum) on the
+   buffer, timed, and on its 4 distinct rows held against the CPU (Krum's
+   choice equal). The train_round split (update on the card, copy to the
+   host, host encode), reply bytes, host decode, server ms and peak memory
+   are printed beside the card. The edge launches none of K1-K3: the
+   counts are set to 0 before it and must read 0 after.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
@@ -101,6 +119,10 @@ from fedtpu_torch.core import round as round_lib  # noqa: E402
 from fedtpu_torch.core.round import RoundDraws, init_state  # noqa: E402
 from fedtpu_torch.data import datasets  # noqa: E402
 from fedtpu_torch.ops import compression, flat, kernels  # noqa: E402
+from fedtpu_torch.transport import aggregation as edge_aggregation  # noqa: E402
+from fedtpu_torch.transport import msgpack as _msgpack  # noqa: E402
+from fedtpu_torch.transport import sparse, wire  # noqa: E402
+from fedtpu_torch.transport.trainer import LocalTrainer  # noqa: E402
 
 NUM_CLIENTS = 64
 BATCH = 128
@@ -1454,6 +1476,255 @@ def options_phase(data, card):
     return results, _launch_counts()
 
 
+# ------------------------------------------------------------------ 9. edge
+
+EDGE_TRAINERS = 4  # ranks 0..3 of a world of NUM_CLIENTS
+# The edge's row is fedtpu's ``{"params", "batch_stats"}`` tree: MobileNet's
+# 3,217,226 params in 83 leaves and 21,888 BatchNorm statistics in 54.
+EDGE_P, EDGE_LEAVES = 3_239_114, 137
+EDGE_ROUNDS = 2  # rounds per codec, after the dense round 0
+# (layout, configured codec, the codecs run in turn through codec_override)
+EDGE_GROUPS = (
+    ("per_leaf", "topk", ("none", "topk", "int8")),
+    ("flat", "rotq", ("topk", "int8", "rotq", "randk")),
+)
+# The server functions: name -> FedConfig fields of aggregate's config
+# (None: finalize_stream).
+EDGE_SERVER = {
+    "finalize_stream": None,
+    "aggregate_mean": dict(aggregator="mean"),
+    "aggregate_median": dict(aggregator="median"),
+    "aggregate_trimmed_mean": dict(aggregator="trimmed_mean", trim_fraction=0.1),
+    "aggregate_krum": dict(aggregator="krum", trim_fraction=0.1),
+}
+
+
+def _edge_small_cfg(codec: str, layout: str) -> RoundConfig:
+    # No augmentation: the two devices would draw different crops. A
+    # learning rate of 0.01 keeps rotq's step (scale / sqrt(h) per moved
+    # code) under the tolerance, as in tests/test_torch_edge.py.
+    return RoundConfig(
+        model="smallcnn",
+        opt=OptimizerConfig(learning_rate=0.01),
+        data=DataConfig(dataset="cifar10", batch_size=8, partition="iid", augment=False, num_examples=64),
+        fed=FedConfig(num_clients=2, compression=codec, delta_layout=layout, topk_fraction=0.1),
+    )
+
+
+def _beyond(got: np.ndarray, want: np.ndarray) -> int:
+    return int((np.abs(got - want) > 1e-5 + 1e-4 * np.abs(want)).sum())
+
+
+def _reply_row(t, data: bytes, base: dict) -> np.ndarray:
+    """A reply decoded on the host: the FSP1 delta, or the FTP1 weights
+    minus ``base``, as one f32 row in the edge's order."""
+    row = np.zeros(t.layout.total, np.float32)
+    if sparse.is_sparse_payload(data):
+        sparse.decode_into_row(data, t.layout.sizes, row)
+    else:
+        wire.decode_into_row(data, dict(base, num_examples=np.zeros((), np.float32)), base, row)
+    return row
+
+
+def edge_reference_phase():
+    """A small LocalTrainer (smallcnn, f32, 4 steps of batch 8) on the card
+    against the same trainer on the CPU, from one synced global model, per
+    codec and layout of REFERENCE_CASES with fresh trainers (a difference
+    of one case would otherwise carry into the next through the residual:
+    a top-k threshold crossed by the largest coordinate of a leaf moves
+    the int8 scale of the whole leaf): every reply decoded and held, as
+    the reference phase holds rounds, to at most 0.1% of coordinates
+    beyond atol=1e-5, rtol=1e-4."""
+    rng = np.random.default_rng(4)
+    images = rng.standard_normal((64, 32, 32, 3), dtype=np.float32)
+    labels = rng.integers(0, 10, size=64).astype(np.int32)
+    data = (images, labels)
+    for codec, layout, rounds in REFERENCE_CASES:
+        cfg = _edge_small_cfg(codec, layout)
+        cpu = LocalTrainer(cfg, seed=0, device="cpu", data=data, eval_data=data)
+        gpu = LocalTrainer(cfg, seed=0, data=data, eval_data=data)
+        g = wire.encode(cpu.host_model())
+        cpu.set_global(g)
+        gpu.set_global(g)
+        for r in range(rounds):
+            base = cpu.host_model()
+            got = _reply_row(gpu, gpu.train_round(1, 2), base)
+            want = _reply_row(cpu, cpu.train_round(1, 2), base)
+            if not np.isfinite(got).all():
+                raise RuntimeError(f"edge reference: non-finite {layout} {codec} reply")
+            bad = _beyond(got, want)
+            if bad > 0.001 * want.size:
+                raise RuntimeError(
+                    f"edge reference: {layout} {codec} round {r}: {bad} of {want.size} "
+                    "coordinates differ from the CPU"
+                )
+            log(f"edge reference: {layout} {codec} round {r}: card vs CPU reply, "
+                f"{bad} of {want.size} coordinates beyond tolerance")
+
+
+def _leaves_row(tree) -> np.ndarray:
+    return np.concatenate([np.asarray(a, np.float32).ravel() for a in wire.tree_leaves(tree)])
+
+
+def _check_reply(label: str, t, data: bytes, decoded: np.ndarray, x: np.ndarray, residual) -> None:
+    """A synced lossy reply against its delta ``x`` (the round's delta plus
+    the residual carried in): the residual left is exactly ``x - decoded``,
+    and the codec's own error bound holds (top-k keeps the largest
+    magnitudes, int8 is within half a step of each leaf's scale and two
+    roundings, rotq's
+    error is under one step per rotated coordinate in L2, random-k keeps
+    at most k coordinates)."""
+    res = _leaves_row(residual) if residual is not None else np.zeros_like(x)
+    if not np.array_equal(x - decoded, res):
+        raise RuntimeError(f"edge {label}: residual is not the delta minus the decoded reply")
+    body = _msgpack.msgpack_restore(data[10:])
+    kind, err = body["kind"], np.abs(x - decoded)
+    if kind in ("topk", "topk_flat"):
+        spans = list(zip(t.layout.offsets, t.layout.sizes)) if kind == "topk" else [(0, x.size)]
+        for off, n in spans:
+            kept = decoded[off : off + n] != 0
+            if kept.any() and np.abs(res[off : off + n]).max(initial=0.0) > np.abs(decoded[off : off + n][kept]).min():
+                raise RuntimeError(f"edge {label}: a dropped coordinate outweighs a kept one")
+    elif kind in ("int8", "int8_flat"):
+        scales = ([float(body["leaves"][str(i)]["scale"]) for i in range(len(body["leaves"]))]
+                  if kind == "int8" else np.asarray(body["scales"]).tolist())
+        for (off, n), s in zip(zip(t.layout.offsets, t.layout.sizes), scales):
+            # Half a step, and the two roundings (of x * f32(1 / s) and of
+            # s * code), each under an ulp of the leaf's largest value.
+            if err[off : off + n].max(initial=0.0) > 0.5 * s + 2 * float(np.spacing(np.float32(127 * s))):
+                raise RuntimeError(f"edge {label}: int8 error beyond half a step")
+    elif kind == "rotq_flat":
+        h = flat.next_pow2(x.size)
+        if float(np.sqrt(np.sum(err.astype(np.float64) ** 2))) > float(body["extra"]["scale"]) * math.sqrt(h):
+            raise RuntimeError(f"edge {label}: rotq error beyond one step a rotated coordinate")
+    elif kind == "randk_flat":
+        if int((decoded != 0).sum()) > int(body["extra"]["k"]):
+            raise RuntimeError(f"edge {label}: random-k kept more than k coordinates")
+
+
+def _edge_server_calls(layout, gtree, rows, weights):
+    """name -> a call of each server function on ``rows``."""
+    stacked = {"params": {}, "batch_stats": {}}
+    for name, leaf in flat.unpack_stacked(layout, rows).items():
+        col, rest = name.split(".", 1)
+        stacked[col][rest] = leaf
+    calls = {}
+    for name, fed_kw in EDGE_SERVER.items():
+        if fed_kw is None:
+            cfg = bench_cfg("none", "flat", "mobilenet")
+            calls[name] = lambda cfg=cfg: edge_aggregation.finalize_stream(cfg, layout, gtree, rows, weights, ())
+        else:
+            cfg = bench_cfg("none", "per_leaf", "mobilenet", fed_kw=fed_kw)
+            calls[name] = lambda cfg=cfg: edge_aggregation.aggregate(cfg, gtree, stacked, weights, (), 1)
+    return calls
+
+
+def _krum_choice(rows: torch.Tensor, trim: float) -> int:
+    """The row Krum picks from ``rows`` (all live), by the port's
+    selection (an f64 Gram matrix; the chosen row copied exactly)."""
+    alive = torch.ones((rows.shape[0],), device=rows.device)
+    (chosen,) = round_lib._krum_over_clients((rows,), alive, trim)
+    same = [i for i in range(rows.shape[0]) if torch.equal(rows[i], chosen)]
+    return same[0] if same else -1
+
+
+def edge_phase(data, card):
+    """The port's client at MobileNet's full width: EDGE_TRAINERS
+    LocalTrainers (ranks 0-3 of 64, 768 examples each, 6 steps of batch
+    128 in bf16) on one shared copy of the data, for each group of
+    EDGE_GROUPS a dense round 0 (unsynced) and, from one synced global
+    model, EDGE_ROUNDS rounds of each codec; every reply decoded into a
+    [64, P] f32 row buffer on the card (rows 4-63 copies of rows 0-3) and
+    checked against its delta; the server functions run on the buffer and
+    held against the CPU on its 4 distinct rows. No kernel of K1-K3 lies
+    on this path: the counts are set to 0 before and must read 0 after."""
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    stats = collections.defaultdict(lambda: collections.defaultdict(list))
+    for layout_name, codec, chain in EDGE_GROUPS:
+        cfg = bench_cfg(codec, layout_name, "mobilenet")
+        eval_data = (data[0][:256], data[1][:256])
+        trainers = [LocalTrainer(cfg, seed=k, data=data, eval_data=eval_data) for k in range(EDGE_TRAINERS)]
+        lay = trainers[0].layout
+        if (lay.total, lay.num_leaves) != (EDGE_P, EDGE_LEAVES):
+            raise RuntimeError(f"edge: MobileNet's edge row is {lay.total} in {lay.num_leaves} leaves")
+        buf = torch.zeros((NUM_CLIENTS, lay.padded), dtype=torch.float32, device="cuda")
+        global_model = trainers[0].host_model()
+        g_bytes = wire.encode(global_model)
+        gtree = flat.unpack_tree(lay, torch.from_numpy(np.pad(_leaves_row(global_model), (0, lay.pad))).cuda())
+        like = dict(global_model, num_examples=np.zeros((), np.float32))
+        for override in ["dense"] + [c for c in chain for _ in range(EDGE_ROUNDS)]:
+            for k, t in enumerate(trainers):
+                start = t.host_model()
+                before = _leaves_row(t.edge_residual) if t.edge_residual is not None else None
+                reply = t.train_round(k, NUM_CLIENTS, codec_override=None if override == "dense" else override)
+                label = f"{layout_name} {override} rank {k}"
+                t0 = time.perf_counter()
+                if sparse.is_sparse_payload(reply):
+                    extra = sparse.decode_into_row(reply, lay.sizes, buf[k])
+                else:
+                    base = global_model if override == "dense" else start
+                    extra = wire.decode_into_row(reply, like, base, buf[k])
+                decode_s = time.perf_counter() - t0
+                if float(extra["num_examples"]) != STEPS * BATCH:
+                    raise RuntimeError(f"edge {label}: num_examples {extra['num_examples']}")
+                decoded = buf[k, : lay.total].cpu().numpy()
+                delta = _leaves_row(t.host_model()) - _leaves_row(global_model if override == "dense" else start)
+                if not np.isfinite(decoded).all():
+                    raise RuntimeError(f"edge {label}: non-finite reply")
+                if sparse.is_sparse_payload(reply):
+                    _check_reply(label, t, reply, decoded, delta + before if before is not None else delta,
+                                 t.edge_residual)
+                elif decoded.tobytes() != delta.tobytes():
+                    raise RuntimeError(f"edge {label}: the dense reply does not decode to its delta")
+                key = f"{layout_name} {override}"
+                stats[key]["reply_bytes"].append(len(reply))
+                stats[key]["decode_s"].append(decode_s)
+                for part, secs in t.last_times.items():
+                    stats[key][part].append(secs)
+            if override == "dense":
+                for t in trainers:
+                    t.set_global(g_bytes)
+        buf[EDGE_TRAINERS:] = buf[:EDGE_TRAINERS].repeat(NUM_CLIENTS // EDGE_TRAINERS - 1, 1)
+        weights = torch.full((NUM_CLIENTS,), float(STEPS * BATCH), device="cuda")
+        calls = _edge_server_calls(lay, gtree, buf, weights)
+        for name, fn in calls.items():
+            stats["server"][f"{layout_name} {name}_ms"].append(_time_ms(fn, runs=3, calls=1, own_syncs=True))
+            out, _ = fn()
+            if not all(bool(torch.isfinite(v).all()) for tree in out.values() for v in tree.values()):
+                raise RuntimeError(f"edge {layout_name} {name}: non-finite global model")
+        # The same functions on the CPU, on the 4 distinct rows.
+        rows4 = buf[:EDGE_TRAINERS].contiguous()
+        w4 = weights[:EDGE_TRAINERS].contiguous()
+        gpu_calls = _edge_server_calls(lay, gtree, rows4, w4)
+        cpu_calls = _edge_server_calls(
+            lay, {c: {k: v.cpu() for k, v in tree.items()} for c, tree in gtree.items()}, rows4.cpu(), w4.cpu())
+        for name in EDGE_SERVER:
+            got, _ = gpu_calls[name]()
+            want, _ = cpu_calls[name]()
+            bad = sum(_beyond(got[c][k].cpu().numpy(), want[c][k].numpy()) for c in got for k in got[c])
+            if bad:
+                raise RuntimeError(f"edge {layout_name} {name}: {bad} coordinates differ from the CPU")
+        trim = EDGE_SERVER["aggregate_krum"]["trim_fraction"]
+        chosen = (_krum_choice(rows4, trim), _krum_choice(rows4.cpu(), trim))
+        if chosen[0] != chosen[1] or chosen[0] < 0:
+            raise RuntimeError(f"edge {layout_name} krum: the card chose row {chosen[0]}, the CPU {chosen[1]}")
+        stats["server"][f"{layout_name} krum_choice"].append(chosen[0])
+        del trainers, buf, calls, gpu_calls, cpu_calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"edge: K1-K3 launched on the edge path: {counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for key, parts in stats.items():
+        rec = {part: statistics.median(v) for part, v in parts.items()}
+        rec["card"] = card
+        log(f"edge {key}: " + json.dumps(rec))
+    log("edge: " + json.dumps({"peak_mem_gb": peak, "launches": counts, "card": card}))
+    return stats
+
+
 # --------------------------------------------------------------- main
 
 
@@ -1506,6 +1777,8 @@ def main(argv=None) -> int:
     mobilenet_options_phase(data, smi)
     _, paths["options"] = options_phase(data, smi)
     remat_probe(data, smi)
+    edge_reference_phase()
+    edge_phase(data, smi)
     for kname in kernels.KERNELS:
         for path, counts in paths.items():
             if counts[kname] == 0:

@@ -16,7 +16,7 @@ import ctypes.util
 import dataclasses
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
@@ -111,6 +111,50 @@ class SimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """fedtpu's transient-fault handling of the gRPC edge
+    (:mod:`fedtpu_torch.transport.retry`): an RPC whose status code is in
+    ``transient_codes``, or whose reply fails the wire CRC, is tried again
+    with exponential backoff and jitter, up to ``max_attempts`` in all;
+    every other code fails on the first attempt. The per-RPC deadlines (in
+    seconds) are fedtpu's."""
+
+    max_attempts: int = 3
+    backoff_s: float = 0.05
+    backoff_multiplier: float = 2.0
+    backoff_max_s: float = 2.0
+    jitter: float = 0.2
+    transient_codes: Tuple[str, ...] = (
+        "UNAVAILABLE",
+        "DEADLINE_EXCEEDED",
+        "RESOURCE_EXHAUSTED",
+        "ABORTED",
+        "INTERNAL",
+        "UNKNOWN",
+    )
+    start_train_timeout_s: float = 600.0
+    send_model_timeout_s: float = 600.0
+    fetch_model_timeout_s: float = 600.0
+    probe_timeout_s: float = 1.0
+    backup_ping_timeout_s: float = 2.0
+
+
+def validate_retry_policy(rp: RetryPolicy) -> RetryPolicy:
+    """fedtpu's ``validate_retry_policy``."""
+    if rp.max_attempts < 1:
+        raise ValueError(f"retry max_attempts must be >= 1, got {rp.max_attempts}")
+    if rp.backoff_s < 0 or rp.backoff_max_s < 0:
+        raise ValueError("retry backoff seconds must be >= 0")
+    if rp.backoff_multiplier < 1.0:
+        raise ValueError(
+            f"retry backoff_multiplier must be >= 1, got {rp.backoff_multiplier}"
+        )
+    if not 0.0 <= rp.jitter <= 1.0:
+        raise ValueError(f"retry jitter must be in [0, 1], got {rp.jitter}")
+    return rp
+
+
+@dataclasses.dataclass(frozen=True)
 class ScreenConfig:
     """fedtpu's update screening: three per-row statistics of the flat
     ``[clients, P]`` deltas (:func:`fedtpu_torch.ops.flat.screen_rows`), each
@@ -185,6 +229,16 @@ class FedConfig:
     compute_dtype: str = "float32"  # float32 | bfloat16_mixed
     # k > 0 trains each group of k clients as one [k * batch] forward
     megabatch_clients: int = 0
+    # The gRPC edge's fields (fedtpu's names and defaults): the engine
+    # ignores them, as fedtpu's does.
+    # how the coordinator consumes replies: decoded per leaf and stacked
+    # after the last one, or decoded into rows of one [clients, P] buffer
+    server_pipeline: str = "auto"  # auto | barrier | stream
+    # off | basic (the trainer's byte counts); trace is not ported
+    telemetry: str = "basic"  # off | basic | trace
+    retry: RetryPolicy = dataclasses.field(default_factory=RetryPolicy)
+    # N > 0: the root of a two-tier topology whose seats front cohorts of N
+    tier_fanout: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,4 +392,85 @@ def validate(cfg: RoundConfig) -> RoundConfig:
     if fed.sim.population > 0:
         raise not_ported("sim.population > 0", "slice 8")
     validate_round_options(cfg, compressed=fed.compression != "none")
+    return cfg
+
+
+def resolve_server_pipeline(fed: FedConfig) -> str:
+    """fedtpu's ``resolve_server_pipeline``: ``"barrier"`` or ``"stream"``.
+    Only the (weighted) mean without DP folds rows as they arrive; ``auto``
+    streams on the flat delta layout."""
+    if fed.server_pipeline not in ("auto", "barrier", "stream"):
+        raise ValueError(
+            f"unknown server_pipeline {fed.server_pipeline!r}; "
+            "have auto | barrier | stream"
+        )
+    streamable = fed.aggregator == "mean" and fed.dp_clip_norm == 0
+    if fed.server_pipeline == "stream":
+        if fed.aggregator != "mean":
+            raise ValueError(
+                f"server_pipeline='stream' cannot compose with "
+                f"aggregator={fed.aggregator!r}: median/trimmed_mean/krum "
+                "are not per-coordinate sums, so they need every client "
+                "row at once — use server_pipeline='barrier' (the stacked "
+                "[clients, ...] path)."
+            )
+        if fed.dp_clip_norm > 0:
+            raise ValueError(
+                "server_pipeline='stream' cannot compose with DP clipping: "
+                "DP-FedAvg clips each client's full delta before the "
+                "combine, so rows cannot fold into a running aggregate — "
+                "use server_pipeline='barrier'."
+            )
+        return "stream"
+    if fed.server_pipeline == "barrier":
+        return "barrier"
+    return "stream" if (fed.delta_layout == "flat" and streamable) else "barrier"
+
+
+def validate_tier_config(fed: FedConfig, face: str) -> None:
+    """fedtpu's ``validate_tier_config``: a tier forwards pre-weighted sums,
+    so it needs the mean, no DP, no screening and the streaming pipeline."""
+    if fed.tier_fanout < 0:
+        raise ValueError(f"tier_fanout must be >= 0, got {fed.tier_fanout}")
+    if fed.aggregator != "mean":
+        raise ValueError(
+            f"hierarchical aggregation ({face}) requires aggregator='mean': "
+            f"{fed.aggregator!r} needs every client row at the combine, "
+            "but tiers forward only pre-weighted sums"
+        )
+    if fed.dp_clip_norm > 0:
+        raise ValueError(
+            f"hierarchical aggregation ({face}) cannot compose with DP "
+            "clipping: per-client sensitivity bounds need individual rows "
+            "at the root"
+        )
+    if screening_enabled(fed.screen):
+        raise ValueError(
+            f"hierarchical aggregation ({face}) cannot compose with update "
+            "screening: screening statistics need individual client rows "
+            "(screen at a future leaf tier instead)"
+        )
+    if resolve_server_pipeline(fed) != "stream":
+        raise ValueError(
+            f"hierarchical aggregation ({face}) requires the streaming "
+            "pipeline: partial sums arrive as flat rows and fold through "
+            "the [rows, P] stream buffer (server_pipeline='barrier' has "
+            "no flat layout to decode them into)"
+        )
+
+
+def validate_edge(cfg: RoundConfig) -> RoundConfig:
+    """:func:`validate`, and the edge's own fields: the retry policy, the
+    server pipeline, the tier fan-out and the telemetry mode, whose
+    ``trace`` (spans and trace propagation) the port does not run yet."""
+    validate(cfg)
+    fed = cfg.fed
+    validate_retry_policy(fed.retry)
+    resolve_server_pipeline(fed)
+    if fed.tier_fanout:
+        validate_tier_config(fed, "tier")
+    if fed.telemetry not in ("off", "basic", "trace"):
+        raise ValueError(f"unknown telemetry {fed.telemetry!r}; have off | basic | trace")
+    if fed.telemetry == "trace":
+        raise not_ported("telemetry='trace' (spans and trace propagation)", "slice 8")
     return cfg

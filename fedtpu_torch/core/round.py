@@ -229,6 +229,15 @@ def _split_row(row: torch.Tensor, leaves):
     return out
 
 
+def flat_weighted_mean(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """fedtpu's ``flat_weighted_mean`` over a ``[clients, P]`` buffer, the
+    streaming server's combine: ``sum(rows * w) / max(sum(w), 1e-9)``, the
+    products summed as fedtpu's compiled reduce sums them on the CPU
+    (:func:`fedtpu_torch.ops.flat.fma_row_sum`)."""
+    total = torch.clamp(flat_ops.row_sum(weights), min=1e-9)
+    return flat_ops.fma_row_sum(rows, weights.to(rows.dtype)) / total.to(rows.dtype)
+
+
 def _mean_over_clients(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted mean over the leading clients axis; all zero when every
     weight is zero (no client contributes: no update)."""

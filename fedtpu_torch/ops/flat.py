@@ -147,6 +147,36 @@ def unpack(layout: FlatLayout, flat: torch.Tensor) -> Tree:
     return {k: v[0] for k, v in unpack_stacked(layout, flat[None]).items()}
 
 
+def make_tree_layout(tree: Dict[str, Tree]) -> FlatLayout:
+    """Layout of a ``{"params": {...}, "batch_stats": {...}}`` tree of
+    torch-named leaves, the row of fedtpu's gRPC edge (its
+    ``make_layout({"params": ..., "batch_stats": ...})``): a leaf is named
+    ``"<collection>.<torch name>"``, so ``batch_stats`` leaves come first
+    in flax's order."""
+    return make_layout(
+        {f"{col}.{name}": leaf for col, leaves in tree.items() for name, leaf in leaves.items()}
+    )
+
+
+def pack_tree(layout: FlatLayout, tree: Dict[str, Tree]) -> torch.Tensor:
+    """One ``{"params", "batch_stats"}`` tree -> its ``[padded]`` f32 row in
+    flax's order and layout (:func:`make_tree_layout`)."""
+    stacked = {f"{col}.{name}": leaf[None] for col, leaves in tree.items() for name, leaf in leaves.items()}
+    return pack_stacked(layout, stacked)[0]
+
+
+def unpack_tree(
+    layout: FlatLayout, row: torch.Tensor, collections=("params", "batch_stats")
+) -> Dict[str, Tree]:
+    """Inverse of :func:`pack_tree`: ``{collection: {torch name: leaf}}``
+    in torch's layout, every one of ``collections`` present."""
+    out: Dict[str, Tree] = {col: {} for col in collections}
+    for name, leaf in unpack(layout, row).items():
+        col, rest = name.split(".", 1)
+        out.setdefault(col, {})[rest] = leaf
+    return out
+
+
 def segment_ids(layout: FlatLayout) -> np.ndarray:
     """``[padded]`` int64 map coordinate -> leaf index (row order); padding
     gets the extra segment ``num_leaves``."""
@@ -245,3 +275,47 @@ def screen_rows(
     few = norms <= norm_max if norm_max > 0 else torch.ones_like(keep)
     keep = torch.where(live.sum() >= 3, keep, few)
     return keep, {"norm": norms, "cos": cos, "z": z}
+
+
+# ------------------------------------------------ fedtpu's sums over clients
+
+
+def row_sum(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` summed over the leading axis one row at a time in row order:
+    the order of fedtpu's compiled axis-0 reduce on the CPU (up to 32 rows;
+    XLA splits a longer reduce)."""
+    acc = rows[0].clone()
+    for r in rows[1:]:
+        acc += r
+    return acc
+
+
+def fma_row_sum(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``sum_i rows[i] * weights[i]`` in f32, one row at a time in row
+    order, each product added with a single rounding: the fused
+    multiply-add that fedtpu's compiled ``sum(rows * w, axis=0)`` makes on
+    the CPU. Taken through f64, where the product of two f32 values is
+    exact, so the one rounding is the f64 sum's then f32's (the two agree
+    but for a tie, about once in 2^29 adds)."""
+    w = weights.to(torch.float64)
+    acc = torch.zeros(rows.shape[1:], dtype=torch.float32, device=rows.device)
+    for i in range(rows.shape[0]):
+        acc = (rows[i].to(torch.float64) * w[i] + acc.to(torch.float64)).to(torch.float32)
+    return acc
+
+
+def partial_reduce_rows(rows: torch.Tensor, weights: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fedtpu's ``partial_reduce_rows``: a cohort's ``[cohort, P]`` rows as
+    ONE pre-weighted sum row and its weight sum, ``(sum_i rows_i * w_i,
+    sum_i w_i)``. The division waits for the root
+    (:func:`combine_partial_rows`), so for inputs whose f32 adds are exact
+    any grouping into tiers gives the flat mean bit for bit."""
+    return fma_row_sum(rows, weights.to(rows.dtype)), row_sum(weights)
+
+
+def combine_partial_rows(sum_rows: torch.Tensor, weight_sums: torch.Tensor) -> torch.Tensor:
+    """fedtpu's ``combine_partial_rows``: ``sum(sum_rows) / max(sum(
+    weight_sums), 1e-9)`` over the ``[aggregators, P]`` partial sums, the
+    hierarchy's one division."""
+    total = torch.clamp(row_sum(weight_sums), min=1e-9)
+    return row_sum(sum_rows) / total.to(sum_rows.dtype)

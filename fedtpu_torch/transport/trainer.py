@@ -1,0 +1,381 @@
+"""The client side of the gRPC edge: one client's local training, on the
+card, behind fedtpu's wire.
+
+The port of ``fedtpu.transport.federation.LocalTrainer``. A coordinator
+(fedtpu's ``PrimaryServer``, over :mod:`fedtpu_torch.transport.federation`)
+installs the global model with :meth:`LocalTrainer.set_global` and asks
+for a round with :meth:`LocalTrainer.train_round`, whose reply is the bytes
+a fedtpu client would send for the same state:
+
+- before the first global model lands, the trained weights as a dense FTP1
+  payload (zlib-compressed when a codec is configured);
+- once synced, the delta ``trained - round start`` through the round's
+  codec (the configured one, or the coordinator's per-round choice) as an
+  FSP1 record, with error feedback carried in a residual between rounds
+  and flushed into the weights when the codec switches to ``none``.
+
+Training is the port's vmapped local update (:mod:`fedtpu_torch.core.
+client`) with one client, on this client's shard of the deterministic
+``world``-way partition, at fedtpu's learning rate for the round. The delta
+is formed on the card (an f32 subtraction is exact, so it is fedtpu's bit
+for bit), packed into flax's order and layout there
+(:func:`fedtpu_torch.ops.flat.pack_tree`) and copied to the host once; the
+codecs run on the host (:mod:`fedtpu_torch.transport.sparse`), as
+fedtpu's do. A ring of round-start snapshots lets a coordinator that
+replays a round (after recovering from an older checkpoint) find this
+client's state as it was.
+
+fedtpu draws the crop and flip of augmentation from a threefry key split
+each round, which torch cannot reproduce: the port draws them from a
+seeded ``torch.Generator``. The trainer runs on the card unless the
+caller passes ``device="cpu"``. Nothing here imports grpc or msgpack.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fedtpu_torch import models
+from fedtpu_torch.config import RoundConfig, not_ported, validate_edge
+from fedtpu_torch.convert import _TO_FLAX
+from fedtpu_torch.core import optim
+from fedtpu_torch.core.client import make_eval_fn, make_local_update
+from fedtpu_torch.core.engine import resolve_device
+from fedtpu_torch.data import datasets, partition
+from fedtpu_torch.ops import flat as flat_ops
+from fedtpu_torch.transport import sparse, wire
+
+log = logging.getLogger("fedtpu_torch.federation")
+
+Tree = Dict[str, Dict[str, torch.Tensor]]
+
+LOSSY_CODECS = ("topk", "int8", "rotq", "randk")
+
+
+class LocalTrainer:
+    """One federated client: its model, optimizer state, shard and codec
+    state, trained one round per :meth:`train_round`."""
+
+    # Round-start snapshots kept for a coordinator's replay: a ring, newest
+    # rounds kept.
+    SNAPSHOT_KEEP = 4
+
+    def __init__(
+        self,
+        cfg: RoundConfig,
+        seed: int = 0,
+        state_dir: Optional[str] = None,
+        device=None,
+        data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        eval_data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    ):
+        """``seed`` seeds the initial weights (replaced by the first global
+        model) and the augmentation draws. ``data`` / ``eval_data``:
+        ``(images, labels)`` instead of loading ``cfg.data.dataset``'s train
+        / test split (several trainers in one process can share one copy).
+        ``state_dir`` (the client's local state kept on disk across
+        restarts) is not ported yet and raises."""
+        if state_dir:
+            raise not_ported(
+                "LocalTrainer(state_dir=...), the client's local state kept in "
+                "fedtpu's checkpoint format", "slice 8",
+            )
+        validate_edge(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        shape, n_classes = datasets.dataset_info(cfg.data.dataset)
+        if cfg.num_classes != n_classes:
+            raise ValueError(
+                f"cfg.num_classes={cfg.num_classes} but dataset "
+                f"'{cfg.data.dataset}' has {n_classes} classes"
+            )
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.model = models.create(cfg.model, cfg.num_classes, shape, remat=cfg.remat)
+        self.model.to(self.device)
+        n = cfg.data.num_examples
+        self.images, self.labels = (
+            datasets.load(cfg.data.dataset, "train", seed=cfg.data.seed, num=n)
+            if data is None else data
+        )
+        self.eval_images, self.eval_labels = (
+            datasets.load(cfg.data.dataset, "test", seed=cfg.data.seed, num=n)
+            if eval_data is None else eval_data
+        )
+        self.params = {k: p.detach().clone() for k, p in self.model.named_parameters()}
+        self.batch_stats = {k: b.detach().clone() for k, b in self.model.named_buffers()}
+        self.opt_state = optim.init(self.params, 1, cfg.opt)
+        self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        self.round_idx = 0
+        self._local_update = make_local_update(self.model, cfg)
+        self._evaluate = make_eval_fn(self.model)
+        # Until the first global model lands, replies are dense weights: a
+        # delta needs the round-start model to be the coordinator's.
+        self.synced = False
+        # Error feedback on the edge: what the codec dropped, carried into
+        # the next round's delta (a flax-layout tree on the host).
+        self.edge_residual = None
+        self.identity = "self"
+        self.layout = flat_ops.make_tree_layout(
+            {"params": self.params, "batch_stats": self.batch_stats}
+        )
+        self._template = self._flax_tree(
+            np.zeros(self.layout.total, np.float32)
+        )
+        self._dense_bytes = sum(
+            t.numel() * t.element_size() for t in (*self.params.values(), *self.batch_stats.values())
+        )
+        self._snapshots: Dict[int, dict] = {}
+        # fedtpu's basic telemetry of a client: bytes out and in, and the
+        # last reply's size against a dense payload.
+        self._count = cfg.fed.telemetry == "basic"
+        self.tx_bytes = 0
+        self.rx_bytes = 0
+        self.compression_ratio = 0.0
+        # Seconds of the last round: local update, copy to the host, encode.
+        self.last_times: Dict[str, float] = {}
+
+    # ------------------------------------------------------------ layout
+
+    def _flax_tree(self, row: np.ndarray) -> dict:
+        """A host row in the edge's order as the nested flax tree
+        ``{"params": ..., "batch_stats": ...}`` of views into it (flax's
+        layout; both collections present)."""
+        out = {"params": {}, "batch_stats": {}}
+        lay = self.layout
+        for name, shape, perm, off, size in zip(lay.names, lay.shapes, lay.perms, lay.offsets, lay.sizes):
+            col, *mods, leaf = name.split(".")
+            if perm is not None:
+                shape = tuple(((1,) + shape)[i] for i in perm)[1:]
+            node = out[col]
+            for mod in mods:
+                node = node.setdefault(mod, {})
+            node[_TO_FLAX[leaf]] = row[off : off + size].reshape(shape)
+        return out
+
+    def _host_tree(self, tree: Tree) -> dict:
+        """A ``{"params", "batch_stats"}`` tree of tensors as the flax tree
+        of f32 numpy arrays: packed in flax's layout on its device, copied
+        to the host once."""
+        row = flat_ops.pack_tree(self.layout, tree)[: self.layout.total]
+        return self._flax_tree(row.cpu().numpy())
+
+    def host_model(self) -> dict:
+        """The trainer's model as the nested flax tree ``{"params",
+        "batch_stats"}`` of f32 numpy arrays (one copy from the device)."""
+        return self._host_tree({"params": self.params, "batch_stats": self.batch_stats})
+
+    def _shard(self, rank: int, world: int):
+        """This client's row of the deterministic ``world``-way partition,
+        as ``(idx [1, L], mask [1, L])``: every client computes the same
+        partition from the shared data seed, so shards are disjoint with no
+        coordination."""
+        cfg = self.cfg
+        if cfg.data.partition == "round_robin":
+            idx, mask = partition.round_robin(len(self.images), world, cfg.data.batch_size)
+        elif cfg.data.partition == "iid":
+            idx, mask = partition.iid(len(self.images), world, seed=cfg.data.seed)
+        elif cfg.data.partition == "dirichlet":
+            idx, mask = partition.dirichlet(
+                self.labels, world, alpha=cfg.data.dirichlet_alpha, seed=cfg.data.seed
+            )
+        else:
+            raise ValueError(f"unknown partition {cfg.data.partition}")
+        return idx[rank : rank + 1], mask[rank : rank + 1]
+
+    # --------------------------------------------------- replay rollback
+
+    def _snapshot_round(self, round_idx: int) -> None:
+        """The round-start state, kept for a replay. Rounds replace the
+        trainer's tensors and residual rather than writing into them, so
+        the snapshot holds references."""
+        self._snapshots[round_idx] = {
+            "params": dict(self.params),
+            "batch_stats": dict(self.batch_stats),
+            "opt_state": dict(self.opt_state),
+            "generator": self.generator.get_state(),
+            "residual": self.edge_residual,
+        }
+        for r in sorted(self._snapshots):
+            if len(self._snapshots) <= self.SNAPSHOT_KEEP:
+                break
+            del self._snapshots[r]
+
+    def _rollback(self, target_round: int) -> bool:
+        snap = self._snapshots.get(target_round)
+        if snap is None:
+            return False
+        self.round_idx = target_round
+        self.params = dict(snap["params"])
+        self.batch_stats = dict(snap["batch_stats"])
+        self.opt_state = dict(snap["opt_state"])
+        self.generator.set_state(snap["generator"])
+        self.edge_residual = snap["residual"]
+        for r in [r for r in self._snapshots if r > target_round]:
+            del self._snapshots[r]
+        return True
+
+    # ------------------------------------------------------------ rounds
+
+    def train_round(
+        self, rank: int, world: int, coord_round: int = -1,
+        codec_override: Optional[str] = None,
+    ) -> bytes:
+        """One local epoch on this client's shard; returns the reply
+        payload. ``coord_round``: the coordinator's lineage round (-1 when
+        it sends none); one behind this client's counter rolls the local
+        state back to that round's snapshot. ``codec_override``: the
+        coordinator's codec for this round, else the configured one."""
+        payload = self._train_round_impl(rank, world, coord_round, codec_override)
+        if self._count:
+            self.tx_bytes += len(payload)
+            self.compression_ratio = len(payload) / max(self._dense_bytes, 1)
+        return payload
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _train_round_impl(
+        self, rank: int, world: int, coord_round: int, codec_override: Optional[str]
+    ) -> bytes:
+        cfg = self.cfg
+        if 0 <= coord_round < self.round_idx:
+            local_was = self.round_idx
+            if self._rollback(coord_round):
+                log.warning(
+                    "coordinator replays round %d (local counter was %d): "
+                    "rolled local state back to the matching snapshot",
+                    coord_round, local_was,
+                )
+            else:
+                log.warning(
+                    "coordinator replays round %d but no local snapshot "
+                    "survives (local counter %d); training forward — "
+                    "trajectories may diverge", coord_round, self.round_idx,
+                )
+        self._snapshot_round(self.round_idx)
+        start_round = self.round_idx
+        own, own_mask = self._shard(rank, world)
+        num_examples = float(own_mask.sum())
+        # One epoch is the shard's batch count; local_epochs multiplies it.
+        steps = max(1, int(own_mask[0].sum()) // cfg.data.batch_size) * max(1, cfg.fed.local_epochs)
+        x, y, step_mask = partition.make_client_batches(
+            self.images, self.labels, own, own_mask, cfg.data.batch_size, steps,
+            seed=cfg.data.seed + self.round_idx,
+        )
+        t0 = time.perf_counter()
+        dev = self.device
+        start_params, start_stats = self.params, self.batch_stats
+        out = self._local_update(
+            start_params, start_stats, self.opt_state,
+            torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev),
+            torch.from_numpy(np.asarray(y)).to(dev),
+            torch.from_numpy(step_mask).to(dev),
+            cfg.opt.lr_at(self.round_idx), self.generator,
+        )
+        self.params = {k: v[0] for k, v in out.params.items()}
+        self.batch_stats = {k: v[0] for k, v in out.batch_stats.items()}
+        self.opt_state = out.opt_state
+        self.round_idx += 1
+        self._sync()
+        t1 = time.perf_counter()
+
+        codec = codec_override or cfg.fed.compression
+        if codec in LOSSY_CODECS and self.synced:
+            delta = self._host_tree({
+                "params": {k: self.params[k] - start_params[k] for k in self.params},
+                "batch_stats": {k: self.batch_stats[k] - start_stats[k] for k in self.batch_stats},
+            })
+            t2 = time.perf_counter()
+            extra = {"num_examples": np.float32(num_examples)}
+            ef = cfg.fed.error_feedback
+            if cfg.fed.delta_layout == "flat":
+                enc_topk, enc_int8 = sparse.encode_topk_flat, sparse.encode_int8_flat
+            else:
+                enc_topk, enc_int8 = sparse.encode_topk, sparse.encode_int8
+            # The sketch codecs' seed is a function of (round, rank): a
+            # replayed round re-encodes byte for byte, distinct clients
+            # draw distinct rotations and index sets.
+            sketch_seed = (start_round << 16) | (rank & 0xFFFF)
+            res = self.edge_residual if ef else None
+            if codec == "topk":
+                payload, residual = enc_topk(
+                    delta, cfg.fed.topk_fraction, residuals=res, extra=extra, collect_residual=ef)
+            elif codec == "int8":
+                payload, residual = enc_int8(delta, residuals=res, extra=extra, collect_residual=ef)
+            elif codec == "rotq":
+                payload, residual = sparse.encode_rotq_flat(
+                    delta, bits=cfg.fed.rotq_bits, residuals=res, extra=extra,
+                    collect_residual=ef, seed=sketch_seed)
+            else:  # randk
+                payload, residual = sparse.encode_randk_flat(
+                    delta, cfg.fed.topk_fraction, residuals=res, extra=extra,
+                    collect_residual=ef, seed=sketch_seed)
+            if ef:
+                # A dense model-space tree: it carries unchanged across a
+                # switch between lossy codecs.
+                self.edge_residual = residual
+            self.last_times = {"update_s": t1 - t0, "copy_s": t2 - t1, "encode_s": time.perf_counter() - t2}
+            return payload
+
+        tree = self.host_model()
+        t2 = time.perf_counter()
+        if self.edge_residual is not None and self.synced and cfg.fed.error_feedback:
+            # A switch to the dense codec flushes the residual into this
+            # round's weights, then resets it: dropped mass is never lost.
+            res = self.edge_residual
+            for col in ("params", "batch_stats"):
+                leaves = wire.tree_leaves(tree[col])
+                summed = [
+                    (np.asarray(w) + np.asarray(r)).astype(np.asarray(w).dtype)
+                    for w, r in zip(leaves, wire.tree_leaves(res[col]))
+                ]
+                tree[col] = wire.tree_unflatten(tree[col], summed)
+            self.edge_residual = None
+        tree["num_examples"] = np.float32(num_examples)
+        payload = wire.encode(tree, compress=codec != "none")
+        self.last_times = {"update_s": t1 - t0, "copy_s": t2 - t1, "encode_s": time.perf_counter() - t2}
+        return payload
+
+    def set_global(self, data: bytes) -> None:
+        """Install the coordinator's global model (an FTP1 payload of
+        ``{"params", "batch_stats"}``): decoded on the host into one row in
+        the edge's order, copied to the device once."""
+        tree = wire.decode(data, self._template)
+        leaves = wire.tree_leaves(tree)
+        if len(leaves) != self.layout.num_leaves:
+            raise wire.WireError(
+                f"global model has {len(leaves)} leaves, the model {self.layout.num_leaves}"
+            )
+        row = np.zeros(self.layout.padded, np.float32)
+        for leaf, off, size in zip(leaves, self.layout.offsets, self.layout.sizes):
+            if np.size(leaf) != size:
+                raise wire.WireError("global model leaf size mismatch with the model")
+            row[off : off + size] = np.asarray(leaf, np.float32).ravel()
+        tree_t = flat_ops.unpack_tree(self.layout, torch.from_numpy(row).to(self.device))
+        self.params, self.batch_stats = tree_t["params"], tree_t["batch_stats"]
+        self.synced = True
+        if self._count:
+            self.rx_bytes += len(data)
+
+    def evaluate(self) -> Tuple[float, float]:
+        """Loss and accuracy of the installed model on the eval split, in
+        whole batches of ``eval_batch_size`` (at least one)."""
+        bs = self.cfg.data.eval_batch_size
+        nb = max(1, len(self.eval_images) // bs)
+        xs = np.asarray(self.eval_images[: nb * bs], np.float32).reshape(
+            (nb, bs) + tuple(self.eval_images.shape[1:])
+        )
+        ys = np.asarray(self.eval_labels[: nb * bs]).reshape((nb, bs))
+        loss, acc = self._evaluate(
+            self.params, self.batch_stats,
+            torch.from_numpy(xs).to(self.device),
+            torch.from_numpy(ys.astype(np.int64)).to(self.device),
+        )
+        return float(loss), float(acc)

@@ -1,5 +1,7 @@
 """The port's import boundary: ``fedtpu_torch`` and ``chip_smoke.py`` never
-load JAX, its libraries or anything of ``fedtpu``.
+load JAX, its libraries or anything of ``fedtpu``; ``chip_smoke.py`` loads
+neither grpc nor the ``msgpack`` package (the machine with the card may
+have neither), and only the edge's socket modules import grpc.
 
 One check imports every module in a fresh interpreter and looks at
 ``sys.modules``; the other reads every source file's imports. Top-level
@@ -15,6 +17,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fedtpu"}
+# Packages chip_smoke.py's closure must not load, beside FORBIDDEN.
+NOT_ON_THE_CARD = {"grpc", "msgpack"}
+# The modules that open sockets, the only ones that may import grpc.
+GRPC_MODULES = {"service.py", "retry.py", "federation.py"}
 
 
 def _sources():
@@ -41,6 +47,51 @@ print(json.dumps({{"modules": mods, "loaded": sorted({{k.split(".")[0] for k in 
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 15, result["modules"]
     assert not FORBIDDEN & set(result["loaded"]), FORBIDDEN & set(result["loaded"])
+
+
+def _loaded_by(imports: str):
+    script = f"""
+import json, sys
+sys.path.insert(0, {str(ROOT)!r})
+{imports}
+print(json.dumps(sorted({{k.split(".")[0] for k in sys.modules}})))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        timeout=120, cwd=str(ROOT), env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return set(json.loads(proc.stdout.strip().splitlines()[-1]))
+
+
+def test_chip_smoke_closure_loads_no_grpc_and_no_msgpack():
+    loaded = _loaded_by("import chip_smoke  # noqa: F401")
+    assert "fedtpu_torch" in loaded
+    assert not (FORBIDDEN | NOT_ON_THE_CARD) & loaded, (FORBIDDEN | NOT_ON_THE_CARD) & loaded
+    # The edge's trainer and server math, and the package itself, neither.
+    loaded = _loaded_by(
+        "import fedtpu_torch.transport, fedtpu_torch.transport.trainer, "
+        "fedtpu_torch.transport.aggregation  # noqa: F401"
+    )
+    assert not NOT_ON_THE_CARD & loaded, NOT_ON_THE_CARD & loaded
+
+
+def _imported_names(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_only_the_socket_modules_import_grpc_and_none_imports_msgpack():
+    for path in _sources():
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            assert top != "msgpack", f"{path}: imports {name}"
+            if top == "grpc":
+                assert path.parent.name == "transport" and path.name in GRPC_MODULES, f"{path}: imports grpc"
 
 
 def test_no_source_file_imports_jax_or_fedtpu():
