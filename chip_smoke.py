@@ -81,6 +81,23 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    host, host encode), reply bytes, host decode, server ms and peak memory
    are printed beside the card. The edge launches none of K1-K3: the
    counts are set to 0 before it and must read 0 after.
+10. federation: the coordinator over localhost gRPC (its only phase that
+   imports grpc): a port PrimaryServer and BackupServer and 4 port
+   serve_client MobileNet clients (6 steps of batch 128, bf16), all on the
+   card. A dense round 0, then 2 rounds each of per-leaf none and topk
+   (barrier) and flat int8 and rotq (stream), each group a primary started
+   from the last one's replica and clients of the group's codec; a round
+   whose deadline holds one client back (a live straggler); then the
+   failover drill: the primary stops, the backup promotes on its 2 s
+   watchdog and commits one round, and a restarted primary demotes it,
+   fetches its state and runs on, the round counter continuous. Every
+   round's global is held against the CPU's combine of the replies it
+   used (atol=1e-5, rtol=1e-4, all but 0.1% of coordinates),
+   ``bytes_down`` against the payloads, and every client's installed model
+   against the primary's. Each round's split (collect, decode, h2d,
+   aggregate, post-barrier), bytes and wall time, the time to recover and
+   the peak memory are printed beside the card; K1-K3 are launched 0 times.
+   ``--only federation`` runs the device phase and this one alone.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
@@ -103,6 +120,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -123,6 +141,7 @@ from fedtpu_torch.transport import aggregation as edge_aggregation  # noqa: E402
 from fedtpu_torch.transport import msgpack as _msgpack  # noqa: E402
 from fedtpu_torch.transport import sparse, wire  # noqa: E402
 from fedtpu_torch.transport.trainer import LocalTrainer  # noqa: E402
+from fedtpu_torch.utils.observe import process_rss_bytes  # noqa: E402
 
 NUM_CLIENTS = 64
 BATCH = 128
@@ -1725,6 +1744,278 @@ def edge_phase(data, card):
     return stats
 
 
+# --------------------------------------------------------- 10. federation
+
+FED_CLIENTS = 4  # port clients, ranks 0-3 of a world of 4, 768 examples each
+# (layout, codec, server pipeline, rounds), after a dense round 0.
+FED_GROUPS = (
+    ("per_leaf", "none", "barrier", 2),
+    ("per_leaf", "topk", "barrier", 2),
+    ("flat", "int8", "stream", 2),
+    ("flat", "rotq", "stream", 2),
+)
+FED_WATCHDOG_S = 2.0
+FED_EVAL = 256  # examples each client evaluates a broadcast on
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _fed_cfg(layout: str, codec: str, pipeline: str) -> RoundConfig:
+    cfg = bench_cfg(codec, layout, "mobilenet", data_kw=dict(num_examples=FED_CLIENTS * STEPS * BATCH),
+                    fed_kw=dict(server_pipeline=pipeline, ft_watchdog_timeout_s=FED_WATCHDOG_S))
+    return dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed, num_clients=FED_CLIENTS))
+
+
+def _cpu_combine(cfg, lay, before: dict, replies, order, pipeline: str, round_idx: int) -> np.ndarray:
+    """The round's combine on the CPU from the replies the primary got:
+    each decoded into a row of the edge's layout against the round's
+    global (``before``, a flax tree), then the same ``aggregation``
+    function as the primary's pipeline; the new global as a host row."""
+    rows = np.zeros((len(order), lay.padded), np.float32)
+    weights = []
+    like = dict(before, num_examples=np.zeros((), np.float32))
+    for i, c in enumerate(order):
+        data = replies[c]
+        if sparse.is_sparse_payload(data):
+            extra = sparse.decode_into_row(data, lay.sizes, rows[i])
+        else:
+            extra = wire.decode_into_row(data, like, before, rows[i])
+        weights.append(float(extra["num_examples"]))
+    g_row = np.zeros(lay.padded, np.float32)
+    g_row[: lay.total] = _leaves_row(before)
+    g = flat.unpack_tree(lay, torch.from_numpy(g_row))
+    rows_t, w = torch.from_numpy(rows), torch.tensor(weights, dtype=torch.float32)
+    if pipeline == "stream":
+        new, _ = edge_aggregation.finalize_stream(cfg, lay, g, rows_t, w, ())
+    else:
+        stacked = {"params": {}, "batch_stats": {}}
+        for name, leaf in flat.unpack_stacked(lay, rows_t).items():
+            col, rest = name.split(".", 1)
+            stacked[col][rest] = leaf
+        new, _ = edge_aggregation.aggregate(cfg, g, stacked, w, (), round_idx)
+    return flat.pack_tree(lay, new)[: lay.total].numpy()
+
+
+def _one_process_client(agent, replies, lock) -> None:
+    """Keep each reply a client sends, by lineage round, for the CPU's
+    check of the round (the held-back client's late reply lands after its
+    round was checked); and run one client's card work at a time. The
+    clients share this process and its GIL: four clients training at once
+    took a round's collect to 97 s where one at a time took 35 s (at 96
+    local steps each, on an H100). Clients of a real federation are
+    processes of their own."""
+    t = agent.trainer
+    train, install, evaluate = t.train_round, t.set_global, t.evaluate
+
+    def logged(rank, world, coord_round=-1, codec_override=None):
+        with lock:
+            out = train(rank, world, coord_round=coord_round, codec_override=codec_override)
+        replies.setdefault(coord_round, {})[t.identity] = out
+        return out
+
+    def locked(fn):
+        def call(*args):
+            with lock:
+                return fn(*args)
+        return call
+
+    t.train_round, t.set_global, t.evaluate = logged, locked(install), locked(evaluate)
+
+
+def _check_fed_round(primary, rec, wall, before, agents, replies, label, card, stats):
+    """A committed round, checked: nobody lost, the new global within the
+    slices' tolerance of the CPU's combine of the replies the round used
+    (decoded against ``before``, the round's global), ``bytes_down`` the
+    payloads' sizes, every client's installed model the primary's."""
+    lay = primary.layout
+    r = rec["round"]
+    if rec.get("aborted") or not all(rec["alive"]):
+        raise RuntimeError(f"federation {label}: round {r} aborted or lost a client: {rec}")
+    got = _leaves_row(primary._host_model())
+    if not np.isfinite(got).all():
+        raise RuntimeError(f"federation {label}: non-finite global model")
+    order = [c for c in primary.registry.clients if c in replies.get(r, {})]
+    if len(order) != rec["participants"]:
+        raise RuntimeError(f"federation {label}: {len(order)} replies logged, {rec['participants']} used")
+    want = _cpu_combine(primary.cfg, lay, before, replies[r], order, rec["pipeline"], r)
+    bad = _beyond(got, want)
+    if bad > 0.001 * want.size:
+        raise RuntimeError(f"federation {label}: round {r}: {bad} of {want.size} coordinates differ from the CPU")
+    expect = len(primary.model_bytes()) * FED_CLIENTS
+    if primary.backup_stub is not None:
+        expect += len(primary.replica_bytes())
+    if rec["bytes_down"] != expect:
+        raise RuntimeError(f"federation {label}: bytes_down {rec['bytes_down']}, payloads {expect}")
+    for a in agents:
+        if _leaves_row(a.trainer.host_model()).tobytes() != got.tobytes():
+            raise RuntimeError(f"federation {label}: client {a.trainer.identity} holds another model")
+    keys = ("t_collect_s", "t_decode_s", "t_h2d_s", "t_aggregate_s", "t_post_barrier_s",
+            "bytes_up", "bytes_down", "participants", "stragglers", "pipeline")
+    out = {"round": r, **{k: rec[k] for k in keys}, "wall_s": wall,
+           "codec_bytes": rec["bytes_up_by_codec"], "cpu_beyond": bad, "card": card}
+    log(f"federation {label} round {r}: " + json.dumps(out))
+    stats.append(out)
+
+
+def _fed_round(primary, agents, replies, label, card, stats):
+    before = primary._host_model()
+    t0 = time.perf_counter()
+    rec = primary.round()
+    wall = time.perf_counter() - t0
+    _check_fed_round(primary, rec, wall, before, agents, replies, label, card, stats)
+    return rec
+
+
+def federation_phase(data, card):
+    """A federation over localhost gRPC on the card: a port PrimaryServer,
+    a BackupServer and FED_CLIENTS serve_client MobileNet clients (6 steps
+    of batch 128 in bf16, one shared copy of the data). A dense round 0,
+    then FED_GROUPS' rounds (each group a primary started from the last
+    one's replica, its clients restarted with the group's layout and
+    codec), one round with a deadline that holds a client back, then the
+    failover drill: the primary stops, the backup promotes and commits one
+    round on the card, and a restarted primary demotes it and fetches its
+    state, the round counter continuous. No kernel of K1-K3 lies on this
+    path: the counts are set to 0 before and must read 0 after."""
+    # The phase runs over gRPC: its modules are imported here only.
+    from fedtpu_torch.ft import Role
+    from fedtpu_torch.transport.federation import BackupServer, PrimaryServer, serve_client
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    # Each client's shard of a world of 4 is one round's 6 steps of 128.
+    n = FED_CLIENTS * STEPS * BATCH
+    data, eval_data = (data[0][:n], data[1][:n]), (data[0][:FED_EVAL], data[1][:FED_EVAL])
+    backup_addr = f"localhost:{_free_port()}"
+    backup = BackupServer(_fed_cfg(*FED_GROUPS[-1][:3]), [], watchdog_timeout=FED_WATCHDOG_S)
+    backup_server = backup.start(backup_addr)
+    stats, replies = [], {}
+    servers, agents, state = [], [], None
+    client_lock = threading.Lock()
+    try:
+        for gi, (layout, codec, pipeline, rounds) in enumerate(FED_GROUPS):
+            cfg = _fed_cfg(layout, codec, pipeline)
+            for s in servers:
+                s.stop(0)
+            servers, agents = [], []
+            for k in range(FED_CLIENTS):
+                server, agent = serve_client(f"localhost:{_free_port()}", cfg, seed=k, data=data,
+                                             eval_data=eval_data)
+                servers.append(server)
+                agents.append(agent)
+            addrs = [a.trainer.identity for a in agents]
+            for a in agents:
+                _one_process_client(a, replies, client_lock)
+            primary = PrimaryServer(cfg, addrs, backup_address=backup_addr, initial_model=state)
+            if state is not None:
+                # The replica's roster names the last group's clients.
+                for old in list(primary.registry.clients):
+                    primary.remove_client(old)
+                for addr in addrs:
+                    primary.admit_client(addr)
+            for _ in range(rounds + (1 if gi == 0 else 0)):
+                _fed_round(primary, agents, replies, f"{layout} {codec}", card, stats)
+            state = primary.replica_bytes()
+        # A deadline round: the last client held back past it.
+        held = agents[-1].trainer
+        hold_s = max(s["t_collect_s"] for s in stats[-2:]) + 2.0
+        train = held.train_round
+        held.train_round = lambda *a, **k: (time.sleep(hold_s + 2.0), train(*a, **k))[1]
+        primary.round_deadline_s = hold_s
+        rec = _fed_round(primary, agents, replies, f"{layout} {codec} deadline", card, stats)
+        if rec["stragglers"] != 1 or rec["participants"] != FED_CLIENTS - 1 or not all(rec["alive"]):
+            raise RuntimeError(f"federation: the held client is not a live straggler: {rec}")
+        primary._inflight[held.identity].join(timeout=120)
+        held.train_round = train
+        primary.round_deadline_s = None
+        primary.sync_clients()  # the straggler's late round is resynced
+        # Failover: the primary's last ping arms the watchdog, then it stops.
+        if primary.pinger.tick() is None:
+            raise RuntimeError("federation: the backup does not answer the primary's ping")
+        committed = {}
+
+        def on_acting_round(r, rec):
+            committed.setdefault("t", time.perf_counter())
+            committed.setdefault("rec", rec)
+            backup._acting_stop.set()
+
+        backup.on_acting_round = on_acting_round
+        before = primary._host_model()
+        last = primary._round_counter
+        t_stop = time.perf_counter()
+        del primary
+        deadline = time.perf_counter() + 120
+        while "rec" not in committed and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        if "rec" not in committed:
+            raise RuntimeError("federation: the backup never committed an acting round")
+        recover_s = committed["t"] - t_stop
+        backup._promote_thread.join(timeout=120)
+        acting = backup.acting
+        if committed["rec"]["round"] != last or acting._role != 2 or acting._coord_epoch != 2:
+            raise RuntimeError(f"federation: acting round {committed['rec']['round']} at epoch "
+                               f"{acting._coord_epoch}, expected round {last} at epoch 2")
+        _check_fed_round(acting, committed["rec"], committed["rec"]["t_round_s"], before, agents,
+                         replies, "acting", card, stats)
+        log(f"federation: primary stopped -> first acting round committed in {recover_s:.3f} s ({card})")
+        # The primary restarts: its recovering ping demotes the backup, it
+        # fetches the acting state and runs on.
+        before = acting._host_model()
+        restarted = PrimaryServer(_fed_cfg(*FED_GROUPS[-1][:3]), addrs, backup_address=backup_addr)
+        t0 = time.perf_counter()
+        restarted.run(num_rounds=1)
+        wall = time.perf_counter() - t0
+        if backup.machine.role is not Role.BACKUP:
+            raise RuntimeError("federation: the restarted primary did not demote the backup")
+        if restarted._coord_epoch != acting._coord_epoch:
+            raise RuntimeError("federation: the restarted primary did not adopt the acting epoch")
+        _check_fed_round(restarted, restarted.history[-1], wall, before, agents, replies,
+                         "restarted", card, stats)
+        rounds = [s["round"] for s in stats]
+        if rounds != list(range(len(rounds))):
+            raise RuntimeError(f"federation: the round counter is not continuous: {rounds}")
+        del acting
+        backup.acting = None
+    finally:
+        backup.watchdog.stop()
+        backup._stop_acting(wait=60)
+        backup_server.stop(0)
+        for s in servers:
+            s.stop(0)
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"federation: K1-K3 launched on the coordinator's path: {counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # The coordinator's own footprint: its model and server state, and what
+    # a stream round's buffer and combine add above what stays allocated
+    # once the clients are gone.
+    del agents, servers
+    gc.collect()
+    torch.cuda.empty_cache()
+    lay = restarted.layout
+    model_gb = sum(t.numel() * t.element_size() for tree in restarted.global_tree.values()
+                   for t in tree.values()) / 1e9
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows = torch.zeros((FED_CLIENTS, lay.padded), device="cuda")
+    edge_aggregation.finalize_stream(restarted.cfg, lay, restarted.global_tree, rows,
+                                     torch.ones(FED_CLIENTS, device="cuda"), ())
+    torch.cuda.synchronize()
+    combine_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log("federation: " + json.dumps({
+        "rounds": len(rounds), "time_to_recover_s": recover_s, "peak_mem_gb_process": peak,
+        "coordinator_model_gb": model_gb, "coordinator_round_gb": combine_gb,
+        "allocated_after_clients_gb": base / 1e9, "host_rss_gb": process_rss_bytes() / 1e9,
+        "launches": counts, "card": card}))
+    return counts
+
+
 # --------------------------------------------------------------- main
 
 
@@ -1736,9 +2027,18 @@ def main(argv=None) -> int:
         "rotq and flat int8 and one round each of MobileNet per-leaf topk "
         "and flat rotq; write the tables to DIR",
     )
+    ap.add_argument(
+        "--only", choices=["federation"],
+        help="run the device phase and this phase alone, and print no result line",
+    )
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi, name, peaks = device_phase()
+    if args.only:
+        data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
+        federation_phase(data, smi)
+        log(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     build_phase()
     results = {"threshold_feedback": kernel_phase(peaks), "quantdequant_int8": int8_phase(peaks)}
     results["hadamard_rotate"] = hadamard_phase(peaks)
@@ -1779,6 +2079,7 @@ def main(argv=None) -> int:
     remat_probe(data, smi)
     edge_reference_phase()
     edge_phase(data, smi)
+    federation_phase(data, smi)
     for kname in kernels.KERNELS:
         for path, counts in paths.items():
             if counts[kname] == 0:

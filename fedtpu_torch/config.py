@@ -239,6 +239,16 @@ class FedConfig:
     retry: RetryPolicy = dataclasses.field(default_factory=RetryPolicy)
     # N > 0: the root of a two-tier topology whose seats front cohorts of N
     tier_fanout: int = 0
+    # static | adaptive (a per-client codec learned from bytes x RTT); the
+    # coordinator runs static only
+    codec_policy: str = "static"
+    # The coordinator's fault tolerance (fedtpu's names and defaults): the
+    # fraction of the round's sampled clients that must reply for the
+    # round to commit (0: whatever arrived), the backup's promotion
+    # watchdog and the dead-client re-probe period, in seconds.
+    round_quorum: float = 0.0
+    ft_watchdog_timeout_s: float = 10.0
+    ft_heartbeat_period_s: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -457,6 +467,32 @@ def validate_tier_config(fed: FedConfig, face: str) -> None:
             "the [rows, P] stream buffer (server_pipeline='barrier' has "
             "no flat layout to decode them into)"
         )
+
+
+def validate_coordinator(cfg: RoundConfig) -> RoundConfig:
+    """:func:`validate_edge`, and the coordinator's own fields, with
+    fedtpu's ``PrimaryServer`` messages: the round quorum, the codec
+    policy, whose ``adaptive`` the port does not run yet, and the tier
+    fan-out, which it does not run yet either."""
+    validate_edge(cfg)
+    fed = cfg.fed
+    if not 0.0 <= fed.round_quorum <= 1.0:
+        raise ValueError(f"round_quorum must be in [0, 1], got {fed.round_quorum}")
+    if fed.codec_policy not in ("static", "adaptive"):
+        raise ValueError(
+            f"unknown codec_policy {fed.codec_policy!r}; have static | adaptive"
+        )
+    if fed.codec_policy == "adaptive":
+        raise not_ported(
+            "codec_policy='adaptive' (fedtpu/transport/codec_policy.py)",
+            "slice 6, part 2, item 5",
+        )
+    if fed.tier_fanout:
+        raise not_ported(
+            "tier_fanout > 0, the root of a two-tier topology "
+            "(fedtpu/transport/aggregator.py)", "slice 6, part 2, item 4",
+        )
+    return cfg
 
 
 def validate_edge(cfg: RoundConfig) -> RoundConfig:

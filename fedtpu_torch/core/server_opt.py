@@ -18,6 +18,17 @@ written out with optax's formulas, in optax's order of operations:
 The state is a dict of tensors on the params' device: ``{"trace": {...}}``
 for momentum, ``{"count", "mu", "nu"}`` (``count`` an int32 scalar) for
 adam and yogi, ``()`` for FedAvg.
+
+:func:`apply` computes optax's eager arithmetic, one rounding per
+operation. ``apply(..., compiled=True)`` computes the form XLA compiles on
+the CPU when the step runs inside one jitted program, as fedtpu's
+coordinator runs it (``PrimaryServer._aggregate`` and
+``_finalize_stream``): LLVM contracts a product that feeds an add into a
+fused multiply-add (``m = b1 * m + g``, ``mu = b1 * mu + (1 - b1) * g``,
+``nu = (1 - b2) * g^2 + b2 * nu``, yogi's ``nu - (1 - b2) * sign * g^2``
+and the last ``params + (-lr) * update``), and XLA's simplifier turns
+``(mu / c1) / d`` into ``mu / (c1 * d)``. A fused multiply-add is taken
+through f64 (:func:`fma`), where the product of two f32 values is exact.
 """
 
 from __future__ import annotations
@@ -68,37 +79,62 @@ def init(opt: Optional[ServerOptimizer], params: Tree):
     }
 
 
+def fma(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in f32 with one rounding (a fused multiply-add),
+    through f64; ``a`` a tensor or a Python number, rounded to f32 first as
+    a weakly typed constant is. The f64 sum and the f32 rounding agree with
+    a true fused multiply-add but for a tie, about once in 2^29."""
+    if not isinstance(a, torch.Tensor):
+        a = float(torch.tensor(a, dtype=torch.float32))
+    else:
+        a = a.to(torch.float64)
+    return (a * b.to(torch.float64) + c.to(torch.float64)).to(torch.float32)
+
+
 def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
     """``1 - decay**count`` in f32, as optax computes it."""
     return 1 - torch.tensor(decay, dtype=torch.float32, device=count.device) ** count
 
 
 def apply(
-    opt: Optional[ServerOptimizer], params: Tree, mean_delta: Tree, state
+    opt: Optional[ServerOptimizer], params: Tree, mean_delta: Tree, state, compiled: bool = False
 ) -> Tuple[Tree, object]:
-    """``(new params, new state)`` from the round's mean delta."""
+    """``(new params, new state)`` from the round's mean delta; ``compiled``
+    for XLA's compiled CPU arithmetic (see the module docstring)."""
     if opt is None:
         return {k: params[k] + mean_delta[k] for k in params}, state
     g = {k: -d for k, d in mean_delta.items()}
     if opt.name == "momentum":
+        if compiled:
+            trace = {k: fma(opt.b1, state["trace"][k], g[k]) for k in g}
+            return {k: fma(-opt.lr, trace[k], params[k]) for k in params}, {"trace": trace}
         trace = {k: g[k] + opt.b1 * state["trace"][k] for k in g}
         return (
             {k: params[k] + (-opt.lr) * trace[k] for k in params},
             {"trace": trace},
         )
-    mu = {k: (1 - opt.b1) * g[k] + opt.b1 * state["mu"][k] for k in g}
-    if opt.name == "adam":
-        nu = {k: (1 - opt.b2) * (g[k] * g[k]) + opt.b2 * state["nu"][k] for k in g}
+    if compiled:
+        mu = {k: fma(opt.b1, state["mu"][k], (1 - opt.b1) * g[k]) for k in g}
     else:
-        nu = {}
-        for k in g:
-            g2 = g[k] * g[k]
-            v = state["nu"][k]
+        mu = {k: (1 - opt.b1) * g[k] + opt.b1 * state["mu"][k] for k in g}
+    nu = {}
+    for k in g:
+        g2 = g[k] * g[k]
+        v = state["nu"][k]
+        if opt.name == "adam":
+            nu[k] = fma(1 - opt.b2, g2, opt.b2 * v) if compiled else (1 - opt.b2) * g2 + opt.b2 * v
+        elif compiled:
+            nu[k] = fma(-((1 - opt.b2) * torch.sign(v - g2)), g2, v)
+        else:
             nu[k] = v - (1 - opt.b2) * torch.sign(v - g2) * g2
     count = state["count"] + 1
     c1, c2 = _bias_correction(opt.b1, count), _bias_correction(opt.b2, count)
     new_params = {}
     for k in params:
-        update = (mu[k] / c1) / (_sqrt(nu[k] / c2) + opt.eps)
-        new_params[k] = params[k] + (-opt.lr) * update
+        if compiled:
+            update = mu[k] / (c1 * (_sqrt(nu[k] / c2) + opt.eps))
+            new_params[k] = fma(-opt.lr, update, params[k])
+        else:
+            update = (mu[k] / c1) / (_sqrt(nu[k] / c2) + opt.eps)
+            new_params[k] = params[k] + (-opt.lr) * update
     return new_params, {"count": count, "mu": mu, "nu": nu}

@@ -165,6 +165,31 @@ def pack_tree(layout: FlatLayout, tree: Dict[str, Tree]) -> torch.Tensor:
     return pack_stacked(layout, stacked)[0]
 
 
+def flax_tree(layout: FlatLayout, row: np.ndarray) -> dict:
+    """A host row in the edge's order (:func:`make_tree_layout`) as the
+    nested flax tree ``{"params": ..., "batch_stats": ...}`` of views into
+    it, in flax's layout, both collections present."""
+    out = {"params": {}, "batch_stats": {}}
+    for name, shape, perm, off, size in zip(
+        layout.names, layout.shapes, layout.perms, layout.offsets, layout.sizes
+    ):
+        col, *mods, leaf = name.split(".")
+        if perm is not None:
+            shape = tuple(((1,) + shape)[i] for i in perm)[1:]
+        node = out[col]
+        for mod in mods:
+            node = node.setdefault(mod, {})
+        node[_TO_FLAX[leaf]] = row[off : off + size].reshape(shape)
+    return out
+
+
+def to_flax_host(layout: FlatLayout, tree: Dict[str, Tree]) -> dict:
+    """A ``{"params", "batch_stats"}`` tree of tensors as fedtpu's flax tree
+    of f32 numpy arrays: packed in flax's layout on its device, copied to
+    the host once."""
+    return flax_tree(layout, pack_tree(layout, tree)[: layout.total].cpu().numpy())
+
+
 def unpack_tree(
     layout: FlatLayout, row: torch.Tensor, collections=("params", "batch_stats")
 ) -> Dict[str, Tree]:

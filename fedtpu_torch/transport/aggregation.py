@@ -57,7 +57,7 @@ def _apply(cfg: RoundConfig, server, global_tree: Tree, deltas: Tree, opt_state)
     """The server optimizer on the params, the statistics moved by their
     delta: the common tail of the three programs."""
     new_params, new_opt = server_opt.apply(
-        _server(cfg, server), global_tree["params"], deltas["params"], opt_state
+        _server(cfg, server), global_tree["params"], deltas["params"], opt_state, compiled=True
     )
     new_stats = {k: g + deltas["batch_stats"][k] for k, g in global_tree["batch_stats"].items()}
     return {"params": new_params, "batch_stats": new_stats}, new_opt

@@ -42,7 +42,6 @@ import torch
 
 from fedtpu_torch import models
 from fedtpu_torch.config import RoundConfig, not_ported, validate_edge
-from fedtpu_torch.convert import _TO_FLAX
 from fedtpu_torch.core import optim
 from fedtpu_torch.core.client import make_eval_fn, make_local_update
 from fedtpu_torch.core.engine import resolve_device
@@ -124,9 +123,7 @@ class LocalTrainer:
         self.layout = flat_ops.make_tree_layout(
             {"params": self.params, "batch_stats": self.batch_stats}
         )
-        self._template = self._flax_tree(
-            np.zeros(self.layout.total, np.float32)
-        )
+        self._template = flat_ops.flax_tree(self.layout, np.zeros(self.layout.total, np.float32))
         self._dense_bytes = sum(
             t.numel() * t.element_size() for t in (*self.params.values(), *self.batch_stats.values())
         )
@@ -142,33 +139,10 @@ class LocalTrainer:
 
     # ------------------------------------------------------------ layout
 
-    def _flax_tree(self, row: np.ndarray) -> dict:
-        """A host row in the edge's order as the nested flax tree
-        ``{"params": ..., "batch_stats": ...}`` of views into it (flax's
-        layout; both collections present)."""
-        out = {"params": {}, "batch_stats": {}}
-        lay = self.layout
-        for name, shape, perm, off, size in zip(lay.names, lay.shapes, lay.perms, lay.offsets, lay.sizes):
-            col, *mods, leaf = name.split(".")
-            if perm is not None:
-                shape = tuple(((1,) + shape)[i] for i in perm)[1:]
-            node = out[col]
-            for mod in mods:
-                node = node.setdefault(mod, {})
-            node[_TO_FLAX[leaf]] = row[off : off + size].reshape(shape)
-        return out
-
-    def _host_tree(self, tree: Tree) -> dict:
-        """A ``{"params", "batch_stats"}`` tree of tensors as the flax tree
-        of f32 numpy arrays: packed in flax's layout on its device, copied
-        to the host once."""
-        row = flat_ops.pack_tree(self.layout, tree)[: self.layout.total]
-        return self._flax_tree(row.cpu().numpy())
-
     def host_model(self) -> dict:
         """The trainer's model as the nested flax tree ``{"params",
         "batch_stats"}`` of f32 numpy arrays (one copy from the device)."""
-        return self._host_tree({"params": self.params, "batch_stats": self.batch_stats})
+        return flat_ops.to_flax_host(self.layout, {"params": self.params, "batch_stats": self.batch_stats})
 
     def _shard(self, rank: int, world: int):
         """This client's row of the deterministic ``world``-way partition,
@@ -288,7 +262,7 @@ class LocalTrainer:
 
         codec = codec_override or cfg.fed.compression
         if codec in LOSSY_CODECS and self.synced:
-            delta = self._host_tree({
+            delta = flat_ops.to_flax_host(self.layout, {
                 "params": {k: self.params[k] - start_params[k] for k in self.params},
                 "batch_stats": {k: self.batch_stats[k] - start_stats[k] for k in self.batch_stats},
             })
@@ -348,16 +322,7 @@ class LocalTrainer:
         ``{"params", "batch_stats"}``): decoded on the host into one row in
         the edge's order, copied to the device once."""
         tree = wire.decode(data, self._template)
-        leaves = wire.tree_leaves(tree)
-        if len(leaves) != self.layout.num_leaves:
-            raise wire.WireError(
-                f"global model has {len(leaves)} leaves, the model {self.layout.num_leaves}"
-            )
-        row = np.zeros(self.layout.padded, np.float32)
-        for leaf, off, size in zip(leaves, self.layout.offsets, self.layout.sizes):
-            if np.size(leaf) != size:
-                raise wire.WireError("global model leaf size mismatch with the model")
-            row[off : off + size] = np.asarray(leaf, np.float32).ravel()
+        row = wire.model_row(tree, self.layout.sizes, self.layout.padded)
         tree_t = flat_ops.unpack_tree(self.layout, torch.from_numpy(row).to(self.device))
         self.params, self.batch_stats = tree_t["params"], tree_t["batch_stats"]
         self.synced = True

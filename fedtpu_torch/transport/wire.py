@@ -218,6 +218,25 @@ def decode_into_row(data: bytes, like: Tree, base: Tree, out) -> dict:
     return {k: v for k, v in tree.items() if k not in ("params", "batch_stats")}
 
 
+def model_row(tree: Tree, sizes, padded: int) -> np.ndarray:
+    """A model tree's ``{"params", "batch_stats"}`` leaves, in
+    :func:`tree_leaves` order, as one f32 row of ``padded`` coordinates
+    (zeros past the leaves); :class:`WireError` when the leaves are not
+    ``sizes``, the receiver's model."""
+    leaves = tree_leaves({"params": tree["params"], "batch_stats": tree["batch_stats"]})
+    if [int(np.size(a)) for a in leaves] != [int(n) for n in sizes]:
+        raise WireError(
+            f"model payload has {len(leaves)} leaves of other sizes than the "
+            f"receiver's {len(sizes)}"
+        )
+    row = np.zeros(padded, np.float32)
+    off = 0
+    for leaf, n in zip(leaves, sizes):
+        row[off : off + n] = np.asarray(leaf, np.float32).ravel()
+        off += n
+    return row
+
+
 def payload_size(tree: Tree) -> int:
     """Uncompressed payload bytes of a tree, without the header."""
     return len(msgpack.to_bytes(host_tree(tree)))

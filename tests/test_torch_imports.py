@@ -1,7 +1,11 @@
 """The port's import boundary: ``fedtpu_torch`` and ``chip_smoke.py`` never
-load JAX, its libraries or anything of ``fedtpu``; ``chip_smoke.py`` loads
-neither grpc nor the ``msgpack`` package (the machine with the card may
-have neither), and only the edge's socket modules import grpc.
+load JAX, its libraries or anything of ``fedtpu``; importing
+``chip_smoke.py`` loads neither grpc nor the ``msgpack`` package (its
+federation phase imports grpc when it runs), and only the edge's socket
+modules import grpc. The coordinator (``fedtpu_torch.ft``,
+``fedtpu_torch.transport.federation``'s ``PrimaryServer`` and
+``BackupServer``) is held to the same boundary, and ``fedtpu_torch.ft``
+loads no grpc.
 
 One check imports every module in a fresh interpreter and looks at
 ``sys.modules``; the other reads every source file's imports. Top-level
@@ -75,6 +79,17 @@ def test_chip_smoke_closure_loads_no_grpc_and_no_msgpack():
         "fedtpu_torch.transport.aggregation  # noqa: F401"
     )
     assert not NOT_ON_THE_CARD & loaded, NOT_ON_THE_CARD & loaded
+
+
+def test_coordinator_closure_loads_no_jax_and_no_fedtpu():
+    loaded = _loaded_by(
+        "import fedtpu_torch.ft\n"
+        "from fedtpu_torch.transport.federation import BackupServer, PrimaryServer  # noqa: F401"
+    )
+    assert {"fedtpu_torch", "grpc"} <= loaded
+    assert not FORBIDDEN & loaded, FORBIDDEN & loaded
+    loaded = _loaded_by("import fedtpu_torch.ft  # noqa: F401")
+    assert not (FORBIDDEN | NOT_ON_THE_CARD) & loaded, (FORBIDDEN | NOT_ON_THE_CARD) & loaded
 
 
 def _imported_names(path):
