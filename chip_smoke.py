@@ -98,6 +98,23 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    aggregate, post-barrier), bytes and wall time, the time to recover and
    the peak memory are printed beside the card; K1-K3 are launched 0 times.
    ``--only federation`` runs the device phase and this one alone.
+11. faults: the rest of the coordinator over localhost gRPC, 4 port
+   MobileNet clients as in phase 10 (flat int8, stream). (a) chaos: a
+   primary and backup, the primary armed with seeded StartTrain errors and
+   corruptions and SendModel delays, one client's server with SendModel
+   errors, one client a sign-flipping attacker; 3 rounds, each with all 4
+   clients, every injected fault retried once, the attacker's row the
+   negation of its honest delta within int8's error. (b) the membership
+   gate: a fifth client joins, is resynced and trains the next round,
+   then leaves; the backup answers Join "not primary". (c) the adaptive
+   codec policy: 6 rounds, the first 5 warming every client through none,
+   int8, topk, rotq and randk, the sixth the cheapest. (d) two tiers: a
+   root with ``tier_fanout=2`` and two AggregatorServers that join its
+   gate, each fronting 2 clients, 2 rounds; then one aggregator stops and
+   the root, at quorum 0.5, masks its row. Every round's global is held
+   against the CPU's combine of the client replies it used (the flat mean
+   of all 4 for the tiers); K1-K3 are launched 0 times.
+   ``--only faults`` runs the device phase and this one alone.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
@@ -132,7 +149,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from fedtpu_torch import DataConfig, FedConfig, Federation, OptimizerConfig, RoundConfig, models  # noqa: E402
-from fedtpu_torch.config import ScreenConfig, SimConfig  # noqa: E402
+from fedtpu_torch.config import RetryPolicy, ScreenConfig, SimConfig  # noqa: E402
 from fedtpu_torch.core import round as round_lib  # noqa: E402
 from fedtpu_torch.core.round import RoundDraws, init_state  # noqa: E402
 from fedtpu_torch.data import datasets  # noqa: E402
@@ -1828,26 +1845,33 @@ def _one_process_client(agent, replies, lock) -> None:
     t.train_round, t.set_global, t.evaluate = logged, locked(install), locked(evaluate)
 
 
-def _check_fed_round(primary, rec, wall, before, agents, replies, label, card, stats):
+def _check_fed_round(primary, rec, wall, before, agents, replies, label, card, stats, order=None,
+                     receivers=FED_CLIENTS):
     """A committed round, checked: nobody lost, the new global within the
     slices' tolerance of the CPU's combine of the replies the round used
     (decoded against ``before``, the round's global), ``bytes_down`` the
-    payloads' sizes, every client's installed model the primary's."""
+    payloads' sizes, every client's installed model the primary's. A root's
+    round names the clients behind its partials (``order``), may have
+    lost an aggregator, and broadcasts to ``receivers`` aggregators."""
     lay = primary.layout
     r = rec["round"]
-    if rec.get("aborted") or not all(rec["alive"]):
+    if rec.get("aborted") or (order is None and not all(rec["alive"])):
         raise RuntimeError(f"federation {label}: round {r} aborted or lost a client: {rec}")
     got = _leaves_row(primary._host_model())
     if not np.isfinite(got).all():
         raise RuntimeError(f"federation {label}: non-finite global model")
-    order = [c for c in primary.registry.clients if c in replies.get(r, {})]
-    if len(order) != rec["participants"]:
-        raise RuntimeError(f"federation {label}: {len(order)} replies logged, {rec['participants']} used")
+    used = rec["participants"]
+    if order is None:
+        order = [c for c in primary.registry.clients if c in replies.get(r, {})]
+    else:
+        used = rec["clients_aggregated"]
+    if len(order) != used or any(c not in replies.get(r, {}) for c in order):
+        raise RuntimeError(f"federation {label}: {len(order)} replies logged, {used} used")
     want = _cpu_combine(primary.cfg, lay, before, replies[r], order, rec["pipeline"], r)
     bad = _beyond(got, want)
     if bad > 0.001 * want.size:
         raise RuntimeError(f"federation {label}: round {r}: {bad} of {want.size} coordinates differ from the CPU")
-    expect = len(primary.model_bytes()) * FED_CLIENTS
+    expect = len(primary.model_bytes()) * receivers
     if primary.backup_stub is not None:
         expect += len(primary.replica_bytes())
     if rec["bytes_down"] != expect:
@@ -1863,12 +1887,12 @@ def _check_fed_round(primary, rec, wall, before, agents, replies, label, card, s
     stats.append(out)
 
 
-def _fed_round(primary, agents, replies, label, card, stats):
+def _fed_round(primary, agents, replies, label, card, stats, **check):
     before = primary._host_model()
     t0 = time.perf_counter()
     rec = primary.round()
     wall = time.perf_counter() - t0
-    _check_fed_round(primary, rec, wall, before, agents, replies, label, card, stats)
+    _check_fed_round(primary, rec, wall, before, agents, replies, label, card, stats, **check)
     return rec
 
 
@@ -2016,6 +2040,235 @@ def federation_phase(data, card):
     return counts
 
 
+# -------------------------------------------------------------- 11. faults
+
+# Phase 11's schedules: the primary's (seeded StartTrain errors and
+# corruptions, SendModel delays), one client server's, and the attacker's.
+FAULTS_PRIMARY_SPEC = (
+    "error@StartTrain:p=0.3,consec=1;corrupt@StartTrain:p=0.25,consec=1;"
+    "delay@SendModel:p=0.2,delay=0.2,seed=7"
+)
+FAULTS_CLIENT_SPEC = "error@SendModel:p=0.3,consec=1"
+FAULTS_ATTACK_SPEC = "sign_flip@Attack:p=1"
+# Two StartTrain rules of consec=1 can fail three attempts in a row.
+FAULTS_RETRY = dict(max_attempts=4)
+FAULTS_CHAOS_ROUNDS = 3
+FAULTS_TIER_FANOUT = 2
+
+
+def _faults_cfg(**fed_kw) -> RoundConfig:
+    cfg = _fed_cfg("flat", "int8", "stream")
+    return dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed, retry=RetryPolicy(**FAULTS_RETRY), **fed_kw))
+
+
+def _spy_attacker(t, seen, lock) -> None:
+    """Keep, per lineage round, what the attacker held before its first
+    try (the installed global and its residual) and after its last."""
+    train = t.train_round
+
+    def spied(rank, world, coord_round=-1, codec_override=None):
+        first = seen.setdefault(coord_round, {})
+        if "start" not in first:
+            with lock:
+                first["start"] = _leaves_row(t.host_model())
+            first["residual"] = None if t.edge_residual is None else _leaves_row(t.edge_residual)
+        out = train(rank, world, coord_round=coord_round, codec_override=codec_override)
+        with lock:
+            first.update(after=_leaves_row(t.host_model()), left=t.edge_residual, reply=out)
+        return out
+
+    t.train_round = spied
+
+
+def _check_attacker(t, seen, r, label) -> float:
+    """The attacker's round-``r`` reply: its int8 row is the negation of
+    its honest delta (its own state after the round minus the start),
+    formed as fedtpu forms it (start + (-delta) - start, in f32), plus the
+    residual carried in, within int8's half step; returns the cosine of
+    the decoded row with the honest delta."""
+    got = seen[r]
+    honest = got["after"] - got["start"]
+    x = (got["start"] + np.float32(-1.0) * honest) - got["start"]
+    if got["residual"] is not None:
+        x = x + got["residual"]
+    decoded = np.zeros(t.layout.padded, np.float32)
+    sparse.decode_into_row(got["reply"], t.layout.sizes, decoded)
+    decoded = decoded[: t.layout.total]
+    _check_reply(label, t, got["reply"], decoded, x, got["left"])
+    cos = float(np.dot(decoded.astype(np.float64), honest) /
+                (np.linalg.norm(decoded) * np.linalg.norm(honest) + 1e-30))
+    if not cos < -0.9:
+        raise RuntimeError(f"faults {label}: the attacker's row is not the negated delta (cos {cos:.4f})")
+    return cos
+
+
+def faults_phase(data, card):
+    """The coordinator's fault injection, membership gate, adaptive codec
+    policy and two tiers on the card over localhost gRPC, as the module
+    docstring's phase 11 says. Returns the launch counts (all 0)."""
+    from fedtpu_torch.ft import parse_chaos_spec
+    from fedtpu_torch.transport.aggregator import serve_aggregator
+    from fedtpu_torch.transport import proto
+    from fedtpu_torch.transport.codec_policy import DEFAULT_CANDIDATES
+    from fedtpu_torch.transport.federation import BackupServer, PrimaryServer, serve_client
+    from fedtpu_torch.transport.service import TrainerStub, announce_join, announce_leave, create_channel
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    n = FED_CLIENTS * STEPS * BATCH
+    data, eval_data = (data[0][:n], data[1][:n]), (data[0][:FED_EVAL], data[1][:FED_EVAL])
+    cfg = _faults_cfg()
+    stats, replies, seen = [], {}, {}
+    client_lock = threading.Lock()
+    servers, agents = [], []
+    chaos = parse_chaos_spec(FAULTS_PRIMARY_SPEC)
+    client_chaos = parse_chaos_spec(FAULTS_CLIENT_SPEC)
+    backup_addr = f"localhost:{_free_port()}"
+    backup = BackupServer(cfg, [], watchdog_timeout=3600.0)
+    backup_server = backup.start(backup_addr)
+    closers = [lambda: backup_server.stop(0), backup.watchdog.stop]
+    try:
+        # ---- (a) chaos
+        t0 = time.perf_counter()
+        for k in range(FED_CLIENTS):
+            sched = {1: client_chaos, FED_CLIENTS - 1: parse_chaos_spec(FAULTS_ATTACK_SPEC)}.get(k)
+            server, agent = serve_client(f"localhost:{_free_port()}", cfg, seed=k, data=data,
+                                         eval_data=eval_data, chaos=sched)
+            servers.append(server)
+            agents.append(agent)
+        addrs = [a.trainer.identity for a in agents]
+        for a in agents:
+            _one_process_client(a, replies, client_lock)
+        attacker = agents[-1].trainer
+        _spy_attacker(attacker, seen, client_lock)
+        primary = PrimaryServer(cfg, addrs, backup_address=backup_addr, chaos=chaos)
+        cosines = []
+        for _ in range(FAULTS_CHAOS_ROUNDS):
+            rec = _fed_round(primary, agents, replies, "chaos", card, stats)
+            if rec["participants"] != FED_CLIENTS:
+                raise RuntimeError(f"faults chaos: a fault cost a client its round: {rec}")
+            if rec["round"] > 0:  # round 0's replies are dense: the clients were not synced
+                cosines.append(_check_attacker(attacker, seen, rec["round"], f"attacker round {rec['round']}"))
+        errors, corrupts = chaos._fired[0], chaos._fired[1]
+        retried = primary.counters.value("fedtpu_rpc_retries_total", rpc="StartTrain")
+        if retried != errors + corrupts or chaos.injected_total() == 0:
+            raise RuntimeError(f"faults chaos: {retried} StartTrain retries for {errors} errors "
+                               f"and {corrupts} corruptions")
+        sent_retried = primary.counters.value("fedtpu_rpc_retries_total", rpc="SendModel")
+        if sent_retried != client_chaos.injected_total():
+            raise RuntimeError(f"faults chaos: {sent_retried} SendModel retries for "
+                               f"{client_chaos.injected_total()} client-side errors")
+        log("faults chaos: " + json.dumps({
+            "rounds": FAULTS_CHAOS_ROUNDS, "injected": chaos.injected_total(), "start_train_errors": errors,
+            "corrupt_replies": corrupts, "start_train_retries": retried,
+            "send_model_delays": chaos._fired[2], "client_send_model_errors": client_chaos.injected_total(),
+            "send_model_retries": sent_retried, "attacker_cosines": cosines,
+            "seconds": time.perf_counter() - t0, "card": card}))
+
+        # ---- (b) the membership gate
+        t0 = time.perf_counter()
+        gate = f"localhost:{_free_port()}"
+        primary.start_gate(gate)
+        closers.append(primary.stop_gate)
+        server, joiner = serve_client(f"localhost:{_free_port()}", cfg, seed=FED_CLIENTS, data=data,
+                                      eval_data=eval_data)
+        servers.append(server)
+        _one_process_client(joiner, replies, client_lock)
+        version = primary.registry.version
+        stub = announce_join(gate, joiner.trainer.identity, timeout_s=60.0)
+        if stub is None or not primary.registry.is_alive(joiner.trainer.identity) or not joiner.trainer.synced:
+            raise RuntimeError("faults gate: the joiner was not admitted and resynced")
+        if primary.registry.version != version + 1 or primary.registry.seat_of(joiner.trainer.identity) != FED_CLIENTS:
+            raise RuntimeError(f"faults gate: version {primary.registry.version}, seat "
+                               f"{primary.registry.seat_of(joiner.trainer.identity)}")
+        rec = _fed_round(primary, agents + [joiner], replies, "gate join", card, stats,
+                         receivers=FED_CLIENTS + 1)
+        if rec["participants"] != FED_CLIENTS + 1 or rec["world"] != FED_CLIENTS + 1:
+            raise RuntimeError(f"faults gate: the joiner did not train the next round: {rec}")
+        if not announce_leave(stub, joiner.trainer.identity) or primary.registry.version != version + 2:
+            raise RuntimeError("faults gate: the Leave did not evict the joiner")
+        rec = _fed_round(primary, agents, replies, "gate leave", card, stats)
+        if rec["participants"] != FED_CLIENTS:
+            raise RuntimeError(f"faults gate: {rec['participants']} participants after the leave")
+        bstub = TrainerStub(create_channel(backup_addr))
+        reply = bstub.Join(proto.JoinRequest(address=b"localhost:1"), timeout=30)
+        if (reply.admitted, reply.message) != (0, b"not primary"):
+            raise RuntimeError(f"faults gate: the backup answered Join {reply}")
+        primary.stop_gate()
+        log("faults gate: " + json.dumps({
+            "versions": [version, version + 1, version + 2], "joiner_seat": FED_CLIENTS,
+            "backup_join": reply.message.decode(), "seconds": time.perf_counter() - t0, "card": card}))
+
+        # ---- (c) the adaptive codec policy
+        t0 = time.perf_counter()
+        adaptive = PrimaryServer(_faults_cfg(codec_policy="adaptive"), addrs, initial_model=primary.replica_bytes())
+        chosen = []
+        for r in range(len(DEFAULT_CANDIDATES) + 1):
+            costs = adaptive._codec_policy.snapshot()
+            want = [adaptive._codec_policy.choose(adaptive.registry.seat_of(c)) for c in addrs]
+            rec = _fed_round(adaptive, agents, replies, "adaptive", card, stats)
+            used = sorted(rec["bytes_up_by_codec"])
+            chosen.append(want)
+            if r < len(DEFAULT_CANDIDATES):
+                if want != [DEFAULT_CANDIDATES[r]] * FED_CLIENTS or used != [DEFAULT_CANDIDATES[r]]:
+                    raise RuntimeError(f"faults adaptive: warmup round {r} asked {want}, used {used}")
+            elif sorted(set(want)) != used:
+                raise RuntimeError(f"faults adaptive: round {r} asked {want}, used {used}")
+        seen_codecs = sorted(adaptive._codec_bytes_up)
+        if seen_codecs != sorted(DEFAULT_CANDIDATES):
+            raise RuntimeError(f"faults adaptive: bytes_up_by_codec saw {seen_codecs}")
+        log("faults adaptive: " + json.dumps({
+            "chosen": chosen, "costs_before_last": costs, "codec_bytes_up": adaptive._codec_bytes_up,
+            "seconds": time.perf_counter() - t0, "card": card}))
+
+        # ---- (d) two tiers
+        t0 = time.perf_counter()
+        tier_cfg = _faults_cfg(tier_fanout=FAULTS_TIER_FANOUT, round_quorum=0.5)
+        # The lineage goes on without the flat roster: the aggregators take
+        # seats 0 and 1, so the root's world is 2 x 2 (ranks 0-3, 768
+        # examples each, as in (a)-(c)).
+        root = PrimaryServer(tier_cfg, [])
+        state = adaptive.state_tree()
+        del state["membership"]
+        root.install_state(state)
+        gate = f"localhost:{_free_port()}"
+        root.start_gate(gate)
+        closers.append(root.stop_gate)
+        aggs = []
+        for j in range(2):
+            cohort = addrs[j * FAULTS_TIER_FANOUT:(j + 1) * FAULTS_TIER_FANOUT]
+            aggs.append(serve_aggregator(f"localhost:{_free_port()}", tier_cfg, clients=cohort, parent=gate))
+            closers += [lambda s=aggs[-1][0]: s.stop(0), aggs[-1][1].monitor.stop]
+        if root.registry.clients != [a.identity for _, a in aggs]:
+            raise RuntimeError(f"faults tiers: the root's roster is {root.registry.clients}")
+        partials = []
+        for _ in range(2):
+            rec = _fed_round(root, agents, replies, "tiers", card, stats, order=addrs, receivers=2)
+            partials.append({a.identity: a._last_partial for _, a in aggs})
+            if rec["participants"] != 2 or rec["clients_aggregated"] != FED_CLIENTS or rec["world"] != FED_CLIENTS:
+                raise RuntimeError(f"faults tiers: {rec}")
+        aggs[1][0].stop(0)
+        rec = _fed_round(root, agents[:FAULTS_TIER_FANOUT], replies, "tiers, one aggregator stopped", card, stats,
+                         order=addrs[:FAULTS_TIER_FANOUT], receivers=1)
+        if rec["participants"] != 1 or rec["alive"] != [True, False]:
+            raise RuntimeError(f"faults tiers: the stopped aggregator's row was not masked: {rec}")
+        partials.append({aggs[0][1].identity: aggs[0][1]._last_partial})
+        log("faults tiers: " + json.dumps({
+            "partials": partials, "root_buffer_bytes": rec["buffer_bytes"],
+            "seconds": time.perf_counter() - t0, "card": card}))
+    finally:
+        for close in reversed(closers):
+            close()
+        for s in servers:
+            s.stop(0)
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"faults: K1-K3 launched on the coordinator's path: {counts}")
+    log("faults: " + json.dumps({"rounds": len(stats), "seconds": time.perf_counter() - t_phase,
+                                 "launches": counts, "card": card}))
+    return counts
+
+
 # --------------------------------------------------------------- main
 
 
@@ -2028,7 +2281,7 @@ def main(argv=None) -> int:
         "and flat rotq; write the tables to DIR",
     )
     ap.add_argument(
-        "--only", choices=["federation"],
+        "--only", choices=["federation", "faults"],
         help="run the device phase and this phase alone, and print no result line",
     )
     args = ap.parse_args(argv)
@@ -2036,7 +2289,7 @@ def main(argv=None) -> int:
     smi, name, peaks = device_phase()
     if args.only:
         data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
-        federation_phase(data, smi)
+        {"federation": federation_phase, "faults": faults_phase}[args.only](data, smi)
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     build_phase()
@@ -2080,6 +2333,7 @@ def main(argv=None) -> int:
     edge_reference_phase()
     edge_phase(data, smi)
     federation_phase(data, smi)
+    faults_phase(data, smi)
     for kname in kernels.KERNELS:
         for path, counts in paths.items():
             if counts[kname] == 0:

@@ -239,8 +239,7 @@ class FedConfig:
     retry: RetryPolicy = dataclasses.field(default_factory=RetryPolicy)
     # N > 0: the root of a two-tier topology whose seats front cohorts of N
     tier_fanout: int = 0
-    # static | adaptive (a per-client codec learned from bytes x RTT); the
-    # coordinator runs static only
+    # static | adaptive (a per-client codec learned from bytes x RTT)
     codec_policy: str = "static"
     # The coordinator's fault tolerance (fedtpu's names and defaults): the
     # fraction of the round's sampled clients that must reply for the
@@ -471,9 +470,11 @@ def validate_tier_config(fed: FedConfig, face: str) -> None:
 
 def validate_coordinator(cfg: RoundConfig) -> RoundConfig:
     """:func:`validate_edge`, and the coordinator's own fields, with
-    fedtpu's ``PrimaryServer`` messages: the round quorum, the codec
-    policy, whose ``adaptive`` the port does not run yet, and the tier
-    fan-out, which it does not run yet either."""
+    fedtpu's ``PrimaryServer`` messages: the round quorum, and the codec
+    policy, whose ``adaptive`` may pick any lossy codec a round, so it
+    needs what a static lossy codec needs and the flat layout its sketch
+    codecs exist in. The tier fan-out is checked by :func:`validate_edge`
+    (fedtpu's ``validate_tier_config``)."""
     validate_edge(cfg)
     fed = cfg.fed
     if not 0.0 <= fed.round_quorum <= 1.0:
@@ -483,15 +484,18 @@ def validate_coordinator(cfg: RoundConfig) -> RoundConfig:
             f"unknown codec_policy {fed.codec_policy!r}; have static | adaptive"
         )
     if fed.codec_policy == "adaptive":
-        raise not_ported(
-            "codec_policy='adaptive' (fedtpu/transport/codec_policy.py)",
-            "slice 6, part 2, item 5",
-        )
-    if fed.tier_fanout:
-        raise not_ported(
-            "tier_fanout > 0, the root of a two-tier topology "
-            "(fedtpu/transport/aggregator.py)", "slice 6, part 2, item 4",
-        )
+        if fed.delta_layout != "flat":
+            raise ValueError(
+                "codec_policy='adaptive' requires delta_layout='flat': "
+                "the sketch codecs it selects among (rotq/randk) only "
+                "exist as flat records"
+            )
+        if fed.aggregator != "mean" or fed.dp_clip_norm > 0:
+            raise ValueError(
+                "codec_policy='adaptive' can select lossy codecs, so it "
+                "needs aggregator='mean' and no DP clipping (the same "
+                "constraints as a static lossy codec)"
+            )
     return cfg
 
 

@@ -1,11 +1,15 @@
 """The distributed federation over the gRPC edge: the coordinator (a
-primary and its backup) and the client agent it drives.
+primary and its backup), its membership gate, and the client agent it
+drives.
 
 The port of ``fedtpu.transport.federation``'s ``PrimaryServer``,
-``BackupServer``, ``ClientAgent`` and ``serve_client``. The topology is
-fedtpu's: a primary dials out to client agents, each hosting a Trainer
-gRPC server, and replicates its state to a backup that takes over when the
-primary goes silent.
+``BackupServer``, ``_MembershipGate``, ``ClientAgent`` and
+``serve_client``. The topology is fedtpu's: a primary dials out to client
+agents, each hosting a Trainer gRPC server, and replicates its state to a
+backup that takes over when the primary goes silent. With ``tier_fanout``
+the primary is the root of two tiers and dials out to
+aggregators (:class:`~fedtpu_torch.transport.aggregator.AggregatorServer`)
+instead.
 
 - :class:`PrimaryServer` runs synchronous rounds: the initial sync, the
   StartTrain fan-out with retries, the collect (``barrier``: decoded rows
@@ -16,10 +20,17 @@ primary goes silent.
   then the broadcast. A heartbeat monitor revives and resyncs dead clients;
   fencing epochs keep a superseded coordinator from forking the lineage.
   It drives fedtpu clients and the port's alike, with fedtpu's payloads
-  byte for byte (``model_bytes``, ``replica_bytes``).
+  byte for byte (``model_bytes``, ``replica_bytes``). ``codec_policy=
+  "adaptive"`` asks each client for the codec that is cheapest on its link
+  (:mod:`~fedtpu_torch.transport.codec_policy`); as a root it pulls one
+  pre-weighted partial sum an aggregator (SubmitPartial) and divides once.
+  :meth:`PrimaryServer.start_gate` serves Join and Leave, which admit and
+  resync, or evict, a member.
 - :class:`BackupServer` absorbs the replica, answers the primary's pings,
   promotes to acting primary on its watchdog, and is demoted by the
-  recovering primary's ping, which then fetches its state.
+  recovering primary's ping, which then fetches its state. While acting,
+  Join and Leave land in the acting primary's roster; otherwise Join
+  answers ``admitted=0``, ``"not primary"``.
 - :class:`ClientAgent` / :func:`serve_client`: a client's servicer around
   :class:`~fedtpu_torch.transport.trainer.LocalTrainer`. StartTrain trains
   one round and replies with its payload, SendModel installs the global
@@ -36,15 +47,17 @@ pipelines combine the same ``[k, P]`` rows, bit for bit. The global model
 is replaced each round, never written in place, so the heartbeat's resync
 can read it while a round aggregates.
 
+A chaos schedule (``chaos=``, :mod:`fedtpu_torch.ft.chaos`) arms the
+fault-injection interceptors on every channel a coordinator dials and on
+every server it or a client hosts, and seeds the retries' jitter; its
+attack rules make a client an attacker.
+
 The round record is API whatever ``telemetry`` says (``off`` or
 ``basic``); the port exports no metrics registry, spans or flight
 recorder. Not ported yet, and raising ``NotImplementedError``:
-``tier_fanout > 0`` and ``codec_policy="adaptive"`` (ROADMAP.md slice 6,
-part 2, items 4 and 5); fault injection (``chaos=``) and the membership
-gate (``start_gate``, the Join and Leave RPCs; item 3; ``admit_client`` and
-``remove_client`` are library calls); ``run_async``,
-``restore_from_checkpoint``, ``flight=`` and ``telemetry="trace"`` (slice
-8). The trace context a coordinator may attach as metadata is not read.
+``run_async``, ``restore_from_checkpoint``, ``flight=`` and
+``telemetry="trace"`` (slice 8). The trace context a coordinator may
+attach as metadata is not read.
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ import json
 import logging
 import math
 import os
+import random
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -69,6 +83,7 @@ from fedtpu_torch.config import (
     screening_enabled,
     validate_coordinator,
     validate_screen_config,
+    validate_tier_config,
 )
 from fedtpu_torch.convert import from_flax, to_flax
 from fedtpu_torch.core import server_opt
@@ -85,6 +100,7 @@ from fedtpu_torch.ft import (
 )
 from fedtpu_torch.ops import flat as flat_ops
 from fedtpu_torch.transport import aggregation, msgpack, proto, sparse, wire
+from fedtpu_torch.transport.codec_policy import AdaptiveCodecPolicy
 from fedtpu_torch.transport.retry import call_with_retry, is_stale_coordinator
 from fedtpu_torch.transport.service import (
     TrainerServicer,
@@ -94,7 +110,7 @@ from fedtpu_torch.transport.service import (
     probe,
 )
 from fedtpu_torch.transport.trainer import LocalTrainer
-from fedtpu_torch.utils.observe import Counter, latency_summary
+from fedtpu_torch.utils.observe import Counter, CounterTable, latency_summary, process_rss_bytes
 
 __all__ = ["BackupServer", "ClientAgent", "LocalTrainer", "PrimaryServer", "serve_client"]
 
@@ -190,12 +206,9 @@ class PrimaryServer:
         start from (fedtpu's ``model_bytes()`` or ``replica_bytes()`` give
         the same start in both packages); without one the model is drawn
         from ``seed`` by torch. ``device``: where the coordinator's tensors
-        live, CUDA unless named."""
-        if chaos is not None:
-            raise not_ported(
-                "PrimaryServer(chaos=...), fault injection (fedtpu/ft/chaos.py)",
-                "slice 6, part 2, item 3",
-            )
+        live, CUDA unless named. ``chaos``: a :class:`fedtpu_torch.ft.chaos.
+        FaultSchedule` whose interceptor every channel this server dials
+        carries."""
         if flight is not None:
             raise not_ported("PrimaryServer(flight=...), the flight recorder", "slice 8")
         validate_coordinator(cfg)
@@ -213,15 +226,22 @@ class PrimaryServer:
             "CheckIfPrimaryUp": rp.backup_ping_timeout_s,
         }
         self.rpc_timeout = self._deadlines["SendModel"]
+        self.chaos = chaos
         log.info(
             "transport timings: start_train=%.1fs send_model=%.1fs fetch_model=%.1fs "
             "probe=%.1fs backup_ping=%.1fs heartbeat_period=%.1fs retries=%d "
-            "round_quorum=%.2f",
+            "round_quorum=%.2f chaos=%s",
             self._deadlines["StartTrain"], self._deadlines["SendModel"],
             self._deadlines["FetchModel"], self._deadlines["HeartBeat"],
             self._deadlines["CheckIfPrimaryUp"], cfg.fed.ft_heartbeat_period_s,
             rp.max_attempts, cfg.fed.round_quorum,
+            chaos.describe() if chaos is not None else "off",
         )
+        # Under chaos the retries' jitter draws from a stream seeded by the
+        # schedule, so a run's retry timing replays with its seed.
+        self._retry_rand = random.Random(chaos.seed ^ 0xFE17CE).random if chaos is not None else None
+        # fedtpu_rpc_retries_total{rpc}, counted by the retry helper.
+        self.counters = CounterTable()
         shape, _ = datasets.dataset_info(cfg.data.dataset)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -244,6 +264,11 @@ class PrimaryServer:
                 "DP requires a BatchNorm-free model: batch statistics are "
                 "released unclipped. Pick a model without batch_stats (e.g. mlp)."
             )
+        # The adaptive codec policy: one codec a client a round, sent in
+        # TrainRequest.codec and learned from bytes x RTT.
+        self._codec_policy = AdaptiveCodecPolicy() if cfg.fed.codec_policy == "adaptive" else None
+        # Reply bytes by the codec they used, over every committed round.
+        self._codec_bytes_up: Dict[str, int] = {}
         self._server_opt = server_opt.make_server_optimizer(cfg.fed)
         self._server_opt_state = server_opt.init(self._server_opt, self.global_tree["params"])
         # The lineage's count of aggregations: it seeds DP noise and
@@ -263,8 +288,9 @@ class PrimaryServer:
         self.registry = MembershipTable(clients)
         self._member_lock = threading.Lock()
         self._stubs: Dict[str, TrainerStub] = {c: self._make_stub(c) for c in clients}
+        self._gate_server = None
         self.backup_stub = (
-            TrainerStub(create_channel(backup_address, compress=compress))
+            TrainerStub(create_channel(backup_address, compress=compress, chaos=chaos))
             if backup_address else None
         )
         self.monitor = HeartbeatMonitor(
@@ -276,6 +302,13 @@ class PrimaryServer:
         )
         self.pinger = PrimaryPinger(self._ping_backup) if self.backup_stub else None
         self.server_pipeline = resolve_server_pipeline(cfg.fed)
+        # The root of two tiers: the roster holds aggregators, aggregator
+        # seat j relays the data ranks [j * fanout, (j + 1) * fanout), and
+        # the pull shares StartTrain's deadline (it waits on a cohort).
+        self.tier_fanout = cfg.fed.tier_fanout
+        if self.tier_fanout:
+            validate_tier_config(cfg.fed, "PrimaryServer")
+            self._deadlines["SubmitPartial"] = self._deadlines["StartTrain"]
         self._screen_cfg = None
         if screening_enabled(cfg.fed.screen):
             self._screen_cfg = validate_screen_config(cfg.fed.screen)
@@ -435,7 +468,7 @@ class PrimaryServer:
                 proto.SendModelRequest(model=payload, epoch=self._coord_epoch, role=self._role),
                 timeout=self._deadlines["SendModel"],
             ),
-            peer=peer,
+            peer=peer, telemetry=self.counters, rand=self._retry_rand,
         )
 
     def _resync(self, client: str) -> None:
@@ -487,6 +520,7 @@ class PrimaryServer:
                     proto.PingRequest(req=b"1" if recovering else b"0", epoch=self._coord_epoch),
                     timeout=self._deadlines["CheckIfPrimaryUp"],
                 ),
+                telemetry=self.counters, rand=self._retry_rand,
             )
         except grpc.RpcError as e:
             if is_stale_coordinator(e):
@@ -502,7 +536,8 @@ class PrimaryServer:
                         self._install(fetched.model)
                         log.info("recovered newer global model from backup")
 
-                call_with_retry(self.retry_policy, "FetchModel", fetch)
+                call_with_retry(self.retry_policy, "FetchModel", fetch,
+                                telemetry=self.counters, rand=self._retry_rand)
             except grpc.RpcError:
                 log.warning("backup demoted but FetchModel failed")
             except wire.WireError:
@@ -567,7 +602,7 @@ class PrimaryServer:
 
     # --------------------------------------------------------- membership
     def _make_stub(self, address: str) -> TrainerStub:
-        return TrainerStub(create_channel(address, compress=self.compress))
+        return TrainerStub(create_channel(address, compress=self.compress, chaos=self.chaos))
 
     def _stub(self, client: str) -> Optional[TrainerStub]:
         """The member's stub, or None for an evicted non-member."""
@@ -578,7 +613,8 @@ class PrimaryServer:
         stub = self._stub(client)
         if stub is None:
             return False
-        return probe(stub, timeout=self._deadlines["HeartBeat"], policy=self.retry_policy) is not None
+        return probe(stub, timeout=self._deadlines["HeartBeat"], policy=self.retry_policy,
+                     telemetry=self.counters) is not None
 
     def admit_client(self, address: str) -> dict:
         """Admit (or re-admit) a member: it joins dead and is resynced with
@@ -637,10 +673,55 @@ class PrimaryServer:
                 self.registry.quarantine(c)
 
     def start_gate(self, address: str):
-        raise not_ported(
-            "PrimaryServer.start_gate, the membership gate's Join and Leave RPCs",
-            "slice 6, part 2, item 3",
-        )
+        """Serve the membership gate (Join and Leave) on ``address``, this
+        coordinator's only inbound surface; returns the gRPC server."""
+        self._gate_server = create_server(address, _MembershipGate(self), compress=self.compress,
+                                          chaos=self.chaos)
+        self._gate_server.start()
+        log.info("membership gate serving on %s", address)
+        return self._gate_server
+
+    def stop_gate(self) -> None:
+        if self._gate_server is not None:
+            self._gate_server.stop(0)
+            self._gate_server = None
+
+    def status_snapshot(self) -> dict:
+        """fedtpu's ``/statusz`` feed, the parts the port keeps: liveness,
+        the membership block, the last round's split, fencing, the
+        per-codec byte table and, under the adaptive policy, its costs."""
+        reg = self.registry
+        snap = {
+            "role": "acting" if self._role == 2 else "primary",
+            "pid": os.getpid(),
+            "round": self._round_counter,
+            "clients": {"alive": reg.active_clients(), "dead": reg.dead_clients()},
+            "membership": reg.status(),
+            "mem": {
+                "rss_bytes": process_rss_bytes(),
+                "buffer_bytes": int(self.history[-1].get("buffer_bytes", 0)) if self.history else 0,
+                "tier": "root" if self.tier_fanout else "flat",
+            },
+            "rounds_completed": sum(1 for rec in self.history if not rec.get("aborted")),
+            "rounds_aborted": sum(1 for rec in self.history if rec.get("aborted")),
+            "fencing": {"epoch": self._coord_epoch, "role": "acting" if self._role == 2 else "primary",
+                        "fenced": self._fenced},
+        }
+        if self.history:
+            last = self.history[-1]
+            snap["last_round"] = {
+                k: last[k] for k in (
+                    "participants", "stragglers", "bytes_up", "bytes_down", "bytes_up_by_codec",
+                    "t_collect_s", "t_decode_s", "t_h2d_s", "t_aggregate_s", "t_post_barrier_s",
+                    "t_round_s", "pipeline", "client_latency",
+                ) if k in last
+            }
+        with self._member_lock:
+            if self._codec_bytes_up:
+                snap["codec_bytes_up"] = dict(self._codec_bytes_up)
+        if self._codec_policy is not None:
+            snap["codec_policy"] = self._codec_policy.snapshot()
+        return snap
 
     def run_async(self, *args, **kwargs):
         raise not_ported("PrimaryServer.run_async (FedBuff)", "slice 8")
@@ -686,6 +767,9 @@ class PrimaryServer:
         # One lineage round for every StartTrain of this round, a late
         # retry's included: the client's replay detection reads it.
         lineage_round = self._round_counter
+        if self.chaos is not None:
+            # rounds= windows key on the lineage round.
+            self.chaos.set_round(self._round_counter)
         if not self._did_initial_sync:
             self.sync_clients()
         # The roster of this round: a join or leave mid-round counts from
@@ -702,8 +786,12 @@ class PrimaryServer:
             rng = np.random.default_rng(cfg.data.seed * 7919 + self._round_counter)
             k = max(1, int(round(frac * len(active))))
             active = sorted(rng.choice(np.asarray(active), size=k, replace=False).tolist())
-        # The partition width is the seat capacity, stable under churn.
+        # The partition width is the seat capacity, stable under churn; a
+        # root's spans its aggregators' cohorts.
         world = self.registry.capacity()
+        tiered = self.tier_fanout > 0
+        if tiered:
+            world = world * self.tier_fanout
         global_now = self.global_tree
         cuda = self.device.type == "cuda"
         # The round's global on the host, for dense replies; built once, on
@@ -723,6 +811,8 @@ class PrimaryServer:
         bytes_up = Counter()
         bytes_down = Counter()
         codec_of: Dict[str, tuple] = {}
+        # A root's count of the clients behind the round's partials.
+        clients_in = Counter()
         decode_s = Counter()
         h2d_s = Counter()
         stream = self.server_pipeline == "stream"
@@ -738,14 +828,33 @@ class PrimaryServer:
         stream_lock = threading.Lock()
 
         def train_one(rank: int, client: str, stub: TrainerStub) -> None:
+            # One codec choice a client a round, before the attempt: a retry
+            # asks for the same codec.
+            codec_req = self._codec_policy.choose(rank) if self._codec_policy is not None else None
+
             def attempt():
                 # One attempt includes the decode: a reply failing its CRC
                 # raises WireError and is asked for again.
-                reply = stub.StartTrain(
-                    proto.TrainRequest(rank=rank, world=world, round=lineage_round, epoch=self._coord_epoch),
-                    timeout=self._deadlines["StartTrain"],
-                )
-                data = reply.message
+                if tiered:
+                    # One pulled partial: the aggregator's cohort trains,
+                    # and its pre-weighted sum comes back as one record.
+                    reply = stub.SubmitPartial(
+                        proto.SubmitPartialRequest(
+                            rank_base=rank * self.tier_fanout, world=world,
+                            round=lineage_round, epoch=self._coord_epoch,
+                        ),
+                        timeout=self._deadlines["SubmitPartial"],
+                    )
+                    data = reply.record
+                else:
+                    reply = stub.StartTrain(
+                        proto.TrainRequest(
+                            rank=rank, world=world, round=lineage_round, epoch=self._coord_epoch,
+                            codec=proto.CODEC_IDS.get(codec_req, 0),
+                        ),
+                        timeout=self._deadlines["StartTrain"],
+                    )
+                    data = reply.message
                 i = row_of[client]
                 done = copied.get(i)
                 if done is not None:
@@ -772,22 +881,39 @@ class PrimaryServer:
                                 ev.record()
                                 copied[i] = ev
                     h2d_s.inc(time.monotonic() - t1)
+                if tiered:
+                    clients_in.inc(reply.clients)
                 bytes_up.inc(len(data))
                 codec_of[client] = (_CODEC_OF_KIND.get(kind, "none"), len(data))
-                return i, float(extra["num_examples"])
+                # A root's combine weight is the partial's weight sum.
+                return i, float(extra["weight_sum" if tiered else "num_examples"])
 
+            rpc_name = "SubmitPartial" if tiered else "StartTrain"
             try:
                 t_rpc = time.monotonic()
-                results[client] = call_with_retry(self.retry_policy, "StartTrain", attempt, peer=client)
+                results[client] = call_with_retry(
+                    self.retry_policy, rpc_name, attempt, peer=client,
+                    telemetry=self.counters, rand=self._retry_rand,
+                )
                 latencies[client] = time.monotonic() - t_rpc
+                if self._codec_policy is not None and client in codec_of:
+                    # Taught with the codec the reply used.
+                    used, nbytes = codec_of[client]
+                    self._codec_policy.observe(rank, used, nbytes, latencies[client])
             except (grpc.RpcError, wire.WireError) as e:
                 if is_stale_coordinator(e):
-                    self._handle_stale("StartTrain", client, e)
+                    # An aggregator relays its cohort's rejection on the
+                    # same typed status: the fence whichever tier saw it.
+                    self._handle_stale(rpc_name, client, e)
                     return
+                # A fatal status or an exhausted budget; an aggregator's
+                # SUB_QUORUM and UNSYNCED_AGGREGATOR are fatal, and its row
+                # is masked like a failed client's.
+                kind_of = "aggregator" if tiered else "client"
                 if isinstance(e, grpc.RpcError):
-                    log.warning("client %s failed during StartTrain: %s %s", client, e.code(), e.details())
+                    log.warning("%s %s failed during %s: %s %s", kind_of, client, rpc_name, e.code(), e.details())
                 else:
-                    log.warning("client %s StartTrain reply still corrupt after retries: %s", client, e)
+                    log.warning("%s %s %s reply still corrupt after retries: %s", kind_of, client, rpc_name, e)
                 self.registry.mark_failed(client)
 
         # A straggler whose earlier StartTrain is still running sits out.
@@ -906,12 +1032,19 @@ class PrimaryServer:
             order = [c for c in order if c not in dropped]
 
         if order:
-            if cfg.fed.weighted:
+            if cfg.fed.weighted or tiered:
+                # A root's weights are the partials' weight sums, the
+                # configured weighting already applied below it.
                 weights = torch.tensor([completed[c][1] for c in order], dtype=torch.float32)
             else:
                 weights = torch.ones((len(order),), dtype=torch.float32)
             weights = weights.to(self.device)
-            if stream:
+            if tiered:
+                # Pre-weighted sums: summed, then divided once.
+                new_global, self._server_opt_state = aggregation.finalize_partial(
+                    cfg, lay, global_now, rows, weights, self._server_opt_state, server=self._server_opt
+                )
+            elif stream:
                 new_global, self._server_opt_state = aggregation.finalize_stream(
                     cfg, lay, global_now, rows, weights, self._server_opt_state, server=self._server_opt
                 )
@@ -1010,6 +1143,9 @@ class PrimaryServer:
             "t_post_barrier_s": round(t_done - t_barrier, 6),
             "t_round_s": round(t_done - t_launch, 6),
         }
+        if tiered:
+            rec["tier_fanout"] = self.tier_fanout
+            rec["clients_aggregated"] = int(clients_in.value)
         lat = latency_summary([(c, latencies[c]) for c in completed if c in latencies])
         if lat:
             rec["client_latency"] = lat
@@ -1018,6 +1154,9 @@ class PrimaryServer:
         if self._screen_cfg is not None:
             rec["screened"] = screened_names
             rec["quarantined"] = sorted(self.registry.quarantined_clients())
+        with self._member_lock:
+            for codec_name, nb in rec["bytes_up_by_codec"].items():
+                self._codec_bytes_up[codec_name] = self._codec_bytes_up.get(codec_name, 0) + nb
         self.history.append(rec)
         return rec
 
@@ -1075,6 +1214,34 @@ class PrimaryServer:
         return self.history
 
 
+# ----------------------------------------------------------------------- gate
+class _MembershipGate(TrainerServicer):
+    """The coordinator's inbound membership surface: Join admits the
+    caller's serving address (and resyncs it with the global model), Leave
+    evicts it. Every other RPC stays UNIMPLEMENTED: the gate is not a
+    Trainer."""
+
+    def __init__(self, primary: PrimaryServer):
+        self.primary = primary
+
+    def Join(self, request: proto.JoinRequest, context) -> proto.JoinReply:
+        address = request.address.decode()
+        if not address:
+            return proto.JoinReply(admitted=0, message=b"empty address")
+        out = self.primary.admit_client(address)
+        return proto.JoinReply(
+            admitted=1, seat=out["seat"], world=out["world"], version=out["version"],
+            message=b"resynced" if out["resynced"] else b"pending resync",
+        )
+
+    def Leave(self, request: proto.LeaveRequest, context) -> proto.LeaveReply:
+        out = self.primary.remove_client(request.address.decode(), reason="leave")
+        return proto.LeaveReply(left=1 if out["left"] else 0, version=out["version"])
+
+    def HeartBeat(self, request: proto.Request, context) -> proto.HeartBeatResponse:
+        return proto.HeartBeatResponse(status=1)
+
+
 # --------------------------------------------------------------------- backup
 class BackupServer(TrainerServicer):
     """The backup's servicer and its failover: absorbs the primary's
@@ -1097,12 +1264,8 @@ class BackupServer(TrainerServicer):
     ):
         """``on_acting_round(r, record)``: passed to the acting primary's
         round loop. ``device``: where an acting primary's tensors live,
-        CUDA unless named."""
-        if chaos is not None:
-            raise not_ported(
-                "BackupServer(chaos=...), fault injection (fedtpu/ft/chaos.py)",
-                "slice 6, part 2, item 3",
-            )
+        CUDA unless named. ``chaos`` arms the backup's server and, after a
+        promotion, the acting primary's channels."""
         if flight is not None:
             raise not_ported("BackupServer(flight=...), the flight recorder", "slice 8")
         validate_coordinator(cfg)
@@ -1111,10 +1274,12 @@ class BackupServer(TrainerServicer):
         self.compress = compress
         self.round_deadline_s = round_deadline_s
         self.on_acting_round = on_acting_round
+        self.chaos = chaos
         self.device = resolve_device(device)
         if watchdog_timeout is None:
             watchdog_timeout = cfg.fed.ft_watchdog_timeout_s
-        log.info("backup timings: watchdog=%.1fs", watchdog_timeout)
+        log.info("backup timings: watchdog=%.1fs chaos=%s", watchdog_timeout,
+                 chaos.describe() if chaos is not None else "off")
         self.latest_model: Optional[bytes] = None
         self.acting: Optional[PrimaryServer] = None
         self.machine = FailoverStateMachine(
@@ -1177,16 +1342,20 @@ class BackupServer(TrainerServicer):
         return proto.SendModelRequest(model=self.latest_model or b"")
 
     def Join(self, request: proto.JoinRequest, context) -> proto.JoinReply:
-        context.abort(
-            grpc.StatusCode.UNIMPLEMENTED,
-            str(not_ported("the backup's Join RPC", "slice 6, part 2, item 3")),
-        )
+        """The backup's address is a stable join target: while acting, a
+        join lands in the acting primary's roster (and rides its replica
+        back to the recovered primary); in the backup role it is refused,
+        pointing the joiner at the primary's gate."""
+        acting = self.acting
+        if self.machine.role is Role.ACTING_PRIMARY and acting is not None:
+            return _MembershipGate(acting).Join(request, context)
+        return proto.JoinReply(admitted=0, message=b"not primary")
 
     def Leave(self, request: proto.LeaveRequest, context) -> proto.LeaveReply:
-        context.abort(
-            grpc.StatusCode.UNIMPLEMENTED,
-            str(not_ported("the backup's Leave RPC", "slice 6, part 2, item 3")),
-        )
+        acting = self.acting
+        if self.machine.role is Role.ACTING_PRIMARY and acting is not None:
+            return _MembershipGate(acting).Leave(request, context)
+        return proto.LeaveReply(left=0)
 
     def health(self) -> Tuple[bool, str]:
         """The acting primary's verdict while acting, else ok."""
@@ -1200,7 +1369,8 @@ class BackupServer(TrainerServicer):
         self._stop_acting()
         stop_event = threading.Event()
         self._acting_stop = stop_event
-        kw = dict(compress=self.compress, round_deadline_s=self.round_deadline_s, device=self.device)
+        kw = dict(compress=self.compress, round_deadline_s=self.round_deadline_s, chaos=self.chaos,
+                  device=self.device)
         try:
             acting = PrimaryServer(self.cfg, self.clients, initial_model=self.latest_model, **kw)
         except wire.WireError:
@@ -1244,7 +1414,7 @@ class BackupServer(TrainerServicer):
     def start(self, address: str):
         """Serve the backup on ``address`` and start the watchdog; returns
         the gRPC server."""
-        server = create_server(address, self, compress=self.compress)
+        server = create_server(address, self, compress=self.compress, chaos=self.chaos)
         server.start()
         self.watchdog.start()
         return server
@@ -1341,16 +1511,15 @@ def serve_client(
 ):
     """Build and start a client agent's server on ``address``; returns
     ``(server, agent)``. The client trains on the card unless ``device``
-    names another; ``data`` / ``eval_data`` as in :class:`LocalTrainer`."""
-    if chaos is not None:
-        raise not_ported(
-            "serve_client(chaos=...), fault injection and seeded attackers "
-            "(fedtpu/ft/chaos.py)", "slice 6, part 2: the server side",
-        )
+    names another; ``data`` / ``eval_data`` as in :class:`LocalTrainer`.
+    ``chaos`` (a :class:`fedtpu_torch.ft.chaos.FaultSchedule`) arms fault
+    injection on the agent's inbound RPCs, and its attack rules make the
+    client an attacker."""
     agent = ClientAgent(
         cfg, seed=seed, state_dir=state_dir, device=device, data=data, eval_data=eval_data
     )
     agent.trainer.identity = address
-    server = create_server(address, agent, compress=compress)
+    agent.trainer.chaos = chaos
+    server = create_server(address, agent, compress=compress, chaos=chaos)
     server.start()
     return server, agent

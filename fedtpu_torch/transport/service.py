@@ -6,13 +6,17 @@ fedtpu's additive ones (FetchModel, Join, Leave, SubmitPartial) on the
 method paths protoc would generate (``/federated.Trainer/<Method>``), built
 from generic handlers and the hand-rolled codec of
 :mod:`fedtpu_torch.transport.proto`; 1 GiB message caps on channels and
-servers, and optional transport gzip. The interceptors of fedtpu's trace
-propagation and fault injection are not ported yet: asking for them
-raises.
+servers, and optional transport gzip; fedtpu's fault-injection
+interceptors (:mod:`fedtpu_torch.ft.chaos`) on a channel and a server;
+and the client's half of dynamic membership (:func:`announce_join`,
+:func:`announce_leave`). fedtpu's trace-propagation interceptor is not
+ported yet: asking for it raises.
 """
 
 from __future__ import annotations
 
+import logging
+import time
 from concurrent import futures
 from typing import Optional
 
@@ -20,6 +24,8 @@ import grpc
 
 from fedtpu_torch.config import not_ported
 from fedtpu_torch.transport import proto
+
+log = logging.getLogger("fedtpu_torch.service")
 
 SERVICE_NAME = "federated.Trainer"
 MAX_MESSAGE_BYTES = 1024 * 1024 * 1024  # 1 GiB, reference: src/server.py:42-45
@@ -136,14 +142,19 @@ def add_trainer_servicer(servicer: TrainerServicer, server: grpc.Server) -> None
 
 def create_channel(address: str, compress: bool = False,
                    trace_source=None, chaos=None) -> grpc.Channel:
-    """Insecure channel with 1 GiB caps and optional gzip.
-    ``trace_source`` (trace propagation) and ``chaos`` (fault injection)
-    are not ported yet and raise."""
-    _refuse_interceptors(trace_source, chaos)
+    """Insecure channel with 1 GiB caps and optional gzip. ``chaos`` (a
+    :class:`fedtpu_torch.ft.chaos.FaultSchedule`) wraps it in the
+    fault-injection interceptor keyed to this peer. ``trace_source``
+    (trace propagation) is not ported yet and raises."""
+    if trace_source is not None:
+        raise not_ported("trace propagation over gRPC (trace_source=)", "slice 8")
     kwargs = {}
     if compress:
         kwargs["compression"] = grpc.Compression.Gzip
-    return grpc.insecure_channel(address, options=_CHANNEL_OPTIONS, **kwargs)
+    channel = grpc.insecure_channel(address, options=_CHANNEL_OPTIONS, **kwargs)
+    if chaos is not None:
+        channel = grpc.intercept_channel(channel, chaos.client_interceptor(address))
+    return channel
 
 
 def create_server(
@@ -154,12 +165,13 @@ def create_server(
     chaos=None,
 ) -> grpc.Server:
     """Build (not start) a server hosting ``servicer`` on ``address``: 10
-    workers, 1 GiB caps, optional gzip, an insecure port. ``chaos`` is not
-    ported yet and raises."""
-    _refuse_interceptors(None, chaos)
+    workers, 1 GiB caps, optional gzip, an insecure port. ``chaos`` arms
+    the fault-injection interceptor on every inbound call."""
     kwargs = {}
     if compress:
         kwargs["compression"] = grpc.Compression.Gzip
+    if chaos is not None:
+        kwargs["interceptors"] = (chaos.server_interceptor(),)
     server = grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers),
         options=_CHANNEL_OPTIONS,
@@ -170,13 +182,43 @@ def create_server(
     return server
 
 
-def _refuse_interceptors(trace_source, chaos) -> None:
-    if trace_source is not None:
-        raise not_ported("trace propagation over gRPC (trace_source=)", "slice 8")
-    if chaos is not None:
-        raise not_ported(
-            "fault injection (chaos=, fedtpu/ft/chaos.py)", "slice 6, part 2: the server side"
-        )
+def announce_join(
+    gate_address: str, my_address: str, timeout_s: float = 60.0, poll_s: float = 0.5,
+) -> Optional[TrainerStub]:
+    """The client's half of dynamic membership: announce ``my_address``
+    (the address this client serves on, its member identity) to a
+    coordinator's membership gate, retrying at ``poll_s`` until admitted
+    or ``timeout_s`` passes; a refusal and an unreachable gate both wait
+    (the gate may come up after the client). Returns the gate's stub, for
+    :func:`announce_leave`, on admission; None on timeout."""
+    stub = TrainerStub(create_channel(gate_address))
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            reply = stub.Join(proto.JoinRequest(address=my_address.encode()), timeout=5.0)
+            if reply.admitted:
+                log.info(
+                    "admitted by gate %s: seat=%d world=%d membership v%d (%s)",
+                    gate_address, reply.seat, reply.world, reply.version,
+                    reply.message.decode(errors="replace"),
+                )
+                return stub
+        except grpc.RpcError as exc:
+            log.info("gate %s not ready (%s); retrying", gate_address, exc.code())
+        time.sleep(poll_s)
+    return None
+
+
+def announce_leave(stub: TrainerStub, my_address: str) -> bool:
+    """A graceful departure: one Leave on an :func:`announce_join` gate
+    stub; False when the gate is unreachable (the heartbeat then treats us
+    as a silent leaver)."""
+    try:
+        reply = stub.Leave(proto.LeaveRequest(address=my_address.encode()), timeout=5.0)
+        return bool(reply.left)
+    except grpc.RpcError as exc:
+        log.warning("Leave failed (%s); departing silently", exc.code())
+        return False
 
 
 def probe(

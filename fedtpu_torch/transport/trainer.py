@@ -14,6 +14,13 @@ a fedtpu client would send for the same state:
   FSP1 record, with error feedback carried in a residual between rounds
   and flushed into the weights when the codec switches to ``none``.
 
+A chaos schedule (:mod:`fedtpu_torch.ft.chaos`) set on :attr:`LocalTrainer.
+chaos` makes the client an attacker: once a round its attack rules are
+consulted, keyed on ``identity`` and the local round. ``label_flip``
+shifts the round's labels; ``sign_flip``, ``scale`` and ``noise`` poison
+the update it sends, on the host and in fedtpu's arithmetic, while its own
+state stays the honest one.
+
 Training is the port's vmapped local update (:mod:`fedtpu_torch.core.
 client`) with one client, on this client's shard of the deterministic
 ``world``-way partition, at fedtpu's learning rate for the round. The delta
@@ -120,6 +127,8 @@ class LocalTrainer:
         # the next round's delta (a flax-layout tree on the host).
         self.edge_residual = None
         self.identity = "self"
+        # A FaultSchedule whose attack rules make this client an attacker.
+        self.chaos = None
         self.layout = flat_ops.make_tree_layout(
             {"params": self.params, "batch_stats": self.batch_stats}
         )
@@ -235,6 +244,8 @@ class LocalTrainer:
                 )
         self._snapshot_round(self.round_idx)
         start_round = self.round_idx
+        # One attack consult a round, on the identity and the local round.
+        atk = self.chaos.decide_attack(self.identity, start_round) if self.chaos is not None else None
         own, own_mask = self._shard(rank, world)
         num_examples = float(own_mask.sum())
         # One epoch is the shard's batch count; local_epochs multiplies it.
@@ -243,6 +254,8 @@ class LocalTrainer:
             self.images, self.labels, own, own_mask, cfg.data.batch_size, steps,
             seed=cfg.data.seed + self.round_idx,
         )
+        if atk is not None and atk.kind == "label_flip":
+            y = (np.asarray(y) + atk.label_offset) % cfg.num_classes
         t0 = time.perf_counter()
         dev = self.device
         start_params, start_stats = self.params, self.batch_stats
@@ -260,12 +273,21 @@ class LocalTrainer:
         self._sync()
         t1 = time.perf_counter()
 
+        honest = lambda: flat_ops.to_flax_host(self.layout, {
+            "params": {k: self.params[k] - start_params[k] for k in self.params},
+            "batch_stats": {k: self.batch_stats[k] - start_stats[k] for k in self.batch_stats},
+        })
+        sent = start_host = None
+        if atk is not None and atk.kind in ("sign_flip", "scale", "noise"):
+            # Only the payload is poisoned: start + attack(honest delta) in
+            # f32 on the host, fedtpu's rounding; our own state stays honest.
+            start_host = flat_ops.to_flax_host(self.layout, {"params": start_params, "batch_stats": start_stats})
+            hostile = self.chaos.apply_attack_delta(atk, honest(), self.identity, start_round)
+            sent = wire.tree_map(lambda s, d: (s + d).astype(s.dtype), start_host, hostile)
+
         codec = codec_override or cfg.fed.compression
         if codec in LOSSY_CODECS and self.synced:
-            delta = flat_ops.to_flax_host(self.layout, {
-                "params": {k: self.params[k] - start_params[k] for k in self.params},
-                "batch_stats": {k: self.batch_stats[k] - start_stats[k] for k in self.batch_stats},
-            })
+            delta = honest() if sent is None else wire.tree_map(lambda a, b: a - b, sent, start_host)
             t2 = time.perf_counter()
             extra = {"num_examples": np.float32(num_examples)}
             ef = cfg.fed.error_feedback
@@ -298,19 +320,15 @@ class LocalTrainer:
             self.last_times = {"update_s": t1 - t0, "copy_s": t2 - t1, "encode_s": time.perf_counter() - t2}
             return payload
 
-        tree = self.host_model()
+        tree = self.host_model() if sent is None else sent
         t2 = time.perf_counter()
         if self.edge_residual is not None and self.synced and cfg.fed.error_feedback:
             # A switch to the dense codec flushes the residual into this
             # round's weights, then resets it: dropped mass is never lost.
-            res = self.edge_residual
-            for col in ("params", "batch_stats"):
-                leaves = wire.tree_leaves(tree[col])
-                summed = [
-                    (np.asarray(w) + np.asarray(r)).astype(np.asarray(w).dtype)
-                    for w, r in zip(leaves, wire.tree_leaves(res[col]))
-                ]
-                tree[col] = wire.tree_unflatten(tree[col], summed)
+            tree = wire.tree_map(
+                lambda w, r: (np.asarray(w) + np.asarray(r)).astype(np.asarray(w).dtype),
+                tree, self.edge_residual,
+            )
             self.edge_residual = None
         tree["num_examples"] = np.float32(num_examples)
         payload = wire.encode(tree, compress=codec != "none")

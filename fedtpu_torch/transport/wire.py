@@ -75,6 +75,13 @@ def tree_unflatten(like: Tree, leaves) -> Tree:
     return out
 
 
+def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the leaves of ``tree`` and of trees of its structure, in
+    :func:`tree_leaves` order, as ``jax.tree.map`` applies it; the result
+    is shaped like ``tree``, its dicts' keys sorted."""
+    return tree_unflatten(tree, [fn(*xs) for xs in zip(tree_leaves(tree), *map(tree_leaves, rest))])
+
+
 def host(x) -> Any:
     """A leaf on the host: a torch tensor as a numpy array, anything else
     through ``np.asarray`` (a numpy scalar becomes a 0-d array, as

@@ -1,7 +1,9 @@
 """What the coordinator's round record needs of fedtpu's observability
 package: the port's own copies of ``latency_summary``
 (``fedtpu/obs/profile.py``), ``process_rss_bytes`` (``fedtpu/obs/proc.py``)
-and the thread-safe ``Counter`` (``fedtpu/obs/registry.py``)."""
+and the thread-safe ``Counter`` (``fedtpu/obs/registry.py``), and
+:class:`CounterTable`, the named counters of fedtpu's registry that the
+retry helper counts into."""
 
 from __future__ import annotations
 
@@ -71,3 +73,25 @@ class Counter:
     def value(self) -> float:
         with self._lock:
             return self._value
+
+
+class CounterTable:
+    """Named, labelled counters: the ``counter(name, help, labels)`` face
+    of fedtpu's metrics registry, enough for
+    :func:`fedtpu_torch.transport.retry.call_with_retry` to count
+    ``fedtpu_rpc_retries_total{rpc}``. No export."""
+
+    def __init__(self) -> None:
+        self._counters: Dict[Tuple[str, Tuple], Counter] = {}
+        self._lock = threading.Lock()
+
+    def counter(self, name: str, help: str = "", labels: Dict[str, str] = None) -> Counter:
+        key = (name, tuple(sorted((labels or {}).items())))
+        with self._lock:
+            return self._counters.setdefault(key, Counter())
+
+    def value(self, name: str, **labels: str) -> float:
+        """The counter's value, 0 when it never counted."""
+        with self._lock:
+            c = self._counters.get((name, tuple(sorted(labels.items()))))
+        return 0.0 if c is None else c.value

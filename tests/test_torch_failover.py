@@ -22,13 +22,13 @@ clients (``torch_coordinator.ScriptedClient``).
   acting primary continues that lineage's counter and moments, bit-equal to
   the round the original primary runs itself;
 - every option the port does not run raises ``NotImplementedError``
-  naming its ROADMAP item.
+  naming its ROADMAP item, and the backup refuses Join and Leave in its
+  role.
 """
 
 import threading
 import time
 
-import grpc
 import pytest
 import torch
 
@@ -338,21 +338,14 @@ def test_options_the_coordinator_does_not_run_raise():
     _, tcfg = configs()
     rebuild = lambda **kw: tcfg.__class__(**{**tcfg.__dict__, "fed": tcfg.fed.__class__(
         **{**tcfg.fed.__dict__, **kw})})
-    for kw, item in ((dict(tier_fanout=2, delta_layout="flat"), "item 4"),
-                     (dict(codec_policy="adaptive", delta_layout="flat"), "item 5"),
-                     (dict(telemetry="trace"), "slice 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            _primary(rebuild(**kw), [])
-        with pytest.raises(NotImplementedError, match=item):
-            tfederation.BackupServer(rebuild(**kw), [], device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        _primary(rebuild(telemetry="trace"), [])
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        tfederation.BackupServer(rebuild(telemetry="trace"), [], device="cpu")
     for cls in (tfederation.PrimaryServer, tfederation.BackupServer):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            cls(tcfg, [], chaos=object(), device="cpu")
         with pytest.raises(NotImplementedError, match="slice 8"):
             cls(tcfg, [], flight=object(), device="cpu")
     p = _primary(tcfg, [])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        p.start_gate("localhost:0")
     with pytest.raises(NotImplementedError, match="slice 8"):
         p.run_async(4)
     with pytest.raises(NotImplementedError, match="slice 8"):
@@ -367,20 +360,17 @@ def test_options_the_coordinator_does_not_run_raise():
 
 
 def test_backup_refuses_the_membership_rpcs():
-    """Join and Leave on the backup wait for the membership gate: the RPC
-    fails UNIMPLEMENTED, naming the ROADMAP item."""
+    """In the backup role Join and Leave are refused as fedtpu's backup
+    refuses them: ``admitted=0, "not primary"`` and ``left=0``."""
     _, tcfg = configs()
     addr = f"localhost:{free_port()}"
     backup = tfederation.BackupServer(tcfg, [], watchdog_timeout=3600.0, device="cpu")
     server = backup.start(addr)
     try:
         stub = tservice.TrainerStub(tservice.create_channel(addr))
-        for call, req in ((stub.Join, tproto.JoinRequest(address=b"x:1")),
-                          (stub.Leave, tproto.LeaveRequest(address=b"x:1"))):
-            with pytest.raises(grpc.RpcError) as exc:
-                call(req, timeout=30)
-            assert exc.value.code() == grpc.StatusCode.UNIMPLEMENTED
-            assert "item 3" in exc.value.details()
+        reply = stub.Join(tproto.JoinRequest(address=b"x:1"), timeout=30)
+        assert (reply.admitted, reply.message) == (0, b"not primary")
+        assert stub.Leave(tproto.LeaveRequest(address=b"x:1"), timeout=30) == tproto.LeaveReply(left=0)
         assert stub.HeartBeat(tproto.Request(), timeout=30).status == 1
     finally:
         backup.watchdog.stop()

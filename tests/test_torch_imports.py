@@ -4,8 +4,11 @@ load JAX, its libraries or anything of ``fedtpu``; importing
 federation phase imports grpc when it runs), and only the edge's socket
 modules import grpc. The coordinator (``fedtpu_torch.ft``,
 ``fedtpu_torch.transport.federation``'s ``PrimaryServer`` and
-``BackupServer``) is held to the same boundary, and ``fedtpu_torch.ft``
-loads no grpc.
+``BackupServer``) and its fault injection, codec policy and mid tier
+(``fedtpu_torch.ft.chaos``, ``transport.codec_policy``,
+``transport.aggregator``) are held to the same boundary;
+``fedtpu_torch.ft`` loads no grpc (the chaos interceptors import it when
+they are built).
 
 One check imports every module in a fresh interpreter and looks at
 ``sys.modules``; the other reads every source file's imports. Top-level
@@ -24,7 +27,10 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fedtpu"}
 # Packages chip_smoke.py's closure must not load, beside FORBIDDEN.
 NOT_ON_THE_CARD = {"grpc", "msgpack"}
 # The modules that open sockets, the only ones that may import grpc.
-GRPC_MODULES = {"service.py", "retry.py", "federation.py"}
+GRPC_MODULES = {("transport", "service.py"), ("transport", "retry.py"), ("transport", "federation.py"),
+                ("transport", "aggregator.py")}
+# Modules that import grpc inside the functions that build its classes only.
+LAZY_GRPC_MODULES = {("ft", "chaos.py")}
 
 
 def _sources():
@@ -92,8 +98,9 @@ def test_coordinator_closure_loads_no_jax_and_no_fedtpu():
     assert not (FORBIDDEN | NOT_ON_THE_CARD) & loaded, (FORBIDDEN | NOT_ON_THE_CARD) & loaded
 
 
-def _imported_names(path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+def _imported_names(path, top_level_only=False):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in (tree.body if top_level_only else ast.walk(tree)):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -102,11 +109,25 @@ def _imported_names(path):
 
 def test_only_the_socket_modules_import_grpc_and_none_imports_msgpack():
     for path in _sources():
+        where = (path.parent.name, path.name)
         for name in _imported_names(path):
             top = name.split(".")[0]
             assert top != "msgpack", f"{path}: imports {name}"
             if top == "grpc":
-                assert path.parent.name == "transport" and path.name in GRPC_MODULES, f"{path}: imports grpc"
+                assert where in GRPC_MODULES | LAZY_GRPC_MODULES, f"{path}: imports grpc"
+        if where in LAZY_GRPC_MODULES:
+            assert "grpc" not in {n.split(".")[0] for n in _imported_names(path, top_level_only=True)}, path
+
+
+def test_fault_injection_policy_and_tier_load_no_jax_and_no_fedtpu():
+    loaded = _loaded_by(
+        "import fedtpu_torch.ft.chaos, fedtpu_torch.transport.codec_policy  # noqa: F401"
+    )
+    assert "fedtpu_torch" in loaded
+    assert not (FORBIDDEN | NOT_ON_THE_CARD) & loaded, (FORBIDDEN | NOT_ON_THE_CARD) & loaded
+    loaded = _loaded_by("from fedtpu_torch.transport.aggregator import AggregatorServer  # noqa: F401")
+    assert {"fedtpu_torch", "grpc"} <= loaded
+    assert not FORBIDDEN & loaded, FORBIDDEN & loaded
 
 
 def test_no_source_file_imports_jax_or_fedtpu():

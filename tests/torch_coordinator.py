@@ -86,25 +86,34 @@ class ScriptedClient(jservice.TrainerServicer):
     (``layout`` per_leaf or flat); ``scale`` multiplies its deltas (an
     attacker's); ``delay_s`` or ``gate`` holds a reply back (a straggler),
     ``send_gate`` a SendModel;
-    ``fence_at`` rejects a lower coordinator epoch as stale."""
+    ``fence_at`` rejects a lower coordinator epoch as stale; ``obey_codec``
+    answers in the codec a StartTrain asks for (``TrainRequest.codec``);
+    ``down`` fails every RPC UNAVAILABLE (a client gone silently)."""
 
     def __init__(self, index, like, codec="none", layout="per_leaf", scale=1.0,
-                 examples=8, bits=4):
+                 examples=8, bits=4, obey_codec=False):
         self.index = index
         self.like = like
         self.codec = codec
+        self.obey_codec = obey_codec
         self.layout = layout
         self.scale = scale
         self.examples = examples
         self.rotq_bits = bits
         self.global_tree = None
         self.calls = []  # (lineage round, rank, world, epoch) of each StartTrain
+        self.codecs = []  # the codec each StartTrain asked for (None: none asked)
         self.installs = 0
         self.delay_s = 0.0
         self.gate = None  # a threading.Event a StartTrain waits on
         self.fence_at = None  # an epoch: StartTrain rejects lower ones as stale
         self.send_gate = None  # a threading.Event a SendModel waits on
+        self.down = False
         self.lock = threading.Lock()
+
+    def _check_up(self, context):
+        if self.down:
+            context.abort(grpc.StatusCode.UNAVAILABLE, "client down")
 
     def _delta(self, lineage_round):
         rng = np.random.default_rng([self.index, max(lineage_round, 0)])
@@ -114,8 +123,10 @@ class ScriptedClient(jservice.TrainerServicer):
         )
 
     def StartTrain(self, request, context):
+        self._check_up(context)
         with self.lock:
             self.calls.append((request.round, request.rank, request.world, request.epoch))
+            self.codecs.append(jproto.CODEC_NAMES.get(request.codec))
         if self.fence_at is not None and request.epoch < self.fence_at:
             context.abort(grpc.StatusCode.FAILED_PRECONDITION,
                           f"STALE_COORDINATOR: epoch {request.epoch} < {self.fence_at}")
@@ -127,17 +138,20 @@ class ScriptedClient(jservice.TrainerServicer):
         extra = {"num_examples": np.float32(self.examples)}
         seed = (max(request.round, 0) << 16) | (request.rank & 0xFFFF)
         flat = self.layout == "flat"
-        if self.codec == "none":
+        codec = self.codec
+        if self.obey_codec:
+            codec = jproto.CODEC_NAMES.get(request.codec, codec)
+        if codec == "none":
             g = self.global_tree
             tree = jax.tree.map(lambda a, d: (np.asarray(a) + d).astype(np.float32), g, delta)
             payload = jwire.encode(dict(tree, num_examples=np.float32(self.examples)))
-        elif self.codec == "topk":
+        elif codec == "topk":
             enc = jsparse.encode_topk_flat if flat else jsparse.encode_topk
             payload, _ = enc(delta, 0.05, extra=extra, collect_residual=False)
-        elif self.codec == "int8":
+        elif codec == "int8":
             enc = jsparse.encode_int8_flat if flat else jsparse.encode_int8
             payload, _ = enc(delta, extra=extra)
-        elif self.codec == "rotq":
+        elif codec == "rotq":
             payload, _ = jsparse.encode_rotq_flat(delta, bits=self.rotq_bits, extra=extra,
                                                   collect_residual=False, seed=seed)
         else:
@@ -146,6 +160,7 @@ class ScriptedClient(jservice.TrainerServicer):
         return jproto.TrainReply(message=payload)
 
     def SendModel(self, request, context):
+        self._check_up(context)
         if self.send_gate is not None:
             self.send_gate.wait()
         self.global_tree = jwire.decode(request.model, self.like)
@@ -153,17 +168,19 @@ class ScriptedClient(jservice.TrainerServicer):
         return jproto.SendModelReply(reply=b"ok")
 
     def HeartBeat(self, request, context):
+        self._check_up(context)
         return jproto.HeartBeatResponse(status=1)
 
 
 class Fleet:
     """Scripted clients, each on its own localhost gRPC server."""
 
-    def __init__(self, like, n=4, codec="none", layout="per_leaf", scales=None, bits=4):
+    def __init__(self, like, n=4, codec="none", layout="per_leaf", scales=None, bits=4,
+                 obey_codec=False):
         self.agents, self.servers, self.addrs = [], [], []
         for i in range(n):
             agent = ScriptedClient(i, like, codec, layout, (scales or {}).get(i, 1.0),
-                                   examples=8 * (i + 1), bits=bits)
+                                   examples=8 * (i + 1), bits=bits, obey_codec=obey_codec)
             addr = f"localhost:{free_port()}"
             server = jservice.create_server(addr, agent)
             server.start()
