@@ -3,21 +3,25 @@
 
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile DIR   # also torch.profiler tables in DIR
+    python3 chip_smoke.py --only zoo      # the device and build phases, then phase 12
 
 Phases, each of which raises on failure (exit code not 0, no result line):
 
 1. device: a CUDA card is required; its name and power limit as
    ``nvidia-smi`` reports them; TF32 off for the parity phases.
 2. build: ``nvcc`` builds every kernel from ``fedtpu_torch/csrc``.
-3. kernels: K1 against its plain PyTorch version at both per-leaf
-   rounds' shapes (smallcnn's 8 and MobileNet's 83 leaves x 64 clients),
-   at both flat rows and at ragged shapes; the grouped K2 against its plain
-   version over each round's leaves as one call, ragged and empty leaves,
+3. kernels: K1 against its plain PyTorch version at the per-leaf
+   rounds' shapes (smallcnn's 8, MobileNet's 83, ResNet-18's 62 at 100
+   classes and densenet_cifar's 362 leaves x 64 clients), at both flat
+   rows and at ragged shapes; the grouped K2 against its plain version
+   over each round's leaves as one call (one launch for ResNet-18's, 5 for
+   densenet_cifar's), ragged and empty leaves,
    views off 16-byte alignment and 200 leaves (one launch per table of
    leaves), timed in turns as one launch a round, one launch a leaf,
    torch.fake_quantize_per_channel_affine one call a leaf and a device
    copy of the same bytes; K3 forward and inverse at the rotq row
-   [64, 2^20], MobileNet's [8, 2^22] and widths and row counts
+   [64, 2^20], MobileNet's [64, 2^22], [8, 2^22], ResNet-18's
+   [64, 2^24] and widths and row counts
    around its phase boundary and lag, with -0.0, zeros and large
    magnitudes. Outputs must be bit-equal, and K3's inverse(forward(y))
    within 1e-5 of y. Kernel and plain version are timed with CUDA events,
@@ -59,7 +63,7 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    refuses a model with BatchNorm, as fedtpu does), no kernel; (e)
    megabatch k=4, bf16 momentum and remat, beside the plain uncompressed
    rounds of both models. Each engine is built, driven two rounds and
-   freed in turn, three turns over the cases; the launch counts are set to
+   freed in turn, two turns over the cases; the launch counts are set to
    0 before the phase, checked every round and read after it; every
    round's losses and state must be finite. Then one local step with and
    without remat, for the memory its forward holds and its peak.
@@ -116,10 +120,30 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    of all 4 for the tiers); K1-K3 are launched 0 times.
    ``--only faults`` runs the device phase and this one alone.
 
+12. zoo: (a) small rounds of the zoo's families on the card against the
+   same rounds on the CPU: MLP on MNIST shapes (BASELINE config 1: 2
+   clients, iid) and LeNet in f32; VGG11, ResNet-18 (every codec and
+   layout of the config-4 rounds), PreActResNet18 and densenet_cifar with
+   the global model in f64 (4 clients, batch 4, one step masked), each
+   within the reference tolerance. (b) BASELINE config 4 at full width:
+   ResNet-18 at 100 classes on CIFAR-100 shapes (the synthetic fallback,
+   50,000 examples), 64 clients, batch 128, 6 local steps, iid, bf16, lr
+   0.05 constant, augmentation: 3 rounds each of per-leaf none, topk and
+   int8 and flat rotq with the counts set to 0 before and read after (62
+   K1, 1 K2, 2 K3 a round, 0 of the others), round 1's codec re-applied
+   with the plain kernels, finite losses and statistics; the uncompressed
+   round timed (rounds/s, client-epochs/s, MFU against the bf16 peak) and
+   profiled (the device's idle share), a remat round for its memory, and
+   a round of 5 local epochs (config 4's local work), with peak memory.
+   (c) densenet_cifar per-leaf topk and int8, 2 rounds each, at 8 clients
+   (its activations at 64 do not fit the card; fedtpu's DenseNet has no
+   remat): 362 K1 and 5 K2 a round. ``--only zoo`` runs the device and
+   build phases and this one alone.
+
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
 Each kernel's ``launches`` there is the sum over the main paths, the
-smallcnn slice, the MobileNet round and the round options;
+smallcnn slice, the MobileNet round, the round options and the zoo;
 ``launches_by_path`` has each.
 """
 
@@ -165,7 +189,7 @@ BATCH = 128
 STEPS = 391 // NUM_CLIENTS  # the reference's local-epoch share at 64 clients
 CHECK_ROUNDS = 3
 TIMED_ROUNDS = 5
-TIMING_REPEATS = 3
+TIMING_REPEATS = 2  # turns over the timed cases: two keep the whole run near 900 s
 TOPK_FRACTION = 0.01
 
 # Published peaks (NVIDIA data sheets, dense, full power): HBM bytes/s and
@@ -209,10 +233,18 @@ HADAMARD_SHAPES = [
     (64, 2**20), (64, 2**22), (8, 2**22), (3, 128), (1, 2**12), (5, 2**13),
     (64, 2**14), (3, 2**20), (65, 2**14), (1, 2**13), (2, 2**21),
 ]
+# The ResNet-18 rotq round's row: 11,229,732 params and statistics padded
+# to 2^24 (4 GiB a buffer at 64 clients), checked and timed in the kernels
+# phase beside the list above.
+ZOO_HADAMARD_SHAPE = (64, 2**24)
 FLAT_P = 545_152  # smallcnn's lane-padded flat row
 MOBILENET_FLAT_P = 3_217_280  # MobileNet's: P = 3,217,226 lane-padded
 MOBILENET_LEAVES = 83
 MOBILENET_TIMED_ROUNDS = 3
+# The zoo's per-leaf shapes: ResNet-18 at 100 classes, densenet_cifar at 10.
+RESNET18_LEAVES = 62
+DENSENET_LEAVES = 362
+ZOO_TIMING_RUNS = 3  # runs of _time_ms a leaf: the zoo has 424 leaves to time
 
 
 def log(msg: str) -> None:
@@ -267,13 +299,17 @@ def build_phase():
 # ------------------------------------------------------------ 3. kernels
 
 
-def per_leaf_shapes(model_name: str):
+LEAVES = {"mobilenet": MOBILENET_LEAVES, "resnet18": RESNET18_LEAVES, "densenet_cifar": DENSENET_LEAVES}
+
+
+def per_leaf_shapes(model_name: str, classes: int = 10):
     """``[clients, leaf size]`` of every leaf of a model, as a per-leaf
     codec sees them."""
-    model = models.create(model_name, 10)
+    with torch.device("meta"):
+        model = models.create(model_name, classes)
     shapes = [(NUM_CLIENTS, p.numel()) for p in model.parameters()]
-    if model_name == "mobilenet" and len(shapes) != MOBILENET_LEAVES:
-        raise RuntimeError(f"kernels: MobileNet has {len(shapes)} leaves")
+    if len(shapes) != LEAVES.get(model_name, len(shapes)):
+        raise RuntimeError(f"kernels: {model_name} has {len(shapes)} leaves")
     return shapes
 
 
@@ -360,7 +396,7 @@ def _bound(bytes_moved, ops, peaks):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def _per_round(name, wrapper, plain, rng, dev, shapes, peaks):
+def _per_round(name, wrapper, plain, rng, dev, shapes, peaks, runs=21):
     """Bit-equality at every shape; kernel and plain times, bytes and
     operations summed over one round's launches at ``shapes``."""
     info = KERNEL_INFO[name]
@@ -368,8 +404,8 @@ def _per_round(name, wrapper, plain, rng, dev, shapes, peaks):
     for rows, cols in shapes:
         x, v = _inputs(name, rng, rows, cols, dev)
         max_err = max(max_err, _check_bits(name, wrapper, plain, x, v))
-        ms += _time_ms(lambda: wrapper(x, v))
-        plain_ms += _time_ms(lambda: plain(x, v))
+        ms += _time_ms(lambda: wrapper(x, v), runs=runs)
+        plain_ms += _time_ms(lambda: plain(x, v), runs=runs)
         bytes_moved += rows * cols * info["bytes_per_elem"] + rows * info["bytes_per_row"]
         ops += rows * cols * info["ops_per_elem"]
     bound_ms, bound_by = _bound(bytes_moved, ops, peaks)
@@ -391,8 +427,8 @@ def _check_bits(name, wrapper, plain, x, v) -> float:
 
 def kernel_phase(peaks):
     """K1 at the per-leaf rounds' shapes (timed, summed over one round's
-    leaves: smallcnn's 8, MobileNet's 83), at ragged ones and at both flat
-    rows."""
+    leaves: smallcnn's 8, MobileNet's 83, ResNet-18's 62, densenet_cifar's
+    362), at ragged ones and at both flat rows."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     name = "threshold_feedback"
@@ -400,6 +436,11 @@ def kernel_phase(peaks):
     info = KERNEL_INFO[name]
     small, err = _per_round(name, wrapper, plain, rng, dev, per_leaf_shapes("smallcnn"), peaks)
     mobile, err2 = _per_round(name, wrapper, plain, rng, dev, per_leaf_shapes("mobilenet"), peaks)
+    zoo = {}
+    for model, classes in (("resnet18", 100), ("densenet_cifar", 10)):
+        zoo[model], zoo_err = _per_round(
+            name, wrapper, plain, rng, dev, per_leaf_shapes(model, classes), peaks, runs=ZOO_TIMING_RUNS)
+        err2 = max(err2, zoo_err)
     max_err = max(err, err2)
     for rows, cols in RAGGED:
         max_err = max(max_err, _check_bits(name, wrapper, plain, *_inputs(name, rng, rows, cols, dev)))
@@ -420,15 +461,20 @@ def kernel_phase(peaks):
         "library_ms": None,  # no single PyTorch call computes this function
         "per": f"one smallcnn per-leaf round (eight launches, {NUM_CLIENTS} clients)",
         "mobilenet_per_leaf_round": mobile,
+        "resnet18_per_leaf_round": zoo["resnet18"],
+        "densenet_per_leaf_round": zoo["densenet_cifar"],
     }
     for model, cols in (("smallcnn", FLAT_P), ("mobilenet", MOBILENET_FLAT_P)):
         flat_row, _ = _per_round(name, wrapper, plain, rng, dev, [(NUM_CLIENTS, cols)], peaks)
         result[f"{model}_flat_row"] = {"shape": [NUM_CLIENTS, cols], **flat_row}
     log(
-        f"kernels: {name} bit-equal at {8 + MOBILENET_LEAVES + len(RAGGED)}+ shapes; "
+        f"kernels: {name} bit-equal at "
+        f"{8 + MOBILENET_LEAVES + RESNET18_LEAVES + DENSENET_LEAVES + len(RAGGED)}+ shapes; "
         f"one smallcnn round's 8 leaves: kernel {small['ms']:.4f} ms, plain "
         f"{small['plain_ms']:.4f} ms, bound {small['bound_ms']:.4f} ms; one MobileNet "
-        f"round's 83 leaves: {json.dumps(mobile)}"
+        f"round's 83 leaves: {json.dumps(mobile)} | ResNet-18's {RESNET18_LEAVES} leaves: "
+        f"{json.dumps(zoo['resnet18'])} | densenet_cifar's {DENSENET_LEAVES} leaves: "
+        f"{json.dumps(zoo['densenet_cifar'])}"
         + "".join(f" | {m} flat row: {json.dumps(result[f'{m}_flat_row'])}"
                   for m in ("smallcnn", "mobilenet"))
     )
@@ -544,17 +590,45 @@ def _int8_round(label, xs, scales, peaks):
     return out
 
 
+def _int8_zoo_round(label, xs, scales, peaks):
+    """The grouped K2 over a zoo model's per-leaf int8 round (one launch
+    per table of leaves), timed as one call, beside its bound and the plain
+    version leaf by leaf (a run of hundreds of leaves' plain ops would fill
+    the card's queue of pending launches)."""
+    info = KERNEL_INFO["quantdequant_int8"]
+    ms = _time_ms(lambda: kernels.quantdequant_int8_grouped(xs, scales))
+    plain_ms = sum(
+        _time_ms(lambda: kernels.quantdequant_int8_plain(x, v), runs=ZOO_TIMING_RUNS)
+        for x, v in zip(xs, scales)
+    )
+    bytes_moved = sum(x.numel() * info["bytes_per_elem"] + x.shape[0] * info["bytes_per_row"] for x in xs)
+    ops = sum(x.numel() * info["ops_per_elem"] for x in xs)
+    bound_ms, bound_by = _bound(bytes_moved, ops, peaks)
+    out = {
+        "leaves": len(xs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "bytes": bytes_moved, "share_of_bound": bound_ms / ms,
+        "launches_per_round": -(-len(xs) // kernels.INT8_GROUP_CAPACITY),
+    }
+    log(f"kernels: quantdequant_int8 over one {label} per-leaf int8 round: " + json.dumps(out))
+    return out
+
+
 def int8_phase(peaks):
     """The grouped K2 bit-equal to its plain version over each per-leaf
-    round's leaves as one call (smallcnn's 8, MobileNet's 83), ragged
-    leaves, a list that mixes empty, 1-, 10- and 65,537-column leaves,
+    round's leaves as one call (smallcnn's 8, MobileNet's 83, ResNet-18's
+    62, densenet_cifar's 362 in 5 launches), ragged leaves, a list that mixes empty, 1-, 10- and 65,537-column leaves,
     leaves passed as views off 16-byte alignment, and 200 leaves (more than
     one launch's table); then timed over each round's leaves."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
     rounds = {m: _int8_leaves(rng, per_leaf_shapes(m), dev) for m in ("smallcnn", "mobilenet")}
+    zoo = {
+        "resnet18": _int8_leaves(rng, per_leaf_shapes("resnet18", 100), dev),
+        "densenet_cifar": _int8_leaves(rng, per_leaf_shapes("densenet_cifar"), dev),
+    }
     cases = {
         **rounds,
+        **zoo,
         "ragged": _int8_leaves(rng, RAGGED, dev),
         "mixed": _int8_leaves(rng, [(0, 5), (3, 0), (2, 1), (3, 10), (2, 65537), (1, 1), (5, 7)], dev),
         "misaligned": _int8_leaves(
@@ -565,6 +639,9 @@ def int8_phase(peaks):
     log(f"kernels: quantdequant_int8 grouped bit-equal over {', '.join(cases)}")
     small = _int8_round("smallcnn", *rounds["smallcnn"], peaks)
     mobile = _int8_round("MobileNet", *rounds["mobilenet"], peaks)
+    resnet = _int8_zoo_round("ResNet-18", *zoo["resnet18"], peaks)
+    densenet = _int8_zoo_round("densenet_cifar", *zoo["densenet_cifar"], peaks)
+    del zoo
     info = KERNEL_INFO["quantdequant_int8"]
     return {
         "name": "quantdequant_int8",
@@ -586,18 +663,21 @@ def int8_phase(peaks):
         "per": f"one smallcnn per-leaf int8 round (eight leaves in one launch, {NUM_CLIENTS} clients)",
         "smallcnn_per_leaf_round": small,
         "mobilenet_per_leaf_round": mobile,
+        "resnet18_per_leaf_round": resnet,
+        "densenet_per_leaf_round": densenet,
     }
 
 
-def _hadamard_inputs(rng, rows, h, dev):
+def _hadamard_inputs(g, rows, h, dev):
     """Normal rows with a -0.0, zeros and large magnitudes mixed in (the
-    sums then round at many places), and +-1 signs."""
-    y = rng.standard_normal((rows, h), dtype=np.float32)
+    sums then round at many places), and +-1 signs, drawn on the card from
+    the generator ``g`` (a [64, 2^24] row is a billion draws)."""
+    y = torch.randn((rows, h), generator=g, device=dev)
     y[0, 0] = -0.0
     y[0, 1 : 1 + h // 8] = 0.0
-    y[-1, :: max(h // 16, 1)] = np.float32(1e30)
-    signs = (rng.integers(0, 2, size=h) * 2 - 1).astype(np.float32)
-    return torch.from_numpy(y).to(dev), torch.from_numpy(signs).to(dev)
+    y[-1, :: max(h // 16, 1)] = 1e30
+    signs = torch.randint(0, 2, (h,), generator=g, device=dev).float() * 2 - 1
+    return y, signs
 
 
 def _hadamard_call(rows, h, peaks):
@@ -662,14 +742,15 @@ def hadamard_phase(peaks):
     """K3 forward and inverse bit-equal to the plain version at every
     shape; inverse(forward(y)) within 1e-5 of y (fedtpu's gate) on normal
     rows; timed beside its bound at the rotq row, where a round launches it
-    twice, and at MobileNet's row."""
+    twice, at MobileNet's row and at ResNet-18's."""
     dev = torch.device("cuda")
     wrapper, plain = kernels.KERNELS["hadamard_rotate"]
-    rng = np.random.default_rng(3)
+    g = torch.Generator(dev).manual_seed(3)
     max_err = 0.0
     timed = {}
-    for i, (rows, h) in enumerate(HADAMARD_SHAPES):
-        y, signs = _hadamard_inputs(rng, rows, h, dev)
+    zoo_index = len(HADAMARD_SHAPES)
+    for i, (rows, h) in enumerate([*HADAMARD_SHAPES, ZOO_HADAMARD_SHAPE]):
+        y, signs = _hadamard_inputs(g, rows, h, dev)
         for inverse in (False, True):
             got = wrapper(y, signs, inverse=inverse)
             want = plain(y, signs, inverse)
@@ -680,20 +761,21 @@ def hadamard_phase(peaks):
                     f"kernels: hadamard_rotate (inverse={inverse}) differs from its "
                     f"plain version at {rows}x{h}"
                 )
-            if i < 3:
+            if i < 3 or i == zoo_index:
                 timed[(i, inverse)] = (
                     _time_ms(lambda: wrapper(y, signs, inverse=inverse)),
-                    _time_ms(lambda: plain(y, signs, inverse), runs=5, calls=2) if i < 2 else None,
+                    _time_ms(lambda: plain(y, signs, inverse), runs=5, calls=2) if i != 2 else None,
                 )
         if i == 0:
             floors = _floors(wrapper, y, signs)
-        normal = torch.from_numpy(rng.standard_normal((rows, h), dtype=np.float32)).to(dev)
+        normal = torch.randn((rows, h), generator=g, device=dev)
         back = wrapper(wrapper(normal, signs), signs, inverse=True)
         err = float((back - normal).abs().max())
         if not torch.allclose(back, normal, rtol=1e-5, atol=1e-5):
             raise RuntimeError(f"kernels: hadamard_rotate round trip at {rows}x{h} off by {err}")
         log(f"kernels: hadamard_rotate {rows}x{h}: forward and inverse bit-equal; round trip max err {err:.3g}")
-    for i, (rows, h) in enumerate(HADAMARD_SHAPES[:3]):
+        del y, signs, normal, back, got, want
+    for i, (rows, h) in [*enumerate(HADAMARD_SHAPES[:3]), (zoo_index, ZOO_HADAMARD_SHAPE)]:
         for inverse in (False, True):
             rates = _hadamard_rates(timed[(i, inverse)][0], rows, h, peaks)
             log(
@@ -730,6 +812,8 @@ def hadamard_phase(peaks):
         "inverse_share_of_bound": call_bound / inv[0],
         "mobilenet_rotq_round": _hadamard_round(timed[(1, False)], timed[(1, True)], *HADAMARD_SHAPES[1], peaks),
         "rows8_2p22_ms": {"forward": timed[(2, False)][0], "inverse": timed[(2, True)][0]},
+        "resnet18_rotq_round": _hadamard_round(
+            timed[(zoo_index, False)], timed[(zoo_index, True)], *ZOO_HADAMARD_SHAPE, peaks),
         **floors,
     }
     log(
@@ -791,40 +875,59 @@ REFERENCE_CASES = [
 ]
 
 
+def card_vs_cpu(label, cfg, data, comp, rounds=1, params_atol=1e-5, f64=False, step_mask=None):
+    """``rounds`` rounds of ``cfg`` on the card against the same rounds on
+    the CPU (where the wrappers run their plain versions), from the same
+    init and batches, the seeded codecs fed the same numpy draws; with
+    ``f64`` the global model is f64 on both devices and the BatchNorm
+    statistics are compared too. At most 0.1% of coordinates may lie
+    beyond ``params_atol`` (1e-5 for the statistics) and rtol=1e-4: a
+    last-bit difference in a delta can cross a top-k threshold or a
+    rounding step."""
+    codec = compression.make_compressor(cfg.fed)
+    if comp in ("rotq", "randk"):
+        codec = _injected(codec, _numpy_draws(comp, clients=cfg.fed.num_clients))
+    cpu = Federation(cfg, seed=0, data=data, device="cpu", compressor=codec)
+    gpu = Federation(cfg, seed=0, data=data, compressor=codec)
+    if f64:
+        init = dict(params=cpu.state.params, batch_stats=cpu.state.batch_stats, dtype=torch.float64)
+        cpu.state = init_state(cpu.model, cfg, codec, **init)
+        gpu.state = init_state(gpu.model, cfg, codec, **init)
+    else:
+        gpu.state = gpu.state._replace(params={k: v.cuda() for k, v in cpu.state.params.items()})
+    for r in range(rounds):
+        cpu_b, gpu_b = cpu.device_batch(r, offset=r + 3), gpu.device_batch(r, offset=r + 3)
+        if step_mask is not None:
+            cpu_b, gpu_b = cpu_b._replace(step_mask=step_mask), gpu_b._replace(step_mask=step_mask.cuda())
+        cpu.step(cpu_b)
+        gpu.step(gpu_b)
+    bad = total = 0
+    worst = 0.0
+    parts = (("params", params_atol), ("batch_stats", 1e-5)) if f64 else (("params", params_atol),)
+    for part, atol in parts:
+        for k, w in getattr(cpu.state, part).items():
+            g = getattr(gpu.state, part)[k].cpu()
+            if (f64 and g.dtype != torch.float64) or not torch.isfinite(g).all():
+                raise RuntimeError(f"{label}: {k}: {g.dtype}, finite {bool(torch.isfinite(g).all())}")
+            bad += int(((g - w).abs() > atol + 1e-4 * w.abs()).sum())
+            total += w.numel()
+            worst = max(worst, float((g - w).abs().max()))
+    if bad > 0.001 * total:
+        raise RuntimeError(f"{label}: {bad} of {total} coordinates differ from the CPU")
+    log(
+        f"{label}: card vs CPU after {rounds} {'f64 ' if f64 else ''}round(s), {bad} of {total} "
+        f"coordinates beyond tolerance, largest difference {worst:.3g}"
+    )
+
+
 def reference_phase():
-    """The port on the card against the port on the CPU (plain versions)
-    from the same init and batches, the seeded codecs fed the same draws:
-    at most 0.1% of coordinates beyond atol=1e-5, rtol=1e-4 (a last-bit
-    difference in a delta can cross a top-k threshold or a rounding step)."""
+    """The port on the card against the port on the CPU (plain versions),
+    smallcnn, 4 clients, f32, every codec and layout of REFERENCE_CASES."""
     rng = np.random.default_rng(1)
     images = rng.standard_normal((64, 32, 32, 3), dtype=np.float32)
     labels = rng.integers(0, 10, size=64).astype(np.int32)
     for comp, layout, rounds in REFERENCE_CASES:
-        cfg = _small_cfg(comp, layout)
-        codec = compression.make_compressor(cfg.fed)
-        if comp in ("rotq", "randk"):
-            codec = _injected(codec, _numpy_draws(comp))
-        cpu = Federation(cfg, seed=0, data=(images, labels), device="cpu", compressor=codec)
-        gpu = Federation(cfg, seed=0, data=(images, labels), compressor=codec)
-        gpu.state = gpu.state._replace(params={k: v.cuda() for k, v in cpu.state.params.items()})
-        for r in range(rounds):
-            cpu.step(cpu.device_batch(r, offset=r + 3))
-            gpu.step(gpu.device_batch(r, offset=r + 3))
-        bad = total = 0
-        for k, w in cpu.state.params.items():
-            g = gpu.state.params[k].cpu()
-            if not torch.isfinite(g).all():
-                raise RuntimeError(f"reference: non-finite {layout} {comp} {k}")
-            bad += int(((g - w).abs() > 1e-5 + 1e-4 * w.abs()).sum())
-            total += w.numel()
-        if bad > 0.001 * total:
-            raise RuntimeError(
-                f"reference: {layout} {comp}: {bad} of {total} coordinates differ from the CPU"
-            )
-        log(
-            f"reference: {layout} {comp}: card vs CPU after {rounds} round(s), "
-            f"{bad} of {total} coordinates beyond tolerance"
-        )
+        card_vs_cpu(f"reference: {layout} {comp}", _small_cfg(comp, layout), (images, labels), comp, rounds)
 
 
 # (codec, layout) -> the params' atol: the MobileNet reference rounds. Both
@@ -858,37 +961,8 @@ def mobilenet_reference_phase():
             fed=FedConfig(num_clients=2, compression=comp, delta_layout=layout),
             steps_per_round=2,
         )
-        codec = compression.make_compressor(cfg.fed)
-        if comp == "rotq":
-            codec = _injected(codec, _numpy_draws(comp, clients=2))
-        cpu = Federation(cfg, seed=0, data=(images, labels), device="cpu", compressor=codec)
-        gpu = Federation(cfg, seed=0, data=(images, labels), compressor=codec)
-        init = dict(params=cpu.state.params, batch_stats=cpu.state.batch_stats, dtype=torch.float64)
-        cpu.state = init_state(cpu.model, cfg, codec, **init)
-        gpu.state = init_state(gpu.model, cfg, codec, **init)
-        cpu_b, gpu_b = cpu.device_batch(0, offset=1), gpu.device_batch(0, offset=1)
-        mask = torch.tensor([[True, True], [True, False]])
-        cpu.step(cpu_b._replace(step_mask=mask))
-        gpu.step(gpu_b._replace(step_mask=mask.cuda()))
-        bad = total = 0
-        worst = 0.0
-        for part, atol in (("params", params_atol), ("batch_stats", 1e-5)):
-            for k, w in getattr(cpu.state, part).items():
-                g = getattr(gpu.state, part)[k].cpu()
-                if g.dtype != torch.float64 or not torch.isfinite(g).all():
-                    raise RuntimeError(f"mobilenet reference: {layout} {comp} {k}: {g.dtype}, finite {bool(torch.isfinite(g).all())}")
-                bad += int(((g - w).abs() > atol + 1e-4 * w.abs()).sum())
-                total += w.numel()
-                worst = max(worst, float((g - w).abs().max()))
-        if bad > 0.001 * total:
-            raise RuntimeError(
-                f"mobilenet reference: {layout} {comp}: {bad} of {total} coordinates differ from the CPU"
-            )
-        log(
-            f"mobilenet reference: {layout} {comp}: card vs CPU after one f64 round, "
-            f"{bad} of {total} coordinates (params and statistics) beyond tolerance, "
-            f"largest difference {worst:.3g}"
-        )
+        card_vs_cpu(f"mobilenet reference: {layout} {comp}", cfg, (images, labels), comp,
+                    params_atol=params_atol, f64=True, step_mask=torch.tensor([[True, True], [True, False]]))
 
 
 # -------------------------------------------------------------- 5. slice
@@ -918,15 +992,19 @@ def bench_cfg(
     )
 
 
-def _clone(x):
+def _moved(x, device):
+    """A copy of a tensor, or of a dict of them, on ``device``; anything
+    else as it is."""
     if isinstance(x, torch.Tensor):
-        return x.clone()
-    return {k: v.clone() for k, v in x.items()} if isinstance(x, dict) else x
+        return x.to(device, copy=True)
+    return {k: v.to(device, copy=True) for k, v in x.items()} if isinstance(x, dict) else x
 
 
 class Recorder:
     """Wraps a codec; keeps the inputs and outputs of the round it is armed
-    for, so the plain codec can be re-applied to the same tensors."""
+    for, so the plain codec can be re-applied to the same tensors. The
+    copies wait in host memory: a config-4 round's are some 11 GB, more
+    than its peak leaves free on the card."""
 
     def __init__(self, codec: compression.Compressor):
         self.codec = codec
@@ -936,14 +1014,16 @@ class Recorder:
     def apply(self, deltas, state):
         out, new_state = self.codec.apply(deltas, state)
         if self.armed:
-            self.seen = ((_clone(deltas), _clone(state)), {}, out, new_state)
+            self.seen = ((_moved(deltas, "cpu"), _moved(state, "cpu")), {},
+                         _moved(out, "cpu"), _moved(new_state, "cpu"))
             self.armed = False
         return out, new_state
 
     def apply_flat(self, y, state, lay, round_idx=0):
         out, new_state = self.codec.apply_flat(y, state, lay, round_idx=round_idx)
         if self.armed:
-            self.seen = ((_clone(y), _clone(state), lay), {"round_idx": round_idx}, out, new_state)
+            self.seen = ((_moved(y, "cpu"), _moved(state, "cpu"), lay), {"round_idx": round_idx},
+                         _moved(out, "cpu"), _moved(new_state, "cpu"))
             self.armed = False
         return out, new_state
 
@@ -995,6 +1075,79 @@ SMALLCNN_SLICE = [("topk", "per_leaf"), ("int8", "per_leaf"), ("rotq", "flat"), 
 MOBILENET_SLICE = [("none", "per_leaf"), ("topk", "per_leaf"), ("int8", "per_leaf"), ("topk", "flat"), ("rotq", "flat")]
 
 
+def check_rounds(fed, tag, codec, layout, counted, per_round, rec=None, make_plain=None,
+                 rounds=CHECK_ROUNDS, peak=False):
+    """``rounds`` rounds of ``fed`` through Federation.step, each round's
+    launches checked (``per_round`` of ``counted``, 0 of the others), its
+    loss and state finite and on the card; with a ``Recorder``, round 1's
+    codec re-applied with ``make_plain()`` must give the same bits. Returns
+    each round's record."""
+    records = []
+    for r in range(rounds):
+        before = _launch_counts()
+        if rec:
+            rec.armed = r == 1
+        if peak:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = fed.step()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = _launch_counts()
+        for name in after:
+            want = per_round if name == counted else 0
+            if after[name] - before[name] != want:
+                raise RuntimeError(
+                    f"slice {tag} round {r}: {name} launched "
+                    f"{after[name] - before[name]} times, expected {want}"
+                )
+        loss = float(m.loss)
+        if not math.isfinite(loss):
+            raise RuntimeError(f"slice {tag} round {r}: loss {loss}")
+        for t in _state_tensors(fed.state):
+            if t.device.type != "cuda":
+                raise RuntimeError(f"slice {tag}: a state tensor is on {t.device}")
+            if not bool(torch.isfinite(t).all()):
+                raise RuntimeError(f"slice {tag} round {r}: a state tensor is not finite")
+        if any(not bool(e.any()) for e in _tensors(fed.state.comp_state)):
+            raise RuntimeError(f"slice {tag} round {r}: a residual is all zero")
+        record = {"round": r, "loss": loss, "round_s": secs,
+                  "launches": {k: after[k] - before[k] for k in after}}
+        if peak:
+            record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        records.append(record)
+        log(
+            f"slice {tag} round {r}: loss {loss:.6f} acc {float(m.accuracy):.4f} "
+            f"update_norm {float(m.update_norm):.6f} launches {record['launches']}"
+            + (f" peak {record['peak_gb']:.2f} GB" if peak else "")
+            + f" {secs:.3f} s"
+        )
+        if rec and r == 1:
+            _check_recorded(rec, make_plain, layout, tag)
+    return records
+
+
+def _check_recorded(rec, make_plain, layout, tag):
+    """The codec call ``rec`` recorded, re-applied on the card with the
+    plain kernels between two rounds: the same output and residuals, bit
+    for bit."""
+    args, kw, out, new_state = rec.seen
+    rec.seen = None
+    plain = make_plain()
+    args = tuple(_moved(a, "cuda") for a in args)
+    out_p, new_p = (plain.apply_flat if layout == "flat" else plain.apply)(*args, **kw)
+    out_p, new_p = _moved(out_p, "cpu"), _moved(new_p, "cpu")
+    if layout == "flat":
+        out, out_p, new_state, new_p = {"": out}, {"": out_p}, {"": new_state}, {"": new_p}
+    for k in out:
+        if not (_bits_equal(out[k], out_p[k]) and _bits_equal(new_state[k], new_p[k])):
+            raise RuntimeError(f"slice {tag}: kernel codec differs from plain at {k!r}")
+    log(f"slice {tag}: round 1's codec output and residuals bit-equal to the plain codec")
+    del args, kw, out, new_state, out_p, new_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def slice_phase(data, model="smallcnn", cases=SMALLCNN_SLICE, leaves=8):
     """A main path: CHECK_ROUNDS rounds per codec and layout through
     Federation.step, the launch counts set to 0 just before and read just
@@ -1007,50 +1160,8 @@ def slice_phase(data, model="smallcnn", cases=SMALLCNN_SLICE, leaves=8):
         cfg = bench_cfg(codec, layout, model)
         rec = Recorder(compression.make_compressor(cfg.fed)) if make_plain else None
         fed = Federation(cfg, seed=0, data=data, compressor=rec.compressor() if rec else None)
-        tag = f"{model} {layout} {codec}"
-        for r in range(CHECK_ROUNDS):
-            before = _launch_counts()
-            if rec:
-                rec.armed = r == 1
-            if model != "smallcnn":
-                torch.cuda.reset_peak_memory_stats()
-            m = fed.step()
-            torch.cuda.synchronize()
-            after = _launch_counts()
-            for name in after:
-                want = per_round if name == counted else 0
-                if after[name] - before[name] != want:
-                    raise RuntimeError(
-                        f"slice {tag} round {r}: {name} launched "
-                        f"{after[name] - before[name]} times, expected {want}"
-                    )
-            loss = float(m.loss)
-            if not math.isfinite(loss):
-                raise RuntimeError(f"slice {tag} round {r}: loss {loss}")
-            for t in _state_tensors(fed.state):
-                if t.device.type != "cuda":
-                    raise RuntimeError(f"slice {tag}: a state tensor is on {t.device}")
-                if not bool(torch.isfinite(t).all()):
-                    raise RuntimeError(f"slice {tag} round {r}: a state tensor is not finite")
-            if any(not bool(e.any()) for e in _tensors(fed.state.comp_state)):
-                raise RuntimeError(f"slice {tag} round {r}: a residual is all zero")
-            peak = f" peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB" if model != "smallcnn" else ""
-            log(
-                f"slice {tag} round {r}: loss {loss:.6f} acc {float(m.accuracy):.4f} "
-                f"update_norm {float(m.update_norm):.6f} launches "
-                f"{ {k: after[k] - before[k] for k in after} }{peak}"
-            )
-        if rec:
-            args, kw, out, new_state = rec.seen
-            plain = make_plain()
-            out_p, new_p = (plain.apply_flat if layout == "flat" else plain.apply)(*args, **kw)
-            if layout == "flat":
-                out, out_p, new_state, new_p = {"": out}, {"": out_p}, {"": new_state}, {"": new_p}
-            for k in out:
-                if not (_bits_equal(out[k], out_p[k]) and _bits_equal(new_state[k], new_p[k])):
-                    raise RuntimeError(f"slice {tag}: kernel codec differs from plain at {k!r}")
-            log(f"slice {tag}: round 1's codec output and residuals bit-equal to the plain codec")
-            rec.seen = None
+        check_rounds(fed, f"{model} {layout} {codec}", codec, layout, counted, per_round,
+                     rec, make_plain, peak=model != "smallcnn")
         feds[(codec, layout)] = fed
     return feds, _launch_counts()
 
@@ -1086,16 +1197,16 @@ def mobilenet_options_phase(data, card):
     return out
 
 
-def mobilenet_flops():
-    """Model FLOPs of one flagship round: 3x the forward's (the backward
-    twice the forward), the forward counted by torch.utils.flop_counter on
-    meta tensors, per example, times the round's examples."""
+def model_flops(model_name="mobilenet", classes=10, examples=NUM_CLIENTS * STEPS * BATCH):
+    """Model FLOPs of a round of ``examples`` local examples: 3x the
+    forward's (the backward twice the forward), the forward counted by
+    torch.utils.flop_counter on meta tensors, per 32x32 example."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    model = models.create("mobilenet", 10).to("meta")
+    model = models.create(model_name, classes).to("meta")
     with FlopCounterMode(display=False) as counter:
         model(torch.empty((1, 32, 32, 3), device="meta"))
-    return 3 * counter.get_total_flops() * NUM_CLIENTS * STEPS * BATCH
+    return 3 * counter.get_total_flops() * examples
 
 
 TIMED_CASES = (
@@ -1213,7 +1324,7 @@ def _trace_summary(trace_path: Path, rounds: int):
 def profile_phase(fed, out_dir: Path, label: str, rounds: int = 2):
     """torch.profiler over ``rounds`` rounds: device time by kernel, by
     group, and the device's idle share of the window. Returns ms per round
-    by kernel."""
+    by kernel and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     fed.run_on_device(1)
@@ -1245,7 +1356,7 @@ def profile_phase(fed, out_dir: Path, label: str, rounds: int = 2):
     log(f"profile {label}: ms per round by group " + json.dumps({g: round(v, 3) for g, v in groups.most_common()}))
     for name, ms in by_name.most_common(12):
         log(f"profile {label}: {ms:8.3f} ms/round  {name[:100]}")
-    return by_name
+    return by_name, 1 - busy_ms / span_ms
 
 
 def profile_diff(base, other, label: str, base_label: str):
@@ -1454,7 +1565,7 @@ def remat_probe(data, card):
 def options_phase(data, card):
     """This slice's main path: every case of OPTIONS_CASES through
     Federation.run, TIMING_REPEATS turns over the cases (the order reversed
-    on the middle turn), each engine built, driven OPTIONS_ROUNDS rounds
+    on odd turns), each engine built, driven OPTIONS_ROUNDS rounds
     and freed before the next. The counts are set to 0 before the phase
     and read after it; each round's launches are checked against the
     case's. Returns the per-case results and the phase's counts."""
@@ -2269,6 +2380,181 @@ def faults_phase(data, card):
     return counts
 
 
+# ------------------------------------------------------------------ 12. zoo
+
+# BASELINE config 4 (bench_parity.py:100-124): FedAvg ResNet-18 on CIFAR-100,
+# 64 clients, batch 128, iid, lr 0.05 constant, augmentation; a local epoch
+# of a 781-example shard is its 6 whole batches. The plain round fits an
+# 80 GB card, and remat (fedtpu's switch for this config on a 16 GB v5e)
+# does not lower its peak: config 4 runs without remat, and phase 12 prints
+# both peaks.
+ZOO_CLIENTS = 64
+ZOO_CLASSES = 100
+ZOO_EPOCHS = 5
+ZOO_CASES = [("none", "per_leaf"), ("topk", "per_leaf"), ("int8", "per_leaf"), ("rotq", "flat")]
+ZOO_TIMED_ROUNDS = 2
+# densenet_cifar has no remat in fedtpu, and its concatenations make its
+# activations at 64 clients of batch 128 several times the card's memory
+# (phase 12 prints its peak at 8), so its rounds run 8 clients.
+DENSENET_CLIENTS = 8
+DENSENET_CASES = [("topk", "per_leaf"), ("int8", "per_leaf")]
+DENSENET_ROUNDS = 2
+BF16_PEAK = 989e12  # H100 SXM dense bf16, NVIDIA's data sheet
+
+
+def zoo_cfg(model, codec, layout, clients=ZOO_CLIENTS, classes=ZOO_CLASSES, epochs=1, remat=False):
+    """BASELINE config 4's round (``model`` in place of ResNet-18 for
+    DenseNet), with the update codec switched on."""
+    return RoundConfig(
+        model=model,
+        num_classes=classes,
+        opt=OptimizerConfig(learning_rate=0.05, schedule="constant"),
+        data=DataConfig(dataset="cifar100" if classes == 100 else "cifar10", batch_size=BATCH,
+                        partition="iid", augment=True),
+        fed=FedConfig(num_clients=clients, compression=codec, topk_fraction=TOPK_FRACTION,
+                      delta_layout=layout, local_epochs=epochs),
+        steps_per_round=STEPS,
+        dtype="bfloat16",
+        remat=remat,
+    )
+
+
+def _zoo_small_cfg(model, codec, layout, dataset, clients, batch):
+    return RoundConfig(
+        model=model,
+        num_classes=datasets.dataset_info(dataset)[1],
+        data=DataConfig(dataset=dataset, batch_size=batch, partition="iid", augment=False),
+        fed=FedConfig(num_clients=clients, compression=codec, delta_layout=layout),
+        steps_per_round=2,
+    )
+
+
+# (model, dataset, image size, clients, batch, f64, cases): the zoo's small
+# rounds, card against CPU. MLP (BASELINE config 1: 2 clients, iid) and
+# LeNet are held in f32. The BatchNorm models keep the global model in f64,
+# as the MobileNet reference does: two f32 rounds of VGG11 (8 BatchNorms
+# over 8-example batches) on the card and on the CPU part on most of their
+# coordinates. The ResNets and DenseNet run at small images (the global
+# pool makes the size free; the last map still holds 4 values a channel),
+# VGG11 at its own 32x32.
+ZOO_REFERENCE = [
+    ("mlp", "mnist", (28, 28, 1), 2, 8, False, [("none", "per_leaf"), ("topk", "per_leaf")]),
+    ("lenet", "cifar10", (32, 32, 3), 4, 8, False, [("none", "per_leaf"), ("int8", "per_leaf")]),
+    ("vgg11", "cifar10", (32, 32, 3), 4, 4, True, [("none", "per_leaf")]),
+    ("resnet18", "cifar100", (8, 8, 3), 4, 4, True,
+     [("none", "per_leaf"), ("topk", "per_leaf"), ("int8", "per_leaf"), ("rotq", "flat")]),
+    ("preactresnet18", "cifar10", (8, 8, 3), 4, 4, True, [("none", "per_leaf")]),
+    ("densenet_cifar", "cifar10", (16, 16, 3), 4, 4, True, [("none", "per_leaf"), ("topk", "per_leaf")]),
+]
+
+
+def zoo_reference_phase():
+    """Phase 12 (a): small rounds of every zoo family on the card against
+    the CPU, one round each (two in f32), within the reference tolerance
+    (rotq's params at 2e-4, as MobileNet's)."""
+    rng = np.random.default_rng(12)
+    for model, dataset, size, clients, batch, f64, cases in ZOO_REFERENCE:
+        classes = datasets.dataset_info(dataset)[1]
+        n = clients * 2 * batch
+        if dataset == "mnist":
+            data = datasets.load("mnist", "train", seed=0, num=n)
+        else:
+            data = (rng.standard_normal((n,) + size, dtype=np.float32),
+                    rng.integers(0, classes, size=n).astype(np.int32))
+        mask = torch.ones((clients, 2), dtype=torch.bool)
+        mask[1, 1] = False  # client 1's second step is padding
+        for codec, layout in cases:
+            card_vs_cpu(
+                f"zoo reference: {model} {layout} {codec}", _zoo_small_cfg(model, codec, layout, dataset, clients, batch),
+                data, codec, rounds=1 if f64 else 2, params_atol=2e-4 if codec == "rotq" else 1e-5,
+                f64=f64, step_mask=mask if f64 else None,
+            )
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_phase(data, card, profile_dir=None):
+    """Phase 12 (b)-(c): BASELINE config 4 at full width, then
+    densenet_cifar at 8 clients, both on CIFAR-100 shapes. The launch
+    counts are set to 0 before the first checked round and read after the
+    last: 3 rounds each of ResNet-18 per leaf none (no launch), topk (62
+    K1), int8 (1 K2) and flat rotq (2 K3), round 1's codec re-applied with
+    the plain kernels; the uncompressed engine then times 2 rounds and
+    runs one more under the profiler (the device's idle share); then 2
+    rounds each of DenseNet per leaf topk (362 K1) and int8 (5 K2). Last,
+    2 rounds with remat (for its memory) and 2 of config 4's local work
+    (5 local epochs), the second one timed. Returns the results and the
+    path's counts."""
+    _free()
+    out = {"card": card}
+    flops = model_flops("resnet18", ZOO_CLASSES, ZOO_CLIENTS * STEPS * BATCH)
+    kernels.reset_launch_counts()
+    for model, cases, clients, leaves, rounds in (
+        ("resnet18", ZOO_CASES, ZOO_CLIENTS, RESNET18_LEAVES, CHECK_ROUNDS),
+        ("densenet_cifar", DENSENET_CASES, DENSENET_CLIENTS, DENSENET_LEAVES, DENSENET_ROUNDS),
+    ):
+        codecs = slice_codecs(leaves)
+        for codec, layout in cases:
+            counted, per_round, make_plain = codecs[(codec, layout)]
+            cfg = zoo_cfg(model, codec, layout, clients)
+            rec = Recorder(compression.make_compressor(cfg.fed)) if make_plain else None
+            fed = Federation(cfg, seed=0, data=data, compressor=rec.compressor() if rec else None)
+            tag = f"zoo {model} {clients} clients {layout} {codec}"
+            records = check_rounds(fed, tag, codec, layout, counted, per_round, rec, make_plain,
+                                   rounds=rounds, peak=True)
+            out[f"{model} {layout} {codec}"] = {"clients": clients, "rounds": records}
+            if (model, codec) == ("resnet18", "none"):
+                out["timed"] = _zoo_timing(fed, flops, card)
+                label = "zoo_resnet18_per_leaf_none"
+                with tempfile.TemporaryDirectory() as tmp:
+                    _, out["idle_share"] = profile_phase(fed, profile_dir or Path(tmp), label, rounds=1)
+            del fed, rec
+            _free()
+    counts = _launch_counts()
+    for label, kw in (("remat", dict(remat=True)), ("local_epochs_5", dict(epochs=ZOO_EPOCHS))):
+        fed = Federation(zoo_cfg("resnet18", "none", "per_leaf", **kw), seed=0, data=data)
+        records = check_rounds(fed, f"zoo resnet18 per_leaf none, {label}", "none", "per_leaf", None, 0,
+                               rounds=2, peak=True)
+        secs = records[-1]["round_s"]
+        epochs = kw.get("epochs", 1)
+        out[label] = {
+            "round_s": secs, "rounds_per_s": 1 / secs,
+            "client_epochs_per_s": ZOO_CLIENTS * epochs / secs,
+            "model_tflop_per_round": flops * epochs / 1e12,
+            "mfu_bf16": flops * epochs / secs / BF16_PEAK,
+            "peak_gb": max(r["peak_gb"] for r in records), "card": card,
+        }
+        log(f"zoo: config 4 resnet18 {label}: " + json.dumps(out[label]))
+        del fed
+        _free()
+    log(f"zoo: device idle share of a config-4 round {out['idle_share']:.4f} | {card}")
+    return out, counts
+
+
+def _zoo_timing(fed, flops, card):
+    """ZOO_TIMED_ROUNDS rounds of an engine after its checked rounds:
+    rounds/s, client-epochs/s and MFU against the bf16 peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = fed.run_on_device(ZOO_TIMED_ROUNDS)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / ZOO_TIMED_ROUNDS
+    if not torch.isfinite(m.loss).all():
+        raise RuntimeError(f"zoo timing: non-finite loss {m.loss.tolist()}")
+    result = {
+        "rounds": ZOO_TIMED_ROUNDS, "round_s": secs, "rounds_per_s": 1 / secs,
+        "client_epochs_per_s": ZOO_CLIENTS / secs, "model_tflop_per_round": flops / 1e12,
+        "mfu_bf16": flops / secs / BF16_PEAK, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card,
+    }
+    log("zoo: config 4 resnet18 per_leaf none, timed: " + json.dumps(result))
+    return result
+
+
 # --------------------------------------------------------------- main
 
 
@@ -2281,23 +2567,39 @@ def main(argv=None) -> int:
         "and flat rotq; write the tables to DIR",
     )
     ap.add_argument(
-        "--only", choices=["federation", "faults"],
+        "--only", choices=["federation", "faults", "zoo"],
         help="run the device phase and this phase alone, and print no result line",
     )
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi, name, peaks = device_phase()
+    profile_dir = Path(args.profile) if args.profile else None
+    if args.only == "zoo":
+        build_phase()
+        zoo_reference_phase()
+        zoo_phase(datasets.load("cifar100", "train", seed=0), smi, profile_dir)
+        log(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.only:
         data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
         {"federation": federation_phase, "faults": faults_phase}[args.only](data, smi)
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
+    last = [time.perf_counter()]
+
+    def clock(label):
+        now = time.perf_counter()
+        log(f"clock: {label} took {now - last[0]:.1f} s")
+        last[0] = now
+
     build_phase()
     results = {"threshold_feedback": kernel_phase(peaks), "quantdequant_int8": int8_phase(peaks)}
     results["hadamard_rotate"] = hadamard_phase(peaks)
+    clock("phases 1-3, device, build and kernels")
     reference_phase()
     mobilenet_reference_phase()
     options_reference_phase()
+    clock("phases 4, 6 (reference) and 7")
     data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
     paths = {}
     feds, paths["smallcnn"] = slice_phase(data)
@@ -2307,33 +2609,43 @@ def main(argv=None) -> int:
     timing_phase(feds, smi)
     pack_phase(feds[("none", "flat")], peaks, smi)
     if args.profile:
-        base = profile_phase(feds[("topk", "per_leaf")], Path(args.profile), "per_leaf_topk")
+        base, _ = profile_phase(feds[("topk", "per_leaf")], Path(args.profile), "per_leaf_topk")
         for codec in ("rotq", "int8"):
             label = f"flat_{codec}"
-            profile_diff(base, profile_phase(feds[(codec, "flat")], Path(args.profile), label),
+            profile_diff(base, profile_phase(feds[(codec, "flat")], Path(args.profile), label)[0],
                          label, "per_leaf_topk")
     del feds
     torch.cuda.empty_cache()
+    clock("phase 5, the smallcnn slice")
     mfeds, paths["mobilenet"] = slice_phase(data, "mobilenet", MOBILENET_SLICE, MOBILENET_LEAVES)
-    flops = mobilenet_flops()
+    flops = model_flops()
     rates = timing_phase(mfeds, smi, MOBILENET_SLICE, MOBILENET_TIMED_ROUNDS, "mobilenet")
     for rate in rates.values():
         rate["model_tflop_per_round"] = flops / 1e12
         rate["model_tflop_per_s"] = flops * rate["rounds_per_s"] / 1e12
     log(f"mobilenet: {flops / 1e12:.3f} TFLOP of model FLOPs a round (3x the counted forward)")
     if args.profile:
-        base = profile_phase(mfeds[("topk", "per_leaf")], Path(args.profile), "mobilenet_per_leaf_topk", rounds=1)
-        profile_diff(base, profile_phase(mfeds[("rotq", "flat")], Path(args.profile), "mobilenet_flat_rotq", rounds=1),
+        base, _ = profile_phase(mfeds[("topk", "per_leaf")], Path(args.profile), "mobilenet_per_leaf_topk", rounds=1)
+        profile_diff(base, profile_phase(mfeds[("rotq", "flat")], Path(args.profile), "mobilenet_flat_rotq", rounds=1)[0],
                      "mobilenet_flat_rotq", "mobilenet_per_leaf_topk")
     del mfeds
     torch.cuda.empty_cache()
     mobilenet_options_phase(data, smi)
+    clock("phase 6, MobileNet")
     _, paths["options"] = options_phase(data, smi)
     remat_probe(data, smi)
+    clock("phase 8, the options")
     edge_reference_phase()
     edge_phase(data, smi)
+    clock("phase 9, the edge")
     federation_phase(data, smi)
+    clock("phase 10, the federation")
     faults_phase(data, smi)
+    clock("phase 11, the faults")
+    zoo_reference_phase()
+    clock("phase 12 (a), the zoo's reference")
+    _, paths["zoo"] = zoo_phase(datasets.load("cifar100", "train", seed=0), smi, profile_dir)
+    clock("phase 12 (b)-(c), config 4 and DenseNet")
     for kname in kernels.KERNELS:
         for path, counts in paths.items():
             if counts[kname] == 0:

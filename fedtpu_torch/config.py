@@ -5,8 +5,8 @@ with the same names and defaults, so that one set of keyword arguments
 builds the same run in both packages. :func:`validate` raises fedtpu's
 ``ValueError`` for a combination fedtpu forbids, and ``NotImplementedError``
 naming the ROADMAP.md item that ports an option the port does not run yet
-(the massive-cohort population, the datasets and models of the rest of the
-zoo): a setting is never silently ignored.
+(the massive-cohort population, the models of slice 7, part 2): a setting
+is never silently ignored.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ class OptimizerConfig:
 class DataConfig:
     """Dataset, partition and device layout."""
 
-    dataset: str = "cifar10"  # cifar10 | cifar100 | mnist | synthetic
+    dataset: str = "cifar10"  # cifar10 | cifar100 | mnist | cifar10_hard | cifar100_hard | synthetic
     batch_size: int = 128
     eval_batch_size: int = 100
     partition: str = "round_robin"  # round_robin | iid | dirichlet
@@ -261,7 +261,7 @@ class RoundConfig:
     fed: FedConfig = dataclasses.field(default_factory=FedConfig)
     steps_per_round: int = 8
     dtype: str = "float32"  # activation dtype; params stay f32
-    remat: bool = False  # per-block recompute (MobileNet's blocks)
+    remat: bool = False  # per-block recompute (MobileNet, ResNet, PreAct-ResNet blocks)
 
 
 def resolve_compute_dtype(cfg: RoundConfig) -> str:

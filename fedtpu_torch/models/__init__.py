@@ -1,6 +1,57 @@
-"""The port's model zoo (smallcnn and MobileNet so far)."""
+"""The port's model zoo: slice 7, part 1 of ``fedtpu.models``.
 
-from fedtpu_torch.models import mobilenet, smallcnn  # noqa: F401  (register themselves)
+Constructor names mirror fedtpu's (``MLP()``, ``LeNet()``, ``ResNet18()``,
+``PreActResNet18()``, ``VGG('VGG19')``, ``DenseNet121()``,
+``densenet_cifar()``, ...), and every model is reachable by fedtpu's
+registry name through :func:`create`. The rest of fedtpu's zoo
+(``registry.NOT_PORTED``) raises ``NotImplementedError`` naming its
+ROADMAP.md item.
+"""
+
 from fedtpu_torch.models.registry import available, create
 
-__all__ = ["available", "create"]
+from fedtpu_torch.models.mlp import MLP
+from fedtpu_torch.models.smallcnn import SmallCNN
+from fedtpu_torch.models.lenet import LeNet
+from fedtpu_torch.models.mobilenet import MobileNet
+from fedtpu_torch.models.resnet import ResNet18, ResNet34, ResNet50, ResNet101, ResNet152
+from fedtpu_torch.models.preact_resnet import (
+    PreActResNet18,
+    PreActResNet34,
+    PreActResNet50,
+    PreActResNet101,
+    PreActResNet152,
+)
+from fedtpu_torch.models.vgg import VGG
+from fedtpu_torch.models.densenet import (
+    DenseNet121,
+    DenseNet161,
+    DenseNet169,
+    DenseNet201,
+    densenet_cifar,
+)
+
+__all__ = [
+    "available",
+    "create",
+    "MLP",
+    "SmallCNN",
+    "LeNet",
+    "MobileNet",
+    "ResNet18",
+    "ResNet34",
+    "ResNet50",
+    "ResNet101",
+    "ResNet152",
+    "PreActResNet18",
+    "PreActResNet34",
+    "PreActResNet50",
+    "PreActResNet101",
+    "PreActResNet152",
+    "VGG",
+    "DenseNet121",
+    "DenseNet161",
+    "DenseNet169",
+    "DenseNet201",
+    "densenet_cifar",
+]

@@ -1,8 +1,11 @@
 """Shared building blocks of the port's model zoo.
 
-The port of ``fedtpu.models.common``: fedtpu's ``BatchNorm`` and
+The port of ``fedtpu.models.common``: fedtpu's ``BatchNorm``, its
+bias-free ``conv3x3``/``conv1x1``, ``max_pool``, ``avg_pool`` and
 ``global_avg_pool``. Models take NHWC inputs at their public boundary and
-run NCHW inside, torch's default layout for convolutions.
+run NCHW inside, torch's default layout for convolutions. fedtpu's
+``FEDTPU_TILED_POOL`` opt-in changes only its own max-pool's backward
+formulation, not the function, and the port does not read it.
 
 A model with batch statistics follows one calling convention, the torch
 form of flax's ``apply(..., train=True, mutable=["batch_stats"])``:
@@ -24,6 +27,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 Stats = Dict[str, torch.Tensor]
 
@@ -187,6 +191,14 @@ def recompute_block(block: nn.Module, x: torch.Tensor, stats: Stats) -> torch.Te
     return y
 
 
+def run_block(block: nn.Module, x: torch.Tensor, stats: Optional[Stats], remat: bool) -> torch.Tensor:
+    """``block(x, stats)``, through :func:`recompute_block` when ``remat``
+    is asked for and a train-mode backward will follow."""
+    if remat and stats is not None and torch.is_grad_enabled():
+        return recompute_block(block, x, stats)
+    return block(x, stats)
+
+
 def name_batch_norms(model: nn.Module) -> nn.Module:
     """Give every ``BatchNorm`` of ``model`` its dotted path, so that the
     statistics it returns in train mode carry its buffers' names."""
@@ -194,6 +206,28 @@ def name_batch_norms(model: nn.Module) -> nn.Module:
         if isinstance(mod, BatchNorm):
             mod.path = f"{name}." if name else ""
     return model
+
+
+def conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
+    """fedtpu's ``conv3x3``: 3x3, padding 1 on each side, no bias."""
+    return nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1, bias=False)
+
+
+def conv1x1(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
+    """fedtpu's ``conv1x1``: 1x1, no padding, no bias."""
+    return nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None) -> torch.Tensor:
+    """fedtpu's ``max_pool`` on an NCHW tensor: VALID padding, the stride
+    equal to the window unless given."""
+    return F.max_pool2d(x, window, stride or window)
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: Optional[int] = None) -> torch.Tensor:
+    """fedtpu's ``avg_pool`` on an NCHW tensor: VALID padding, the stride
+    equal to the window unless given."""
+    return F.avg_pool2d(x, window, stride or window)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

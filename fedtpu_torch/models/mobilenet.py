@@ -30,7 +30,7 @@ from fedtpu_torch.models.common import (
     Stats,
     global_avg_pool,
     name_batch_norms,
-    recompute_block,
+    run_block,
 )
 from fedtpu_torch.models.registry import register
 
@@ -95,11 +95,7 @@ class MobileNet(nn.Module):
         x = x.permute(0, 3, 1, 2)
         x = F.relu(self.BatchNorm_0(self.Conv_0(x), stats))
         for count in range(len(_CFG)):
-            block = getattr(self, f"DepthwiseSeparable_{count}")
-            if self.remat and train and torch.is_grad_enabled():
-                x = recompute_block(block, x, stats)
-            else:
-                x = block(x, stats)
+            x = run_block(getattr(self, f"DepthwiseSeparable_{count}"), x, stats, self.remat)
         logits = self.Dense_0(global_avg_pool(x))
         return (logits, stats) if train else logits
 

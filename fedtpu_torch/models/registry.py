@@ -1,4 +1,11 @@
-"""Model registry: a model is a config value, looked up by name."""
+"""Model registry: a model is a config value, looked up by name.
+
+The names are fedtpu's (``fedtpu.models.registry``), case-insensitive. The
+families of slice 7, part 1 are ported (MLP, smallcnn, LeNet, MobileNet,
+ResNet, PreAct-ResNet, VGG, DenseNet); a name of fedtpu's zoo that is not
+(``NOT_PORTED``) raises ``NotImplementedError`` naming its ROADMAP.md item,
+and a name fedtpu does not know raises ``KeyError``, as fedtpu's does.
+"""
 
 from __future__ import annotations
 
@@ -7,7 +14,19 @@ from typing import Callable, Dict, Tuple
 
 from torch import nn
 
+from fedtpu_torch.config import not_ported
+
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {}
+
+# fedtpu's registered names still to port (ROADMAP.md Queue 1, slice 7,
+# part 2), in the order they are ported.
+NOT_PORTED = (
+    "mobilenetv2", "googlenet",
+    "resnext29_2x64d", "resnext29_4x64d", "resnext29_8x64d", "resnext29_32x4d",
+    "senet18", "dpn26", "dpn92", "shufflenetg2", "shufflenetg3", "shufflenetv2",
+    "efficientnetb0", "regnetx_200mf", "regnetx_400mf", "regnety_400mf",
+    "pnasneta", "pnasnetb", "dla", "simpledla",
+)
 
 
 def register(name: str):
@@ -28,12 +47,10 @@ def create(
     ``image_size``; ``remat=True`` asks for per-block recompute, which only
     some models have (fedtpu's ``ValueError`` otherwise)."""
     key = name.lower()
+    if key in NOT_PORTED:
+        raise not_ported(f"model '{name}'", "slice 7, part 2: the rest of the zoo")
     if key not in _REGISTRY:
-        raise NotImplementedError(
-            f"model '{name}' is not ported to fedtpu_torch yet (ROADMAP.md "
-            f"Queue 1, slice 7: the rest of the zoo); "
-            f"available: {available()}"
-        )
+        raise KeyError(f"unknown model '{name}'; available: {available()}")
     ctor = _REGISTRY[key]
     kwargs = dict(num_classes=num_classes, image_size=tuple(image_size))
     if "remat" in inspect.signature(ctor).parameters:

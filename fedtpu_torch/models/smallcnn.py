@@ -9,6 +9,9 @@ weight is the flax kernel transposed and nothing else
 (``tests/test_torch_models.py`` pins the order). It has no batch
 statistics: in train mode it returns ``(logits, {})``, the calling
 convention of :mod:`fedtpu_torch.models.common`.
+
+``smallcnn_avgpool`` is fedtpu's perf-ablation variant: the same
+parameters, both max-pools replaced by average pools.
 """
 
 from __future__ import annotations
@@ -19,13 +22,17 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from fedtpu_torch.models.common import avg_pool, max_pool
 from fedtpu_torch.models.registry import register
 
 
 class SmallCNN(nn.Module):
-    def __init__(self, num_classes: int = 10, image_size: Tuple[int, int, int] = (32, 32, 3)):
+    def __init__(
+        self, num_classes: int = 10, image_size: Tuple[int, int, int] = (32, 32, 3), pool: str = "max"
+    ):
         super().__init__()
         h, w, c = image_size
+        self.pool = max_pool if pool == "max" else avg_pool
         self.Conv_0 = nn.Conv2d(c, 32, 3, padding=1)
         self.Conv_1 = nn.Conv2d(32, 64, 3, padding=1)
         self.Dense_0 = nn.Linear(64 * (h // 4) * (w // 4), 128)
@@ -35,8 +42,8 @@ class SmallCNN(nn.Module):
         """``x: [n, h, w, c]`` -> logits ``[n, num_classes]``, or
         ``(logits, {})`` with ``train=True``."""
         x = x.permute(0, 3, 1, 2)
-        x = F.max_pool2d(F.relu(self.Conv_0(x)), 2)
-        x = F.max_pool2d(F.relu(self.Conv_1(x)), 2)
+        x = self.pool(F.relu(self.Conv_0(x)), 2)
+        x = self.pool(F.relu(self.Conv_1(x)), 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         logits = self.Dense_1(F.relu(self.Dense_0(x)))
         return (logits, {}) if train else logits
@@ -45,3 +52,8 @@ class SmallCNN(nn.Module):
 @register("smallcnn")
 def make_smallcnn(num_classes: int = 10, image_size=(32, 32, 3)) -> nn.Module:
     return SmallCNN(num_classes, image_size)
+
+
+@register("smallcnn_avgpool")
+def make_smallcnn_avgpool(num_classes: int = 10, image_size=(32, 32, 3)) -> nn.Module:
+    return SmallCNN(num_classes, image_size, pool="avg")

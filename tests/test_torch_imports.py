@@ -8,7 +8,8 @@ modules import grpc. The coordinator (``fedtpu_torch.ft``,
 (``fedtpu_torch.ft.chaos``, ``transport.codec_policy``,
 ``transport.aggregator``) are held to the same boundary;
 ``fedtpu_torch.ft`` loads no grpc (the chaos interceptors import it when
-they are built).
+they are built). The zoo (``fedtpu_torch.models``' families and
+``fedtpu_torch.data.datasets``' loaders) loads none of them either.
 
 One check imports every module in a fresh interpreter and looks at
 ``sys.modules``; the other reads every source file's imports. Top-level
@@ -128,6 +129,21 @@ def test_fault_injection_policy_and_tier_load_no_jax_and_no_fedtpu():
     loaded = _loaded_by("from fedtpu_torch.transport.aggregator import AggregatorServer  # noqa: F401")
     assert {"fedtpu_torch", "grpc"} <= loaded
     assert not FORBIDDEN & loaded, FORBIDDEN & loaded
+
+
+ZOO_MODULES = [
+    "fedtpu_torch.models.mlp", "fedtpu_torch.models.lenet", "fedtpu_torch.models.smallcnn",
+    "fedtpu_torch.models.resnet", "fedtpu_torch.models.preact_resnet", "fedtpu_torch.models.vgg",
+    "fedtpu_torch.models.densenet", "fedtpu_torch.models.registry", "fedtpu_torch.data.datasets",
+]
+
+
+def test_zoo_loads_no_jax_no_fedtpu_and_no_grpc():
+    for path in ZOO_MODULES:
+        assert (ROOT / (path.replace(".", "/") + ".py")).exists(), path
+    loaded = _loaded_by("import " + ", ".join(ZOO_MODULES) + "  # noqa: F401")
+    assert "fedtpu_torch" in loaded
+    assert not (FORBIDDEN | NOT_ON_THE_CARD) & loaded, (FORBIDDEN | NOT_ON_THE_CARD) & loaded
 
 
 def test_no_source_file_imports_jax_or_fedtpu():

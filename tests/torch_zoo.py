@@ -1,0 +1,49 @@
+"""Shared helpers of the zoo's parity tests: fedtpu's variables for a
+model, in numpy, from a seed."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from fedtpu import models as jmodels
+
+_SHAPES = {}
+
+
+def image_shape(name):
+    """The input fedtpu's benches give a model: MNIST for the MLPs."""
+    return (28, 28, 1) if name.startswith("mlp") else (32, 32, 3)
+
+
+def _shapes(name, classes, size):
+    key = (name, classes, size)
+    if key not in _SHAPES:
+        model = jmodels.create(name, num_classes=classes)
+        _SHAPES[key] = jax.eval_shape(
+            lambda k: model.init(k, jnp.zeros((1,) + size), train=False), jax.random.PRNGKey(0)
+        )
+    return _SHAPES[key]
+
+
+def flax_variables(name, classes, size, seed):
+    """``(params, batch_stats)`` of fedtpu's ``name`` as nested numpy
+    trees (``{}`` for a model without statistics): kernels normal with
+    variance 1 / fan_in, biases small, BatchNorm leaves away from their
+    init (scale 1 + 0.2 n, bias and mean 0.1 n, var in [0.5, 2])."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = path[-1].key
+        normal = rng.standard_normal(s.shape, dtype=np.float32)
+        if name == "kernel":
+            return normal * np.float32(1 / np.sqrt(np.prod(s.shape[:-1])))
+        if name == "scale":
+            return 1 + np.float32(0.2) * normal
+        if name == "var":
+            return np.float32(0.5) + np.float32(1.5) * rng.random(s.shape, dtype=np.float32)
+        return np.float32(0.1) * normal  # bias, mean
+
+    shapes = _shapes(name, classes, size)
+    return tuple(
+        jax.tree_util.tree_map_with_path(leaf, shapes.get(c, {})) for c in ("params", "batch_stats")
+    )
