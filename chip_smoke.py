@@ -4,24 +4,25 @@
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile DIR   # also torch.profiler tables in DIR
     python3 chip_smoke.py --only zoo      # the device and build phases, then phase 12
+    python3 chip_smoke.py --only kernels  # the device and build phases, then K1's part of phase 3
 
 Phases, each of which raises on failure (exit code not 0, no result line):
 
 1. device: a CUDA card is required; its name and power limit as
    ``nvidia-smi`` reports them; TF32 off for the parity phases.
 2. build: ``nvcc`` builds every kernel from ``fedtpu_torch/csrc``.
-3. kernels: K1 against its plain PyTorch version at the per-leaf
-   rounds' shapes (smallcnn's 8, MobileNet's 83, ResNet-18's 62 at 100
-   classes and densenet_cifar's 362 leaves x 64 clients), at both flat
-   rows and at ragged shapes; the grouped K2 against its plain version
-   over each round's leaves as one call (one launch for ResNet-18's, 5 for
-   densenet_cifar's), ragged and empty leaves,
-   views off 16-byte alignment and 200 leaves (one launch per table of
-   leaves), timed in turns as one launch a round, one launch a leaf,
+3. kernels: the grouped K1 and K2 against their plain PyTorch versions
+   over each per-leaf round's leaves as one call (smallcnn's 8,
+   MobileNet's 83, ResNet-18's 62 at 100 classes and densenet_cifar's 362
+   leaves x 64 clients: K1 in 1, 2, 1 and 5 launches, K2 in 1, 1, 1 and
+   5), ragged and empty leaves, views off 16-byte alignment and 200
+   leaves (one launch per table of leaves), K1 also a leaf of 70,000 rows
+   and both flat rows (one launch each); timed in turns at the small
+   models as one call a round, one launch a leaf, (K2)
    torch.fake_quantize_per_channel_affine one call a leaf and a device
-   copy of the same bytes; K3 forward and inverse at the rotq row
-   [64, 2^20], MobileNet's [64, 2^22], [8, 2^22], ResNet-18's
-   [64, 2^24] and widths and row counts
+   copy of the same bytes, at the zoo's as one call; K3 forward and
+   inverse at the rotq row [64, 2^20], MobileNet's [64, 2^22], [8, 2^22],
+   ResNet-18's [64, 2^24] and widths and row counts
    around its phase boundary and lag, with -0.0, zeros and large
    magnitudes. Outputs must be bit-equal, and K3's inverse(forward(y))
    within 1e-5 of y. Kernel and plain version are timed with CUDA events,
@@ -43,7 +44,7 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    clients, steps, batch and dtype): a small MobileNet round on the card
    against the same round on the CPU, both with the global model in f64;
    then 3 rounds each of per-leaf none, topk and int8 and flat topk and
-   rotq with the counts reset before and read after (83 K1, 1 K2, 1 K1,
+   rotq with the counts reset before and read after (2 K1, 1 K2, 1 K1,
    2 K3 a round, 0 of the others), round 1's codec re-applied with the
    plain kernels, finite losses and BatchNorm statistics; one gather-layout
    round and one server-adam round; timed rounds of every case, with the
@@ -129,7 +130,7 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    ResNet-18 at 100 classes on CIFAR-100 shapes (the synthetic fallback,
    50,000 examples), 64 clients, batch 128, 6 local steps, iid, bf16, lr
    0.05 constant, augmentation: 3 rounds each of per-leaf none, topk and
-   int8 and flat rotq with the counts set to 0 before and read after (62
+   int8 and flat rotq with the counts set to 0 before and read after (1
    K1, 1 K2, 2 K3 a round, 0 of the others), round 1's codec re-applied
    with the plain kernels, finite losses and statistics; the uncompressed
    round timed (rounds/s, client-epochs/s, MFU against the bf16 peak) and
@@ -137,7 +138,7 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    a round of 5 local epochs (config 4's local work), with peak memory.
    (c) densenet_cifar per-leaf topk and int8, 2 rounds each, at 8 clients
    (its activations at 64 do not fit the card; fedtpu's DenseNet has no
-   remat): 362 K1 and 5 K2 a round. ``--only zoo`` runs the device and
+   remat): 5 K1 and 5 K2 a round. ``--only zoo`` runs the device and
    build phases and this one alone.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
@@ -207,13 +208,13 @@ KERNEL_INFO = {
     "threshold_feedback": dict(
         replaces="fedtpu/ops/pallas_kernels.py:108",
         tpu_function="threshold_with_feedback",
-        source="fedtpu_torch/csrc/threshold_feedback.cu",
+        source="fedtpu_torch/csrc/threshold_feedback.cu", codec="topk",
         bytes_per_elem=12, bytes_per_row=4, ops_per_elem=3,
     ),
     "quantdequant_int8": dict(
         replaces="fedtpu/ops/pallas_kernels.py:233",
         tpu_function="quantdequant_int8",
-        source="fedtpu_torch/csrc/quantdequant_int8.cu",
+        source="fedtpu_torch/csrc/quantdequant_int8.cu", codec="int8",
         bytes_per_elem=8, bytes_per_row=4, ops_per_elem=5,
     ),
     "hadamard_rotate": dict(
@@ -343,10 +344,6 @@ def _bits_equal(a, b) -> bool:
     return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
-def _as_tuple(out):
-    return out if isinstance(out, tuple) else (out,)
-
-
 def _time_ms(fn, runs=21, calls=10, own_syncs=False) -> float:
     """Device time of one call, in ms: the median over ``runs`` of
     ``calls`` calls enqueued back to back between two CUDA events, divided
@@ -396,55 +393,200 @@ def _bound(bytes_moved, ops, peaks):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def _per_round(name, wrapper, plain, rng, dev, shapes, peaks, runs=21):
-    """Bit-equality at every shape; kernel and plain times, bytes and
-    operations summed over one round's launches at ``shapes``."""
-    info = KERNEL_INFO[name]
-    max_err = ms = plain_ms = bytes_moved = ops = 0.0
-    for rows, cols in shapes:
-        x, v = _inputs(name, rng, rows, cols, dev)
-        max_err = max(max_err, _check_bits(name, wrapper, plain, x, v))
-        ms += _time_ms(lambda: wrapper(x, v), runs=runs)
-        plain_ms += _time_ms(lambda: plain(x, v), runs=runs)
-        bytes_moved += rows * cols * info["bytes_per_elem"] + rows * info["bytes_per_row"]
-        ops += rows * cols * info["ops_per_elem"]
-    bound_ms, bound_by = _bound(bytes_moved, ops, peaks)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": bytes_moved, "launches_per_round": len(shapes)}, max_err
+# The grouped kernels: (grouped wrapper, its plain version leaf by leaf,
+# leaves a launch).
+GROUPED = {
+    "threshold_feedback": (kernels.threshold_feedback_grouped, kernels.threshold_feedback_grouped_plain,
+                           kernels.THRESHOLD_GROUP_CAPACITY),
+    "quantdequant_int8": (kernels.quantdequant_int8_grouped, kernels.quantdequant_int8_grouped_plain,
+                          kernels.INT8_GROUP_CAPACITY),
+}
 
 
-def _check_bits(name, wrapper, plain, x, v) -> float:
-    got = _as_tuple(wrapper(x, v))
-    want = _as_tuple(plain(x, v))
+def _launches(name, xs) -> int:
+    """Launches of a grouped kernel over leaves ``xs``: one per table of
+    non-empty leaves."""
+    return -(-sum(x.numel() > 0 for x in xs) // GROUPED[name][2])
+
+
+def _by_leaf(outs):
+    """A grouped call's outputs as one tuple per leaf (K1 returns ``(outs,
+    new_es)``, K2 ``outs``)."""
+    return list(zip(*outs)) if isinstance(outs, tuple) else [(o,) for o in outs]
+
+
+def _leaves(name, rng, shapes, dev, misaligned=()):
+    """A grouped kernel's operands at ``shapes`` (``_inputs``; zeros for an
+    empty leaf), the leaves at ``misaligned`` as views one float past
+    16-byte alignment."""
+    xs, vs = [], []
+    for i, (rows, cols) in enumerate(shapes):
+        if rows * cols == 0:
+            x, v = torch.zeros((rows, cols), device=dev), torch.zeros((rows,), device=dev)
+        else:
+            x, v = _inputs(name, rng, rows, cols, dev)
+        if i in misaligned:
+            buf = torch.zeros(x.numel() + 1, device=dev)
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(rows, cols)
+        xs.append(x)
+        vs.append(v)
+    return xs, vs
+
+
+def _check_group(name, label, xs, vs) -> float:
+    """One grouped call bit-equal to the plain version leaf by leaf, in
+    one launch per table of leaves."""
+    grouped, plain, _ = GROUPED[name]
+    wrapper = kernels.KERNELS[name][0]
+    before = wrapper.launches
+    got = _by_leaf(grouped(xs, vs))
+    want = _by_leaf(plain(xs, vs))
     torch.cuda.synchronize()
+    launches = wrapper.launches - before
+    if launches != _launches(name, xs):
+        raise RuntimeError(
+            f"kernels: grouped {name} over {label} launched {launches} times, "
+            f"expected {_launches(name, xs)}")
     err = 0.0
-    for g, w in zip(got, want):
-        err = max(err, float((g - w).abs().max()))
-        if not _bits_equal(g, w):
-            raise RuntimeError(f"kernels: {name} differs from its plain version at {tuple(x.shape)}")
+    for x, gs, ws in zip(xs, got, want):
+        for g, w in zip(gs, ws):
+            if not _bits_equal(g, w):
+                raise RuntimeError(
+                    f"kernels: grouped {name} differs from its plain version at {tuple(x.shape)} ({label})")
+            if x.numel():
+                err = max(err, float((g - w).abs().max()))
     return err
 
 
-def kernel_phase(peaks):
-    """K1 at the per-leaf rounds' shapes (timed, summed over one round's
-    leaves: smallcnn's 8, MobileNet's 83, ResNet-18's 62, densenet_cifar's
-    362), at ragged ones and at both flat rows."""
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    name = "threshold_feedback"
-    wrapper, plain = kernels.KERNELS[name]
+def _check_cases(name, rng, dev, rounds, extra=None) -> float:
+    """The grouped kernel bit-equal over each round's leaves, ragged
+    leaves, a list that mixes empty, 1-, 10- and 65,537-column leaves,
+    leaves passed as views one float past 16-byte alignment, 200 leaves
+    (more than one launch's table) and ``extra``; returns the largest
+    difference."""
+    cases = {
+        **rounds,
+        "ragged": _leaves(name, rng, RAGGED, dev),
+        "mixed": _leaves(name, rng, [(0, 5), (3, 0), (2, 1), (3, 10), (2, 65537), (1, 1), (5, 7)], dev),
+        "misaligned": _leaves(
+            name, rng, [(3, 4099), (1, 2), (2, 65537), (4, 10), (64, 1000)], dev, misaligned=(0, 1, 2, 4)),
+        "200 leaves": _leaves(name, rng, [(2, 1 + i % 37) for i in range(200)], dev),
+        **{label: _leaves(name, rng, shapes, dev) for label, shapes in (extra or {}).items()},
+    }
+    max_err = max(_check_group(name, label, *leaves) for label, leaves in cases.items())
+    log(f"kernels: {name} grouped bit-equal over {', '.join(cases)}")
+    return max_err
+
+
+def _round_bound(name, xs, peaks):
+    """(bytes, bound in ms, what bounds it) of a kernel over leaves ``xs``."""
     info = KERNEL_INFO[name]
-    small, err = _per_round(name, wrapper, plain, rng, dev, per_leaf_shapes("smallcnn"), peaks)
-    mobile, err2 = _per_round(name, wrapper, plain, rng, dev, per_leaf_shapes("mobilenet"), peaks)
-    zoo = {}
-    for model, classes in (("resnet18", 100), ("densenet_cifar", 10)):
-        zoo[model], zoo_err = _per_round(
-            name, wrapper, plain, rng, dev, per_leaf_shapes(model, classes), peaks, runs=ZOO_TIMING_RUNS)
-        err2 = max(err2, zoo_err)
-    max_err = max(err, err2)
-    for rows, cols in RAGGED:
-        max_err = max(max_err, _check_bits(name, wrapper, plain, *_inputs(name, rng, rows, cols, dev)))
-    result = {
+    bytes_moved = sum(x.numel() * info["bytes_per_elem"] + x.shape[0] * info["bytes_per_row"] for x in xs)
+    ops = sum(x.numel() * info["ops_per_elem"] for x in xs)
+    return (bytes_moved, *_bound(bytes_moved, ops, peaks))
+
+
+def _host_ms(grouped, xs, vs) -> float:
+    """The host's time to enqueue one grouped call, in ms (20 calls)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        grouped(xs, vs)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    return host_ms
+
+
+def _leaf_by_leaf(fn, operands, own_syncs=False, runs=21):
+    """A form that times ``fn`` on each leaf's operands and sums."""
+    return lambda: sum(_time_ms(lambda: fn(*ops), runs=runs, own_syncs=own_syncs) for ops in operands)
+
+
+def _grouped_round(name, label, xs, vs, peaks, extra_forms=None):
+    """A grouped kernel over one small model's per-leaf round, timed in
+    turns (each form, then the same backwards): (a) the grouped call, (b)
+    the same kernel one leaf a launch, ``extra_forms`` (K2: the library
+    call one leaf a call) and a device copy of the same bytes as a
+    yardstick; each beside the bytes bound. The forms that launch per leaf
+    are timed leaf by leaf and summed (a run of 83 leaves' launches fills
+    the card's queue of pending launches). Also the plain version's time
+    leaf by leaf and the host's time to enqueue a grouped call."""
+    grouped = GROUPED[name][0]
+    one_leaf, plain = kernels.KERNELS[name]
+    bytes_moved, bound_ms, bound_by = _round_bound(name, xs, peaks)
+    # The copy reads and writes half the kernel's bytes per element each.
+    elems = sum(x.numel() for x in xs) * KERNEL_INFO[name]["bytes_per_elem"] // 8
+    copy_in = torch.empty(elems, device=xs[0].device)
+    copy_out = torch.empty_like(copy_in)
+    forms = {
+        "grouped": lambda: _time_ms(lambda: grouped(xs, vs)),
+        "per_leaf": _leaf_by_leaf(one_leaf, list(zip(xs, vs))),
+        **(extra_forms or {}),
+        "copy": lambda: _time_ms(lambda: copy_out.copy_(copy_in)),
+    }
+    turns = {k: [] for k in forms}
+    for form in [*forms, *reversed(forms)]:
+        turns[form].append(forms[form]())
+    ms = {k: statistics.mean(v) for k, v in turns.items()}
+    out = {
+        "leaves": len(xs), "ms": ms["grouped"], **{f"{k}_ms": v for k, v in ms.items() if k != "grouped"},
+        "plain_ms": _leaf_by_leaf(plain, list(zip(xs, vs)))(), "turns_ms": turns,
+        "host_ms_per_grouped_call": _host_ms(grouped, xs, vs),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
+        **{f"{k}_share_of_bound": bound_ms / v for k, v in ms.items()},
+        "implied_tb_per_s": bytes_moved / ms["grouped"] / 1e9,
+        "launches_per_round": _launches(name, xs),
+    }
+    log(f"kernels: {name} over one {label} per-leaf round: " + json.dumps(out))
+    return out
+
+
+def _grouped_zoo_round(name, label, xs, vs, peaks):
+    """A grouped kernel over a zoo model's per-leaf round (one launch per
+    table of leaves), timed as one call, beside its bound, the plain
+    version leaf by leaf (a run of hundreds of leaves' plain ops would fill
+    the card's queue of pending launches) and the host's time to enqueue a
+    grouped call."""
+    grouped = GROUPED[name][0]
+    ms = _time_ms(lambda: grouped(xs, vs))
+    bytes_moved, bound_ms, bound_by = _round_bound(name, xs, peaks)
+    out = {
+        "leaves": len(xs), "ms": ms,
+        "plain_ms": _leaf_by_leaf(kernels.KERNELS[name][1], list(zip(xs, vs)), runs=ZOO_TIMING_RUNS)(),
+        "host_ms_per_grouped_call": _host_ms(grouped, xs, vs),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved, "share_of_bound": bound_ms / ms,
+        "implied_tb_per_s": bytes_moved / ms / 1e9,
+        "launches_per_round": _launches(name, xs),
+    }
+    log(f"kernels: {name} over one {label} per-leaf round: " + json.dumps(out))
+    return out
+
+
+def _grouped_phase(name, seed, peaks, extra_cases=None, round_forms=None):
+    """A grouped kernel's phase: bit-equal over each per-leaf round's leaves
+    as one call and the edge lists (``_check_cases``), then timed over each
+    round's leaves (``round_forms(xs, vs)`` adds forms and numbers to the
+    small models' turns). Returns the kernels line's entry."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    rounds = {m: _leaves(name, rng, per_leaf_shapes(m), dev) for m in ("smallcnn", "mobilenet")}
+    zoo = {
+        "resnet18": _leaves(name, rng, per_leaf_shapes("resnet18", 100), dev),
+        "densenet_cifar": _leaves(name, rng, per_leaf_shapes("densenet_cifar"), dev),
+    }
+    max_err = _check_cases(name, rng, dev, {**rounds, **zoo}, extra_cases)
+    timed = {}
+    for model, label in (("smallcnn", "smallcnn"), ("mobilenet", "MobileNet")):
+        forms, more = round_forms(*rounds[model]) if round_forms else ({}, dict)
+        timed[model] = _grouped_round(name, label, *rounds[model], peaks, forms)
+        timed[model].update(more())
+    for model, label in (("resnet18", "ResNet-18"), ("densenet_cifar", "densenet_cifar")):
+        timed[model] = _grouped_zoo_round(name, label, *zoo[model], peaks)
+    del zoo, rounds
+    info = KERNEL_INFO[name]
+    small = timed["smallcnn"]
+    return {
         "name": name,
         "route": "cuda",
         "source": info["source"],
@@ -458,65 +600,40 @@ def kernel_phase(peaks):
         "bound_ms": small["bound_ms"],
         "bound_by": small["bound_by"],
         "bytes": small["bytes"],
-        "library_ms": None,  # no single PyTorch call computes this function
-        "per": f"one smallcnn per-leaf round (eight launches, {NUM_CLIENTS} clients)",
-        "mobilenet_per_leaf_round": mobile,
-        "resnet18_per_leaf_round": zoo["resnet18"],
-        "densenet_per_leaf_round": zoo["densenet_cifar"],
+        "library_ms": small.get("library_ms"),
+        "per": f"one smallcnn per-leaf {info['codec']} round (eight leaves in one launch, {NUM_CLIENTS} clients)",
+        "smallcnn_per_leaf_round": small,
+        "mobilenet_per_leaf_round": timed["mobilenet"],
+        "resnet18_per_leaf_round": timed["resnet18"],
+        "densenet_per_leaf_round": timed["densenet_cifar"],
     }
+
+
+def kernel_phase(peaks):
+    """K1, grouped: bit-equal to its plain version leaf by leaf as one call
+    per round (smallcnn's 8 leaves in one launch, MobileNet's 83 in 2,
+    ResNet-18's 62 in 1, densenet_cifar's 362 in 5) and over the edge lists
+    and a leaf of 70,000 rows (past the 65,535 of a grid axis); timed over
+    each round's leaves; then each flat row in one launch, bit-equal and
+    timed. No single PyTorch call computes K1's two outputs: no library
+    yardstick."""
+    name = "threshold_feedback"
+    result = _grouped_phase(name, 0, peaks, extra_cases={"70,000 rows": [(70_000, 3)]})
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    wrapper, plain = kernels.KERNELS[name]
     for model, cols in (("smallcnn", FLAT_P), ("mobilenet", MOBILENET_FLAT_P)):
-        flat_row, _ = _per_round(name, wrapper, plain, rng, dev, [(NUM_CLIENTS, cols)], peaks)
-        result[f"{model}_flat_row"] = {"shape": [NUM_CLIENTS, cols], **flat_row}
-    log(
-        f"kernels: {name} bit-equal at "
-        f"{8 + MOBILENET_LEAVES + RESNET18_LEAVES + DENSENET_LEAVES + len(RAGGED)}+ shapes; "
-        f"one smallcnn round's 8 leaves: kernel {small['ms']:.4f} ms, plain "
-        f"{small['plain_ms']:.4f} ms, bound {small['bound_ms']:.4f} ms; one MobileNet "
-        f"round's 83 leaves: {json.dumps(mobile)} | ResNet-18's {RESNET18_LEAVES} leaves: "
-        f"{json.dumps(zoo['resnet18'])} | densenet_cifar's {DENSENET_LEAVES} leaves: "
-        f"{json.dumps(zoo['densenet_cifar'])}"
-        + "".join(f" | {m} flat row: {json.dumps(result[f'{m}_flat_row'])}"
-                  for m in ("smallcnn", "mobilenet"))
-    )
+        x, v = _inputs(name, rng, NUM_CLIENTS, cols, dev)
+        err = _check_group(name, f"the {model} flat row", [x], [v])
+        bytes_moved, bound_ms, bound_by = _round_bound(name, [x], peaks)
+        ms = _time_ms(lambda: wrapper(x, v))
+        row = {"shape": [NUM_CLIENTS, cols], "ms": ms, "plain_ms": _time_ms(lambda: plain(x, v)),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
+               "share_of_bound": bound_ms / ms, "launches_per_round": 1}
+        result[f"{model}_flat_row"] = row
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        log(f"kernels: {name} over the {model} flat row: " + json.dumps(row))
     return result
-
-
-def _int8_leaves(rng, shapes, dev, misaligned=()):
-    """K2's operands at ``shapes`` (``_inputs``; zeros for an empty leaf),
-    the leaves at ``misaligned`` as views one float past 16-byte alignment."""
-    xs, scales = [], []
-    for i, (rows, cols) in enumerate(shapes):
-        if rows * cols == 0:
-            x, s = torch.zeros((rows, cols), device=dev), torch.zeros((rows,), device=dev)
-        else:
-            x, s = _inputs("quantdequant_int8", rng, rows, cols, dev)
-        if i in misaligned:
-            buf = torch.zeros(x.numel() + 1, device=dev)
-            buf[1:] = x.reshape(-1)
-            x = buf[1:].view(rows, cols)
-        xs.append(x)
-        scales.append(s)
-    return xs, scales
-
-
-def _check_int8_group(label, xs, scales) -> float:
-    """One grouped K2 call bit-equal to the plain version leaf by leaf, in
-    one launch per table of leaves."""
-    before = kernels.quantdequant_int8.launches
-    got = kernels.quantdequant_int8_grouped(xs, scales)
-    want = kernels.quantdequant_int8_grouped_plain(xs, scales)
-    torch.cuda.synchronize()
-    launches = kernels.quantdequant_int8.launches - before
-    tables = -(-sum(x.numel() > 0 for x in xs) // kernels.INT8_GROUP_CAPACITY)
-    if launches != tables:
-        raise RuntimeError(f"kernels: grouped K2 over {label} launched {launches} times, expected {tables}")
-    err = 0.0
-    for x, g, w in zip(xs, got, want):
-        if not _bits_equal(g, w):
-            raise RuntimeError(f"kernels: grouped K2 differs from its plain version at {tuple(x.shape)} ({label})")
-        if x.numel():
-            err = max(err, float((g - w).abs().max()))
-    return err
 
 
 def _fake_quantize(x, safe, zero_point):
@@ -527,145 +644,35 @@ def _fake_quantize(x, safe, zero_point):
     return torch.fake_quantize_per_channel_affine(x, safe, zero_point, 0, -127, 127)
 
 
-def _int8_round(label, xs, scales, peaks):
-    """K2 over one per-leaf int8 round's leaves, timed in turns (grouped,
-    per leaf, library, copy, then the same backwards): (a) one grouped
-    launch, (b) the same kernel one leaf a launch, (c) the library call one
-    leaf a call, and a device copy of the same bytes as a yardstick; each
-    beside the bytes bound. The forms that launch per leaf are timed leaf
-    by leaf and summed (a run of 83 leaves' launches fills the card's
-    queue of pending launches). Also the plain version's time, the host's
-    time to enqueue a grouped call, and how far the library call is from
-    K2."""
-    info = KERNEL_INFO["quantdequant_int8"]
+def _int8_library(xs, scales):
+    """K2's library form, torch.fake_quantize_per_channel_affine one call a
+    leaf (not bit-equal: x * (1/s) where K2 computes x / s), and a function
+    that says how far its values are from K2's."""
     safe = [torch.where(s > 0, s, torch.ones_like(s)) for s in scales]
     zero_points = [torch.zeros(s.shape, dtype=torch.int32, device=s.device) for s in scales]
-    copy_in = torch.cat([x.reshape(-1) for x in xs])
-    copy_out = torch.empty_like(copy_in)
+    operands = list(zip(xs, safe, zero_points))
 
-    def leaf_by_leaf(fn, operands, own_syncs=False):
-        return lambda: sum(_time_ms(lambda: fn(*ops), own_syncs=own_syncs) for ops in operands)
+    def distance():
+        got = kernels.quantdequant_int8_grouped(xs, scales)
+        lib = [_fake_quantize(*leaf) for leaf in operands]
+        torch.cuda.synchronize()
+        differ, steps = 0, 0.0
+        for g, l, s in zip(got, lib, safe):
+            d = (g - l).abs()
+            differ += int((d > 0).sum())
+            steps = max(steps, float((d / s[:, None]).max()))
+        return {"library_elements_differing": differ, "library_elements": sum(x.numel() for x in xs),
+                "library_max_diff_in_steps": steps}
 
-    forms = {
-        "grouped": lambda: _time_ms(lambda: kernels.quantdequant_int8_grouped(xs, scales)),
-        "per_leaf": leaf_by_leaf(kernels.quantdequant_int8, list(zip(xs, scales))),
-        # fake_quantize checks its zero points on the host: it synchronizes.
-        "library": leaf_by_leaf(_fake_quantize, list(zip(xs, safe, zero_points)), own_syncs=True),
-        "copy": lambda: _time_ms(lambda: copy_out.copy_(copy_in)),
-    }
-    turns = {k: [] for k in forms}
-    for form in [*forms, *reversed(forms)]:
-        turns[form].append(forms[form]())
-    plain_ms = leaf_by_leaf(kernels.quantdequant_int8_plain, list(zip(xs, scales)))()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        kernels.quantdequant_int8_grouped(xs, scales)
-    host_ms = (time.perf_counter() - t0) / 20 * 1e3
-    bytes_moved = sum(x.numel() * info["bytes_per_elem"] + x.shape[0] * info["bytes_per_row"] for x in xs)
-    ops = sum(x.numel() * info["ops_per_elem"] for x in xs)
-    bound_ms, bound_by = _bound(bytes_moved, ops, peaks)
-    got = kernels.quantdequant_int8_grouped(xs, scales)
-    lib = [_fake_quantize(*leaf) for leaf in zip(xs, safe, zero_points)]
-    torch.cuda.synchronize()
-    differ, steps = 0, 0.0
-    for g, l, s in zip(got, lib, safe):
-        d = (g - l).abs()
-        differ += int((d > 0).sum())
-        steps = max(steps, float((d / s[:, None]).max()))
-    ms = {k: statistics.mean(v) for k, v in turns.items()}
-    out = {
-        "leaves": len(xs), "ms": ms["grouped"], "per_leaf_ms": ms["per_leaf"],
-        "library_ms": ms["library"], "copy_ms": ms["copy"],
-        "plain_ms": plain_ms, "turns_ms": turns, "host_ms_per_grouped_call": host_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
-        **{f"{k}_share_of_bound": bound_ms / v for k, v in ms.items()},
-        "implied_tb_per_s": bytes_moved / ms["grouped"] / 1e9,
-        "launches_per_round": -(-len(xs) // kernels.INT8_GROUP_CAPACITY),
-        "library_elements_differing": differ,
-        "library_elements": sum(x.numel() for x in xs),
-        "library_max_diff_in_steps": steps,
-    }
-    log(f"kernels: quantdequant_int8 over one {label} per-leaf int8 round: " + json.dumps(out))
-    return out
-
-
-def _int8_zoo_round(label, xs, scales, peaks):
-    """The grouped K2 over a zoo model's per-leaf int8 round (one launch
-    per table of leaves), timed as one call, beside its bound and the plain
-    version leaf by leaf (a run of hundreds of leaves' plain ops would fill
-    the card's queue of pending launches)."""
-    info = KERNEL_INFO["quantdequant_int8"]
-    ms = _time_ms(lambda: kernels.quantdequant_int8_grouped(xs, scales))
-    plain_ms = sum(
-        _time_ms(lambda: kernels.quantdequant_int8_plain(x, v), runs=ZOO_TIMING_RUNS)
-        for x, v in zip(xs, scales)
-    )
-    bytes_moved = sum(x.numel() * info["bytes_per_elem"] + x.shape[0] * info["bytes_per_row"] for x in xs)
-    ops = sum(x.numel() * info["ops_per_elem"] for x in xs)
-    bound_ms, bound_by = _bound(bytes_moved, ops, peaks)
-    out = {
-        "leaves": len(xs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "bytes": bytes_moved, "share_of_bound": bound_ms / ms,
-        "launches_per_round": -(-len(xs) // kernels.INT8_GROUP_CAPACITY),
-    }
-    log(f"kernels: quantdequant_int8 over one {label} per-leaf int8 round: " + json.dumps(out))
-    return out
+    # fake_quantize checks its zero points on the host: it synchronizes.
+    return {"library": _leaf_by_leaf(_fake_quantize, operands, own_syncs=True)}, distance
 
 
 def int8_phase(peaks):
-    """The grouped K2 bit-equal to its plain version over each per-leaf
-    round's leaves as one call (smallcnn's 8, MobileNet's 83, ResNet-18's
-    62, densenet_cifar's 362 in 5 launches), ragged leaves, a list that mixes empty, 1-, 10- and 65,537-column leaves,
-    leaves passed as views off 16-byte alignment, and 200 leaves (more than
-    one launch's table); then timed over each round's leaves."""
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(4)
-    rounds = {m: _int8_leaves(rng, per_leaf_shapes(m), dev) for m in ("smallcnn", "mobilenet")}
-    zoo = {
-        "resnet18": _int8_leaves(rng, per_leaf_shapes("resnet18", 100), dev),
-        "densenet_cifar": _int8_leaves(rng, per_leaf_shapes("densenet_cifar"), dev),
-    }
-    cases = {
-        **rounds,
-        **zoo,
-        "ragged": _int8_leaves(rng, RAGGED, dev),
-        "mixed": _int8_leaves(rng, [(0, 5), (3, 0), (2, 1), (3, 10), (2, 65537), (1, 1), (5, 7)], dev),
-        "misaligned": _int8_leaves(
-            rng, [(3, 4099), (1, 2), (2, 65537), (4, 10), (64, 1000)], dev, misaligned=(0, 1, 2, 4)),
-        "200 leaves": _int8_leaves(rng, [(2, 1 + i % 37) for i in range(200)], dev),
-    }
-    max_err = max(_check_int8_group(label, *leaves) for label, leaves in cases.items())
-    log(f"kernels: quantdequant_int8 grouped bit-equal over {', '.join(cases)}")
-    small = _int8_round("smallcnn", *rounds["smallcnn"], peaks)
-    mobile = _int8_round("MobileNet", *rounds["mobilenet"], peaks)
-    resnet = _int8_zoo_round("ResNet-18", *zoo["resnet18"], peaks)
-    densenet = _int8_zoo_round("densenet_cifar", *zoo["densenet_cifar"], peaks)
-    del zoo
-    info = KERNEL_INFO["quantdequant_int8"]
-    return {
-        "name": "quantdequant_int8",
-        "route": "cuda",
-        "source": info["source"],
-        "replaces": info["replaces"],
-        "tpu_function": info["tpu_function"],
-        "bitwise_equal": True,
-        "max_abs_err": max_err,
-        "ms": small["ms"],
-        "kernel_ms": small["ms"],
-        "plain_ms": small["plain_ms"],
-        "bound_ms": small["bound_ms"],
-        "bound_by": small["bound_by"],
-        "bytes": small["bytes"],
-        # torch.fake_quantize_per_channel_affine, one call a leaf: not
-        # bit-equal (x * (1/s) where K2 computes x / s).
-        "library_ms": small["library_ms"],
-        "per": f"one smallcnn per-leaf int8 round (eight leaves in one launch, {NUM_CLIENTS} clients)",
-        "smallcnn_per_leaf_round": small,
-        "mobilenet_per_leaf_round": mobile,
-        "resnet18_per_leaf_round": resnet,
-        "densenet_per_leaf_round": densenet,
-    }
+    """The grouped K2 (``_grouped_phase``): each round's leaves as one call
+    (densenet_cifar's 362 in 5 launches) and the edge lists; the small
+    models' turns add the library call one leaf a call."""
+    return _grouped_phase("quantdequant_int8", 4, peaks, round_forms=_int8_library)
 
 
 def _hadamard_inputs(g, rows, h, dev):
@@ -1055,17 +1062,19 @@ def _launch_counts():
 def slice_codecs(leaves: int):
     """(codec, layout) -> (kernel launched, launches per round, the same
     codec on the plain kernels), for a model of ``leaves`` parameter
-    leaves."""
+    leaves, each of which needs the kernel (more than one element a client:
+    top-k keeps all of a 1-element leaf without it)."""
     return {
-        ("topk", "per_leaf"): ("threshold_feedback", leaves, lambda: compression.make_topk(
-            TOPK_FRACTION, threshold=kernels.threshold_feedback_plain)),
+        ("topk", "per_leaf"): ("threshold_feedback", -(-leaves // kernels.THRESHOLD_GROUP_CAPACITY),
+                               lambda: compression.make_topk(
+                                   TOPK_FRACTION, threshold=kernels.threshold_feedback_grouped_plain)),
         ("int8", "per_leaf"): ("quantdequant_int8", -(-leaves // kernels.INT8_GROUP_CAPACITY),
                                lambda: compression.make_int8(
                                    quantdequant=kernels.quantdequant_int8_grouped_plain)),
         ("rotq", "flat"): ("hadamard_rotate", 2, lambda: compression.make_rotq(
             4, rotate=kernels.hadamard_rotate_plain)),
         ("topk", "flat"): ("threshold_feedback", 1, lambda: compression.make_topk(
-            TOPK_FRACTION, layout="flat", threshold=kernels.threshold_feedback_plain)),
+            TOPK_FRACTION, layout="flat", threshold=kernels.threshold_feedback_grouped_plain)),
         ("int8", "flat"): (None, 0, lambda: compression.make_int8(layout="flat")),
         ("none", "per_leaf"): (None, 0, None),
     }
@@ -2480,11 +2489,11 @@ def zoo_phase(data, card, profile_dir=None):
     """Phase 12 (b)-(c): BASELINE config 4 at full width, then
     densenet_cifar at 8 clients, both on CIFAR-100 shapes. The launch
     counts are set to 0 before the first checked round and read after the
-    last: 3 rounds each of ResNet-18 per leaf none (no launch), topk (62
+    last: 3 rounds each of ResNet-18 per leaf none (no launch), topk (1
     K1), int8 (1 K2) and flat rotq (2 K3), round 1's codec re-applied with
     the plain kernels; the uncompressed engine then times 2 rounds and
     runs one more under the profiler (the device's idle share); then 2
-    rounds each of DenseNet per leaf topk (362 K1) and int8 (5 K2). Last,
+    rounds each of DenseNet per leaf topk (5 K1) and int8 (5 K2). Last,
     2 rounds with remat (for its memory) and 2 of config 4's local work
     (5 local epochs), the second one timed. Returns the results and the
     path's counts."""
@@ -2567,13 +2576,18 @@ def main(argv=None) -> int:
         "and flat rotq; write the tables to DIR",
     )
     ap.add_argument(
-        "--only", choices=["federation", "faults", "zoo"],
+        "--only", choices=["kernels", "federation", "faults", "zoo"],
         help="run the device phase and this phase alone, and print no result line",
     )
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi, name, peaks = device_phase()
     profile_dir = Path(args.profile) if args.profile else None
+    if args.only == "kernels":
+        build_phase()
+        kernel_phase(peaks)
+        log(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.only == "zoo":
         build_phase()
         zoo_reference_phase()

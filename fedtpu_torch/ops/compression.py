@@ -6,7 +6,8 @@ residual is added (error feedback), and the codec maps it to what the wire
 would carry plus the new residual:
 
 - ``topk``: keep each row's ``ceil(fraction * size)`` largest magnitudes
-  (ties at the threshold kept) through :func:`kernels.threshold_feedback`;
+  (ties at the threshold kept) through
+  :func:`kernels.threshold_feedback_grouped`, every leaf in one call;
 - ``int8``: symmetric per-row int8 through
   :func:`kernels.quantdequant_int8_grouped`, every leaf in one call.
 
@@ -14,7 +15,7 @@ On the flat layout (:mod:`fedtpu_torch.ops.flat`) the codec sees one
 ``[clients, P]`` buffer and its residual is one buffer too:
 
 - ``topk``: one threshold per row over the whole model, one
-  :func:`kernels.threshold_feedback` launch;
+  :func:`kernels.threshold_feedback_grouped` launch;
 - ``int8``: per-leaf scales, the quantize-dequantize inline (fedtpu calls
   no kernel here); bit-equal to the per-leaf codec;
 - ``rotq``: rotate the power-of-two row through
@@ -83,22 +84,6 @@ def _make_init(error_feedback: bool) -> Callable[[Tree, int], object]:
     return init
 
 
-def _make_apply(
-    leaf: Callable[[torch.Tensor, Optional[torch.Tensor]], Tuple[torch.Tensor, Optional[torch.Tensor]]],
-    error_feedback: bool,
-) -> Callable[[Tree, object], Tuple[Tree, object]]:
-    """Lift a per-leaf ``(delta, residual) -> (compressed, new_residual)``
-    codec to a dict of leaves."""
-
-    def apply(deltas: Tree, state):
-        out, new_state = {}, {}
-        for k, d in deltas.items():
-            out[k], new_state[k] = leaf(d, state[k] if error_feedback else None)
-        return out, (new_state if error_feedback else state)
-
-    return apply
-
-
 def _check_layout(layout: str) -> None:
     if layout not in ("per_leaf", "flat"):
         raise ValueError(f"unknown delta layout {layout!r}; have per_leaf | flat")
@@ -141,7 +126,7 @@ def _flat_codec(apply_flat, error_feedback: bool, pow2: bool = False) -> Compres
 
 def _make_topk_flat(fraction: float, error_feedback: bool, threshold: Callable) -> Compressor:
     """One threshold per row over the whole model (``k`` counted against
-    the real coordinates), then one ``threshold`` launch over the buffer."""
+    the real coordinates), then one ``threshold`` call over the buffer."""
 
     def apply_flat(y, state, lay, round_idx=0):
         if error_feedback:
@@ -151,7 +136,8 @@ def _make_topk_flat(fraction: float, error_feedback: bool, threshold: Callable) 
             return y, (torch.zeros_like(y) if error_feedback else state)
         if not error_feedback:
             return torch.where(y.abs() >= kth[:, None], y, torch.zeros_like(y)), state
-        return threshold(y.contiguous(), kth)
+        (out,), (new_e,) = threshold([y.contiguous()], [kth])
+        return out, new_e
 
     return _flat_codec(apply_flat, error_feedback)
 
@@ -267,35 +253,52 @@ def make_topk(
     fraction: float,
     error_feedback: bool = True,
     layout: str = "per_leaf",
-    threshold: Callable = kernels.threshold_feedback,
+    threshold: Callable = kernels.threshold_feedback_grouped,
 ) -> Compressor:
     """Magnitude top-k per client, per leaf or over the flat row, with
-    optional error feedback."""
+    optional error feedback. ``threshold`` (``(ys, threshs) -> (outs,
+    new_es)``) splits the rows by their keep thresholds: per leaf, every
+    leaf's ``y`` and threshold are formed first and one call takes the
+    leaves that need it (the values of fedtpu's one-leaf-at-a-time codec,
+    one kernel launch a round); on the flat layout one call takes the row."""
     _check_layout(layout)
     if layout == "flat":
         return _make_topk_flat(fraction, error_feedback, threshold)
 
-    def leaf(d: torch.Tensor, e: Optional[torch.Tensor]):
-        shape = d.shape
-        y = _flatten_leaf(d)
-        if e is not None:
-            y = y + e.reshape(y.shape)
-        size = y.shape[1]
-        k = max(1, int(math.ceil(fraction * size)))
-        if k >= size:
-            return y.reshape(shape).to(d.dtype), torch.zeros(shape, dtype=torch.float32, device=d.device)
-        # The k-th largest magnitude of each row is its keep threshold: a
-        # library top-k, as fedtpu's lax.top_k sits outside its kernel.
-        kth = torch.topk(y.abs(), k, dim=1).values[:, -1].contiguous()
-        if e is None:
+    def apply(deltas: Tree, state):
+        out, new_state, split = {}, {}, []
+        for name, d in deltas.items():
+            y = _flatten_leaf(d)
+            if error_feedback:
+                y = y + state[name].reshape(y.shape)
+            size = y.shape[1]
+            k = max(1, int(math.ceil(fraction * size)))
+            if k >= size:  # keep-all budget: nothing dropped
+                out[name] = y.reshape(d.shape).to(d.dtype)
+                new_state[name] = torch.zeros(d.shape, dtype=torch.float32, device=d.device)
+                continue
+            # The k-th largest magnitude of each row is its keep threshold: a
+            # library top-k, as fedtpu's lax.top_k sits outside its kernel.
+            kth = torch.topk(y.abs(), k, dim=1).values[:, -1].contiguous()
+            if error_feedback:
+                split.append((name, y.contiguous(), kth))
+                continue
             # No residual wanted: a plain masked select, as in fedtpu (the
             # kernel would write a dead full-size residual).
-            out = torch.where(y.abs() >= kth[:, None], y, torch.zeros_like(y))
-            return out.reshape(shape).to(d.dtype), None
-        out, new_e = threshold(y.contiguous(), kth)
-        return out.reshape(shape).to(d.dtype), new_e.reshape(shape)
+            kept = torch.where(y.abs() >= kth[:, None], y, torch.zeros_like(y))
+            out[name] = kept.reshape(d.shape).to(d.dtype)
+        if split:
+            names = [name for name, _, _ in split]
+            outs, new_es = threshold([y for _, y, _ in split], [kth for _, _, kth in split])
+            del split  # the inputs' memory is free once the call is queued
+            for name, o, e in zip(names, outs, new_es):
+                d = deltas[name]
+                out[name] = o.reshape(d.shape).to(d.dtype)
+                new_state[name] = e.reshape(d.shape)
+        out = {name: out[name] for name in deltas}
+        return out, ({name: new_state[name] for name in deltas} if error_feedback else state)
 
-    return Compressor(init=_make_init(error_feedback), apply=_make_apply(leaf, error_feedback))
+    return Compressor(init=_make_init(error_feedback), apply=apply)
 
 
 def make_int8(

@@ -6,8 +6,10 @@ source under ``fedtpu_torch/csrc/`` with a plain C entry point, compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``fedtpu_torch/_build/``
 at its first use (or by :func:`build`) and called through ``ctypes``:
 
-- :func:`threshold_feedback` (``csrc/threshold_feedback.cu``) replaces
-  ``threshold_with_feedback``: top-k masking with error feedback.
+- :func:`threshold_feedback_grouped` (``csrc/threshold_feedback.cu``)
+  replaces ``threshold_with_feedback``: top-k masking with error feedback,
+  every leaf of a round in one launch (:func:`threshold_feedback` is its
+  one-leaf case).
 - :func:`quantdequant_int8_grouped` (``csrc/quantdequant_int8.cu``)
   replaces ``quantdequant_int8``: the simulated int8 codec, every leaf of
   a round in one launch (:func:`quantdequant_int8` is its one-leaf case).
@@ -49,14 +51,14 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 # name -> (source file, C entry point argument types)
 _SOURCES = {
-    "threshold_feedback": ("threshold_feedback.cu", [_P, _P, _P, _P, _I64, _I64, _P]),
+    "threshold_feedback": ("threshold_feedback.cu", [_P, _I64, _P]),
     "quantdequant_int8": ("quantdequant_int8.cu", [_P, _I64, _P]),
     "hadamard_rotate": (
         "hadamard_rotate.cu",
         [_P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P],
     ),
 }
-_MAX_ROWS = 65535  # K1 puts rows on gridDim.y; K3 keeps the same limit
+_MAX_ROWS = 65535  # K3's rows (the grouped K1 and K2 have no such limit)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -151,12 +153,10 @@ def _launch(name: str, tensor: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed ({code}: {msg})")
 
 
-def _check_rows(
-    name: str, x: torch.Tensor, per_row: torch.Tensor, max_rows: Optional[int] = _MAX_ROWS
-) -> None:
-    """The kernels take a contiguous f32 ``[rows, cols]`` CUDA matrix and a
-    contiguous f32 ``[rows]`` vector on the same card (at most ``max_rows``
-    rows, where the kernel puts them on a grid axis)."""
+def _check_rows(name: str, x: torch.Tensor, per_row: torch.Tensor) -> None:
+    """The grouped kernels take, for each leaf, a contiguous f32 ``[rows,
+    cols]`` CUDA matrix and a contiguous f32 ``[rows]`` vector on the same
+    card."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: needs a CUDA (or CPU) tensor, got {x.device}")
     if per_row.device != x.device:
@@ -168,10 +168,85 @@ def _check_rows(
             f"{name}: needs [rows, cols] and [rows], got {tuple(x.shape)} and "
             f"{tuple(per_row.shape)}"
         )
-    if max_rows is not None and x.shape[0] > max_rows:
-        raise ValueError(f"{name}: at most {max_rows} rows, got {x.shape[0]}")
     if not (x.is_contiguous() and per_row.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous")
+
+
+# ------------------------------------------------------- grouped launches
+
+# The tile of the grouped kernels (K1, K2): 256 threads x 4 vectors of 4
+# floats (each source's kTile).
+GROUP_TILE = 4096
+INT8_TILE = GROUP_TILE
+# Leaves in one launch: each kernel's table of leaves travels in its 4 KB of
+# parameters (the source's kMaxLeaves; its entry point refuses a longer one).
+# K1's entry holds four pointers, K2's three.
+THRESHOLD_GROUP_CAPACITY = 77
+INT8_GROUP_CAPACITY = 90
+
+
+class GroupLeaf(NamedTuple):
+    """One leaf of a grouped launch: its position ``index`` in the caller's
+    list, its ``numel`` elements, the ``head`` leading elements done one by
+    one before the operands reach 16-byte alignment (at most 3, and at most
+    ``numel``), the ``tail`` elements after the body's last whole 4-element
+    vector, also done one by one, and its ``tiles``: tile ``t`` covers
+    elements ``[head + t * GROUP_TILE, head + (t + 1) * GROUP_TILE)`` cut at
+    ``numel``, and tile 0 also does the head."""
+
+    index: int
+    numel: int
+    head: int
+    tail: int
+    tiles: int
+
+    def tile_span(self, tile: int) -> Tuple[int, int]:
+        """The ``[start, stop)`` elements of ``tile``'s vectors and tail."""
+        start = self.head + tile * GROUP_TILE
+        return start, min(start + GROUP_TILE, self.numel)
+
+
+def _group_plan(
+    sizes: Sequence[int], offsets: Optional[Sequence[int]], capacity: int
+) -> List[Tuple[GroupLeaf, ...]]:
+    """The launches of a grouped kernel for leaves of ``sizes`` elements
+    whose operands start ``offsets`` bytes past a 16-byte boundary (default
+    0; multiples of 4): the non-empty leaves in order, at most ``capacity``
+    a launch."""
+    offsets = [0] * len(sizes) if offsets is None else offsets
+    leaves = []
+    for i, (numel, offset) in enumerate(zip(sizes, offsets)):
+        if numel == 0:
+            continue
+        head = min(numel, (16 - offset % 16) % 16 // 4)
+        tiles = max(1, -(-(numel - head) // GROUP_TILE))
+        leaves.append(GroupLeaf(i, numel, head, (numel - head) % 4, tiles))
+    return [tuple(leaves[i : i + capacity]) for i in range(0, len(leaves), capacity)]
+
+
+def _int8_group_plan(
+    sizes: Sequence[int], offsets: Optional[Sequence[int]] = None
+) -> List[Tuple[GroupLeaf, ...]]:
+    """K2's launches: :func:`_group_plan` at ``INT8_GROUP_CAPACITY``."""
+    return _group_plan(sizes, offsets, INT8_GROUP_CAPACITY)
+
+
+def _empty_at_offset_of(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor like ``x`` that starts at ``x``'s byte
+    offset modulo 16, so that a grouped kernel moves both in 16-byte
+    vectors after the same head."""
+    skip = x.data_ptr() % 16 // x.element_size()
+    if skip == 0:
+        return torch.empty_like(x)
+    return torch.empty(x.numel() + skip, dtype=x.dtype, device=x.device)[skip:].view(x.shape)
+
+
+def _check_group(name: str, xs: List[torch.Tensor], per_rows: List[torch.Tensor]) -> None:
+    """Every leaf of a grouped call a kernel operand, all on one card."""
+    for x, v in zip(xs, per_rows):
+        _check_rows(name, x, v)
+        if x.device != xs[0].device:
+            raise ValueError(f"{name}: leaves on {xs[0].device} and {x.device}")
 
 
 # ------------------------------------------------------------------ K1
@@ -185,86 +260,59 @@ def threshold_feedback_plain(
     return out, y - out
 
 
+def threshold_feedback_grouped_plain(
+    ys: Sequence[torch.Tensor], threshs: Sequence[torch.Tensor]
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """:func:`threshold_feedback_plain` of every leaf: ``(outs, new_es)``."""
+    pairs = [threshold_feedback_plain(y, t) for y, t in zip(ys, threshs)]
+    return [o for o, _ in pairs], [e for _, e in pairs]
+
+
+def threshold_feedback_grouped(
+    ys: Sequence[torch.Tensor], threshs: Sequence[torch.Tensor]
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Fused top-k mask and residual split of every leaf ``ys[i] [rows,
+    cols]`` f32 by its per-row magnitude thresholds ``threshs[i] [rows]``:
+    ``(outs, new_es)``, in one launch for up to
+    ``THRESHOLD_GROUP_CAPACITY`` leaves."""
+    ys, threshs = list(ys), list(threshs)
+    if len(ys) != len(threshs):
+        raise ValueError(f"threshold_feedback: {len(ys)} leaves and {len(threshs)} thresholds")
+    if all(y.device.type == "cpu" for y in ys):
+        return threshold_feedback_grouped_plain(ys, threshs)
+    _check_group("threshold_feedback", ys, threshs)
+    outs = [_empty_at_offset_of(y) for y in ys]
+    new_es = [_empty_at_offset_of(y) for y in ys]
+    plan = _group_plan([y.numel() for y in ys], [y.data_ptr() % 16 for y in ys], THRESHOLD_GROUP_CAPACITY)
+    for launch in plan:
+        table = np.asarray(
+            [
+                (ys[leaf.index].data_ptr(), threshs[leaf.index].data_ptr(),
+                 outs[leaf.index].data_ptr(), new_es[leaf.index].data_ptr(),
+                 *ys[leaf.index].shape, leaf.head, leaf.tiles)
+                for leaf in launch
+            ],
+            dtype=np.int64,
+        )
+        _launch("threshold_feedback", ys[0], table.ctypes.data, len(launch))
+        threshold_feedback.launches += 1
+    return outs, new_es
+
+
 def threshold_feedback(
     y: torch.Tensor, thresh: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused top-k mask and residual split of ``y [rows, cols]`` f32 by the
-    per-row magnitude threshold ``thresh [rows]``: ``(out, new_e)``."""
-    if y.device.type == "cpu":
-        return threshold_feedback_plain(y, thresh)
-    _check_rows("threshold_feedback", y, thresh)
-    out = torch.empty_like(y)
-    new_e = torch.empty_like(y)
-    if y.numel():
-        rows, cols = y.shape
-        _launch(
-            "threshold_feedback", y, y.data_ptr(), thresh.data_ptr(),
-            out.data_ptr(), new_e.data_ptr(), rows, cols,
-        )
-        threshold_feedback.launches += 1
-    return out, new_e
+    """Fused top-k mask and residual split of one ``y [rows, cols]`` f32 by
+    the per-row magnitude threshold ``thresh [rows]``: ``(out, new_e)``, the
+    one-leaf case of :func:`threshold_feedback_grouped`."""
+    outs, new_es = threshold_feedback_grouped([y], [thresh])
+    return outs[0], new_es[0]
 
 
 threshold_feedback.launches = 0
 
 
 # ------------------------------------------------------------------ K2
-
-# The kernel's tile: 256 threads x 4 vectors of 4 floats (the source's kTile).
-INT8_TILE = 4096
-# Leaves in one launch: the kernel's table of leaves travels in its 4 KB of
-# parameters (the source's kMaxLeaves; its entry point refuses a longer one).
-INT8_GROUP_CAPACITY = 90
-
-
-class Int8Leaf(NamedTuple):
-    """One leaf of a K2 launch: its position ``index`` in the caller's list,
-    its ``numel`` elements, the ``head`` leading elements done one by one
-    before ``x`` and ``out`` reach 16-byte alignment (at most 3, and at most
-    ``numel``), the ``tail`` elements after the body's last whole 4-element
-    vector, also done one by one, and its ``tiles``: tile ``t`` covers
-    elements ``[head + t * INT8_TILE, head + (t + 1) * INT8_TILE)`` cut at
-    ``numel``, and tile 0 also does the head."""
-
-    index: int
-    numel: int
-    head: int
-    tail: int
-    tiles: int
-
-    def tile_span(self, tile: int) -> Tuple[int, int]:
-        """The ``[start, stop)`` elements of ``tile``'s vectors and tail."""
-        start = self.head + tile * INT8_TILE
-        return start, min(start + INT8_TILE, self.numel)
-
-
-def _int8_group_plan(
-    sizes: Sequence[int], offsets: Optional[Sequence[int]] = None
-) -> List[Tuple[Int8Leaf, ...]]:
-    """The K2 launches for leaves of ``sizes`` elements whose ``x`` (and
-    ``out``) start ``offsets`` bytes past a 16-byte boundary (default 0;
-    multiples of 4): the non-empty leaves in order, at most
-    ``INT8_GROUP_CAPACITY`` a launch."""
-    offsets = [0] * len(sizes) if offsets is None else offsets
-    leaves = []
-    for i, (numel, offset) in enumerate(zip(sizes, offsets)):
-        if numel == 0:
-            continue
-        head = min(numel, (16 - offset % 16) % 16 // 4)
-        tiles = max(1, -(-(numel - head) // INT8_TILE))
-        leaves.append(Int8Leaf(i, numel, head, (numel - head) % 4, tiles))
-    cap = INT8_GROUP_CAPACITY
-    return [tuple(leaves[i : i + cap]) for i in range(0, len(leaves), cap)]
-
-
-def _empty_at_offset_of(x: torch.Tensor) -> torch.Tensor:
-    """An uninitialised tensor like ``x`` that starts at ``x``'s byte
-    offset modulo 16, so that K2 moves both in 16-byte vectors after the
-    same head."""
-    skip = x.data_ptr() % 16 // x.element_size()
-    if skip == 0:
-        return torch.empty_like(x)
-    return torch.empty(x.numel() + skip, dtype=x.dtype, device=x.device)[skip:].view(x.shape)
 
 
 def quantdequant_int8_plain(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -293,10 +341,7 @@ def quantdequant_int8_grouped(
         raise ValueError(f"quantdequant_int8: {len(xs)} leaves and {len(scales)} scales")
     if all(x.device.type == "cpu" for x in xs):
         return quantdequant_int8_grouped_plain(xs, scales)
-    for x, s in zip(xs, scales):
-        _check_rows("quantdequant_int8", x, s, max_rows=None)
-        if x.device != xs[0].device:
-            raise ValueError(f"quantdequant_int8: leaves on {xs[0].device} and {x.device}")
+    _check_group("quantdequant_int8", xs, scales)
     outs = [_empty_at_offset_of(x) for x in xs]
     plan = _int8_group_plan([x.numel() for x in xs], [x.data_ptr() % 16 for x in xs])
     for launch in plan:

@@ -96,18 +96,20 @@ def test_per_leaf_codec_bit_equal_to_fedtpu(codec, fraction, ef, pallas_mode):
 
 
 def test_codec_counts_one_kernel_call_per_leaf():
-    """The round's launch count per codec is one per leaf: eight on smallcnn
-    (on the CPU the wrapper runs its plain version, so a spy counts)."""
+    """The per-leaf topk round makes one grouped kernel call that covers
+    every leaf, eight on smallcnn (on the CPU the wrapper runs its plain
+    version, so a spy counts)."""
     calls = []
 
-    def spy(y, t):
-        calls.append(tuple(y.shape))
-        return tcomp.kernels.threshold_feedback(y, t)
+    def spy(ys, ts):
+        calls.append([tuple(y.shape) for y in ys])
+        return tcomp.kernels.threshold_feedback_grouped(ys, ts)
 
     deltas = from_flax(_stacked(np.random.default_rng(3), 0.01))
     comp = tcomp.make_topk(0.01, threshold=spy)
     comp.apply(deltas, comp.init({k: v[0] for k, v in deltas.items()}, CLIENTS))
-    assert sorted(c for _, c in calls) == sorted(
+    assert len(calls) == 1
+    assert sorted(c for _, c in calls[0]) == sorted(
         int(np.prod(s)) for leaves in SMALLCNN_SHAPES.values() for s in leaves.values()
     )
 

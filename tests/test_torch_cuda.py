@@ -11,9 +11,10 @@ ties at the threshold, -0.0, zero scales and halfway quotients at smallcnn's
 widths; -0.0, zeros and large magnitudes for the Hadamard rotation at the
 rotq rows (smallcnn's [64, 2^20], MobileNet's [64, 2^22]) and widths around
 its phase boundary; and a small MobileNet round on the card against the same
-round on the CPU. The grouped int8 kernel also takes lists of leaves: the
-83 of a MobileNet round, empty and ragged leaves, views off 16-byte
-alignment, and more leaves than one launch's table holds.
+round on the CPU. The grouped kernels (top-k threshold and int8) also take
+lists of leaves: the 83 of a MobileNet round, empty and ragged leaves,
+views off 16-byte alignment, and more leaves than one launch's table holds;
+the top-k threshold also a leaf of 70,000 rows.
 """
 
 import numpy as np
@@ -141,11 +142,22 @@ GROUPED_CASES = {
 }
 
 
-def _grouped_on_card(cuda_device, leaves, misaligned=()):
-    """The grouped kernel on ``leaves`` (numpy pairs), the leaves at
-    ``misaligned`` passed as views one float off 16-byte alignment: bit-equal
-    to the plain version leaf by leaf, with one launch per table of
-    leaves."""
+# name -> (grouped wrapper, plain version of one leaf, leaves a launch)
+GROUPED = {
+    "quantdequant_int8": (kernels.quantdequant_int8_grouped, kernels.quantdequant_int8_plain,
+                          kernels.INT8_GROUP_CAPACITY),
+    "threshold_feedback": (kernels.threshold_feedback_grouped, kernels.threshold_feedback_plain,
+                           kernels.THRESHOLD_GROUP_CAPACITY),
+}
+
+
+def _grouped_on_card(cuda_device, leaves, misaligned=(), name="quantdequant_int8"):
+    """The grouped kernel ``name`` on ``leaves`` (numpy pairs), the leaves
+    at ``misaligned`` passed as views one float off 16-byte alignment:
+    bit-equal to the plain version leaf by leaf, with one launch per table
+    of leaves."""
+    grouped, plain, capacity = GROUPED[name]
+    counted = kernels.KERNELS[name][0]
     xs, ss = [], []
     for i, (x, s) in enumerate(leaves):
         xd = torch.from_numpy(x).to(cuda_device)
@@ -156,16 +168,19 @@ def _grouped_on_card(cuda_device, leaves, misaligned=()):
             assert xd.data_ptr() % 16
         xs.append(xd)
         ss.append(torch.from_numpy(s).to(cuda_device))
-    before = kernels.quantdequant_int8.launches
-    outs = kernels.quantdequant_int8_grouped(xs, ss)
+    before = counted.launches
+    outs = grouped(xs, ss)
     torch.cuda.synchronize()
     nonempty = sum(x.numel() > 0 for x in xs)
-    want = -(-nonempty // kernels.INT8_GROUP_CAPACITY)
-    assert kernels.quantdequant_int8.launches == before + want
-    for x, s, out in zip(xs, ss, outs):
-        ref = kernels.quantdequant_int8_plain(x, s)
-        assert out.shape == x.shape
-        assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), tuple(x.shape)
+    want = -(-nonempty // capacity)
+    assert counted.launches == before + want
+    per_leaf = list(zip(*outs)) if isinstance(outs, tuple) else [(o,) for o in outs]
+    for x, s, got in zip(xs, ss, per_leaf):
+        ref = plain(x, s)
+        for g, r in zip(got, ref if isinstance(ref, tuple) else (ref,)):
+            assert g.shape == x.shape
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32)), tuple(x.shape)
+    return want
 
 
 @pytest.mark.cuda
@@ -191,6 +206,51 @@ def test_quantdequant_int8_grouped_takes_misaligned_views_on_card(cuda_device):
     shapes = [(3, 4099), (1, 2), (2, 65537), (4, 10), (64, 1000), (1, 1)]
     leaves = _quant_leaves(np.random.default_rng(5), shapes)
     _grouped_on_card(cuda_device, leaves, misaligned=(0, 1, 2, 5))
+
+
+def _threshold_leaves(rng, shapes):
+    """One ``_threshold_inputs`` leaf per shape (zeros for an empty one), a
+    NaN in the last column of every leaf of more than 3 columns."""
+    leaves = []
+    for rows, cols in shapes:
+        if rows * cols == 0:
+            leaves.append((np.zeros((rows, cols), np.float32), np.zeros(rows, np.float32)))
+            continue
+        y, t = _threshold_inputs(rng, rows, cols)
+        if cols > 3:
+            y[0, -1] = np.nan
+        leaves.append((y, t))
+    return leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUPED_CASES))
+def test_threshold_feedback_grouped_bit_equal_on_card(cuda_device, case):
+    leaves = _threshold_leaves(np.random.default_rng(len(case) + 1), GROUPED_CASES[case])
+    _grouped_on_card(cuda_device, leaves, name="threshold_feedback")
+
+
+@pytest.mark.cuda
+def test_threshold_feedback_grouped_takes_misaligned_views_on_card(cuda_device):
+    shapes = [(3, 4099), (1, 2), (2, 65537), (4, 10), (64, 1000), (1, 1)]
+    leaves = _threshold_leaves(np.random.default_rng(6), shapes)
+    _grouped_on_card(cuda_device, leaves, misaligned=(0, 1, 2, 5), name="threshold_feedback")
+
+
+@pytest.mark.cuda
+def test_threshold_feedback_grouped_mobilenet_round_in_two_launches_on_card(cuda_device):
+    """MobileNet's 83 leaves at 64 clients, as a per-leaf topk round splits
+    them: two launches (the table holds 77 leaves)."""
+    shapes = _mobilenet_leaf_shapes()
+    leaves = _threshold_leaves(np.random.default_rng(84), shapes)
+    assert _grouped_on_card(cuda_device, leaves, name="threshold_feedback") == 2
+
+
+@pytest.mark.cuda
+def test_threshold_feedback_takes_70000_rows_on_card(cuda_device):
+    """No row lies on a grid axis: 70,000 rows (past 65,535) in one launch."""
+    leaves = _threshold_leaves(np.random.default_rng(70), [(70_000, 3)])
+    assert _grouped_on_card(cuda_device, leaves, name="threshold_feedback") == 1
 
 
 @pytest.mark.cuda

@@ -271,8 +271,8 @@ def test_codec_launches_k3_twice_and_k1_once_per_flat_round():
     single = {k: v[0] for k, v in deltas.items()}
     for comp, want in (
         (tcomp.make_rotq(4, rotate=spy(kernels.hadamard_rotate)), ["hadamard_rotate"] * 2),
-        (tcomp.make_topk(0.01, layout="flat", threshold=spy(kernels.threshold_feedback)),
-         ["threshold_feedback"]),
+        (tcomp.make_topk(0.01, layout="flat", threshold=spy(kernels.threshold_feedback_grouped)),
+         ["threshold_feedback_grouped"]),
     ):
         calls.clear()
         comp.apply(deltas, comp.init(single, CLIENTS))
