@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile DIR   # also torch.profiler tables in DIR
-    python3 chip_smoke.py --only zoo      # the device and build phases, then phase 12
+    python3 chip_smoke.py --only zoo      # the device and build phases, then phases 12 and 13
     python3 chip_smoke.py --only kernels  # the device and build phases, then K1's part of phase 3
 
 Phases, each of which raises on failure (exit code not 0, no result line):
@@ -13,16 +13,18 @@ Phases, each of which raises on failure (exit code not 0, no result line):
 2. build: ``nvcc`` builds every kernel from ``fedtpu_torch/csrc``.
 3. kernels: the grouped K1 and K2 against their plain PyTorch versions
    over each per-leaf round's leaves as one call (smallcnn's 8,
-   MobileNet's 83, ResNet-18's 62 at 100 classes and densenet_cifar's 362
-   leaves x 64 clients: K1 in 1, 2, 1 and 5 launches, K2 in 1, 1, 1 and
-   5), ragged and empty leaves, views off 16-byte alignment and 200
+   MobileNet's 83, ResNet-18's 62 at 100 classes, densenet_cifar's 362,
+   ShuffleNetV2's 170 and MobileNetV2's 173 leaves x 64 clients: K1 in 1,
+   2, 1, 5, 3 and 3 launches, K2 in 1, 1, 1, 5, 2 and 2), ragged and
+   empty leaves, views off 16-byte alignment and 200
    leaves (one launch per table of leaves), K1 also a leaf of 70,000 rows
    and both flat rows (one launch each); timed in turns at the small
    models as one call a round, one launch a leaf, (K2)
    torch.fake_quantize_per_channel_affine one call a leaf and a device
    copy of the same bytes, at the zoo's as one call; K3 forward and
    inverse at the rotq row [64, 2^20], MobileNet's [64, 2^22], [8, 2^22],
-   ResNet-18's [64, 2^24] and widths and row counts
+   ResNet-18's [64, 2^24], ShuffleNetV2's [64, 2^21] and widths and row
+   counts
    around its phase boundary and lag, with -0.0, zeros and large
    magnitudes. Outputs must be bit-equal, and K3's inverse(forward(y))
    within 1e-5 of y. Kernel and plain version are timed with CUDA events,
@@ -139,13 +141,29 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    (c) densenet_cifar per-leaf topk and int8, 2 rounds each, at 8 clients
    (its activations at 64 do not fit the card; fedtpu's DenseNet has no
    remat): 5 K1 and 5 K2 a round. ``--only zoo`` runs the device and
-   build phases and this one alone.
+   build phases, this one and phase 13.
+13. zoo, part 2a: (a) a small round of each family of the zoo's second
+   part on the card against the same round on the CPU, the global model in
+   f64 (4 clients, batch 4, one step masked): MobileNetV2, ShuffleNetG3
+   and ShuffleNetV2 at 16x16, GoogLeNet, ResNeXt29_2x64d, SENet18 and
+   DPN26 at 8x8, per leaf none, and topk for ShuffleNetV2 and DPN26. (b)
+   ShuffleNetV2 at full width on the flagship round's traffic (CIFAR-10
+   shapes, 64 clients, batch 128, 6 local steps, iid, presharded, bf16):
+   first a round at 8 clients for its peak, scaled to 64; then 2 rounds
+   each of per-leaf none, topk (3 K1 a round) and int8 (2 K2) and flat
+   rotq (2 K3 over [64, 2^21]) with the counts set to 0 before and read
+   after, round 1's codec re-applied with the plain kernels, finite losses
+   and statistics; the uncompressed round timed (rounds/s,
+   client-epochs/s, MFU against the bf16 peak) and profiled (the device's
+   idle share), with peak memory. (c) MobileNetV2 at 16 clients (its
+   activations at 64 would need twice the card; its 8-client peak is
+   printed first): 2 rounds each of per-leaf topk (3 K1) and int8 (2 K2).
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
 Each kernel's ``launches`` there is the sum over the main paths, the
-smallcnn slice, the MobileNet round, the round options and the zoo;
-``launches_by_path`` has each.
+smallcnn slice, the MobileNet round, the round options, the zoo and the
+zoo's second part (``zoo2``); ``launches_by_path`` has each.
 """
 
 from __future__ import annotations
@@ -165,6 +183,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 # The MobileNet round fills most of the card; segments that grow keep the
 # caching allocator from fragmenting it. Read at the first allocation.
@@ -242,10 +261,16 @@ FLAT_P = 545_152  # smallcnn's lane-padded flat row
 MOBILENET_FLAT_P = 3_217_280  # MobileNet's: P = 3,217,226 lane-padded
 MOBILENET_LEAVES = 83
 MOBILENET_TIMED_ROUNDS = 3
-# The zoo's per-leaf shapes: ResNet-18 at 100 classes, densenet_cifar at 10.
+# The zoo's per-leaf shapes: ResNet-18 at 100 classes, densenet_cifar,
+# ShuffleNetV2 and MobileNetV2 at 10.
 RESNET18_LEAVES = 62
 DENSENET_LEAVES = 362
-ZOO_TIMING_RUNS = 3  # runs of _time_ms a leaf: the zoo has 424 leaves to time
+SHUFFLENETV2_LEAVES = 170
+MOBILENETV2_LEAVES = 173
+ZOO_TIMING_RUNS = 3  # runs of _time_ms a leaf: the zoo has 767 leaves to time
+# The ShuffleNetV2 rotq round's row: 1,263,854 params and 16,180 statistics
+# padded to 2^21, checked and timed beside ZOO_HADAMARD_SHAPE.
+ZOO2_HADAMARD_SHAPE = (64, 2**21)
 
 
 def log(msg: str) -> None:
@@ -300,7 +325,8 @@ def build_phase():
 # ------------------------------------------------------------ 3. kernels
 
 
-LEAVES = {"mobilenet": MOBILENET_LEAVES, "resnet18": RESNET18_LEAVES, "densenet_cifar": DENSENET_LEAVES}
+LEAVES = {"mobilenet": MOBILENET_LEAVES, "resnet18": RESNET18_LEAVES, "densenet_cifar": DENSENET_LEAVES,
+          "shufflenetv2": SHUFFLENETV2_LEAVES, "mobilenetv2": MOBILENETV2_LEAVES}
 
 
 def per_leaf_shapes(model_name: str, classes: int = 10):
@@ -574,6 +600,8 @@ def _grouped_phase(name, seed, peaks, extra_cases=None, round_forms=None):
     zoo = {
         "resnet18": _leaves(name, rng, per_leaf_shapes("resnet18", 100), dev),
         "densenet_cifar": _leaves(name, rng, per_leaf_shapes("densenet_cifar"), dev),
+        "shufflenetv2": _leaves(name, rng, per_leaf_shapes("shufflenetv2"), dev),
+        "mobilenetv2": _leaves(name, rng, per_leaf_shapes("mobilenetv2"), dev),
     }
     max_err = _check_cases(name, rng, dev, {**rounds, **zoo}, extra_cases)
     timed = {}
@@ -581,7 +609,8 @@ def _grouped_phase(name, seed, peaks, extra_cases=None, round_forms=None):
         forms, more = round_forms(*rounds[model]) if round_forms else ({}, dict)
         timed[model] = _grouped_round(name, label, *rounds[model], peaks, forms)
         timed[model].update(more())
-    for model, label in (("resnet18", "ResNet-18"), ("densenet_cifar", "densenet_cifar")):
+    for model, label in (("resnet18", "ResNet-18"), ("densenet_cifar", "densenet_cifar"),
+                         ("shufflenetv2", "ShuffleNetV2"), ("mobilenetv2", "MobileNetV2")):
         timed[model] = _grouped_zoo_round(name, label, *zoo[model], peaks)
     del zoo, rounds
     info = KERNEL_INFO[name]
@@ -606,13 +635,16 @@ def _grouped_phase(name, seed, peaks, extra_cases=None, round_forms=None):
         "mobilenet_per_leaf_round": timed["mobilenet"],
         "resnet18_per_leaf_round": timed["resnet18"],
         "densenet_per_leaf_round": timed["densenet_cifar"],
+        "shufflenetv2_per_leaf_round": timed["shufflenetv2"],
+        "mobilenetv2_per_leaf_round": timed["mobilenetv2"],
     }
 
 
 def kernel_phase(peaks):
     """K1, grouped: bit-equal to its plain version leaf by leaf as one call
     per round (smallcnn's 8 leaves in one launch, MobileNet's 83 in 2,
-    ResNet-18's 62 in 1, densenet_cifar's 362 in 5) and over the edge lists
+    ResNet-18's 62 in 1, densenet_cifar's 362 in 5, ShuffleNetV2's 170 and
+    MobileNetV2's 173 in 3) and over the edge lists
     and a leaf of 70,000 rows (past the 65,535 of a grid axis); timed over
     each round's leaves; then each flat row in one launch, bit-equal and
     timed. No single PyTorch call computes K1's two outputs: no library
@@ -670,7 +702,8 @@ def _int8_library(xs, scales):
 
 def int8_phase(peaks):
     """The grouped K2 (``_grouped_phase``): each round's leaves as one call
-    (densenet_cifar's 362 in 5 launches) and the edge lists; the small
+    (densenet_cifar's 362 in 5 launches, ShuffleNetV2's 170 and
+    MobileNetV2's 173 in 2) and the edge lists; the small
     models' turns add the library call one leaf a call."""
     return _grouped_phase("quantdequant_int8", 4, peaks, round_forms=_int8_library)
 
@@ -749,14 +782,15 @@ def hadamard_phase(peaks):
     """K3 forward and inverse bit-equal to the plain version at every
     shape; inverse(forward(y)) within 1e-5 of y (fedtpu's gate) on normal
     rows; timed beside its bound at the rotq row, where a round launches it
-    twice, at MobileNet's row and at ResNet-18's."""
+    twice, at MobileNet's row, at ResNet-18's and at ShuffleNetV2's."""
     dev = torch.device("cuda")
     wrapper, plain = kernels.KERNELS["hadamard_rotate"]
     g = torch.Generator(dev).manual_seed(3)
     max_err = 0.0
     timed = {}
     zoo_index = len(HADAMARD_SHAPES)
-    for i, (rows, h) in enumerate([*HADAMARD_SHAPES, ZOO_HADAMARD_SHAPE]):
+    zoo_shapes = {zoo_index: ZOO_HADAMARD_SHAPE, zoo_index + 1: ZOO2_HADAMARD_SHAPE}
+    for i, (rows, h) in enumerate([*HADAMARD_SHAPES, *zoo_shapes.values()]):
         y, signs = _hadamard_inputs(g, rows, h, dev)
         for inverse in (False, True):
             got = wrapper(y, signs, inverse=inverse)
@@ -768,7 +802,7 @@ def hadamard_phase(peaks):
                     f"kernels: hadamard_rotate (inverse={inverse}) differs from its "
                     f"plain version at {rows}x{h}"
                 )
-            if i < 3 or i == zoo_index:
+            if i < 3 or i in zoo_shapes:
                 timed[(i, inverse)] = (
                     _time_ms(lambda: wrapper(y, signs, inverse=inverse)),
                     _time_ms(lambda: plain(y, signs, inverse), runs=5, calls=2) if i != 2 else None,
@@ -782,7 +816,7 @@ def hadamard_phase(peaks):
             raise RuntimeError(f"kernels: hadamard_rotate round trip at {rows}x{h} off by {err}")
         log(f"kernels: hadamard_rotate {rows}x{h}: forward and inverse bit-equal; round trip max err {err:.3g}")
         del y, signs, normal, back, got, want
-    for i, (rows, h) in [*enumerate(HADAMARD_SHAPES[:3]), (zoo_index, ZOO_HADAMARD_SHAPE)]:
+    for i, (rows, h) in [*enumerate(HADAMARD_SHAPES[:3]), *zoo_shapes.items()]:
         for inverse in (False, True):
             rates = _hadamard_rates(timed[(i, inverse)][0], rows, h, peaks)
             log(
@@ -821,6 +855,8 @@ def hadamard_phase(peaks):
         "rows8_2p22_ms": {"forward": timed[(2, False)][0], "inverse": timed[(2, True)][0]},
         "resnet18_rotq_round": _hadamard_round(
             timed[(zoo_index, False)], timed[(zoo_index, True)], *ZOO_HADAMARD_SHAPE, peaks),
+        "shufflenetv2_rotq_round": _hadamard_round(
+            timed[(zoo_index + 1, False)], timed[(zoo_index + 1, True)], *ZOO2_HADAMARD_SHAPE, peaks),
         **floors,
     }
     log(
@@ -977,11 +1013,12 @@ def mobilenet_reference_phase():
 
 def bench_cfg(
     compression_name: str, layout: str = "per_leaf", model: str = "smallcnn",
-    data_kw=None, fed_kw=None,
+    data_kw=None, fed_kw=None, clients: int = NUM_CLIENTS,
 ) -> RoundConfig:
     """bench.py's configuration (smallcnn) or the JAX package's flagship
-    round (``tools/bench_model_tpu.py``: MobileNet, the same clients, data,
-    steps and dtype), with the update codec switched on."""
+    round (``tools/bench_model_tpu.py``: MobileNet, or any model it is
+    given, the same data, steps and dtype, ``clients`` of them), with the
+    update codec switched on."""
     return RoundConfig(
         model=model,
         num_classes=10,
@@ -991,7 +1028,7 @@ def bench_cfg(
             **(data_kw or {}),
         }),
         fed=FedConfig(
-            num_clients=NUM_CLIENTS, compression=compression_name,
+            num_clients=clients, compression=compression_name,
             topk_fraction=TOPK_FRACTION, delta_layout=layout, **(fed_kw or {}),
         ),
         steps_per_round=STEPS,
@@ -1330,10 +1367,11 @@ def _trace_summary(trace_path: Path, rounds: int):
     return by_name, busy / 1e3, span / 1e3
 
 
-def profile_phase(fed, out_dir: Path, label: str, rounds: int = 2):
+def profile_phase(fed, out_dir: Optional[Path], label: str, rounds: int = 2):
     """torch.profiler over ``rounds`` rounds: device time by kernel, by
-    group, and the device's idle share of the window. Returns ms per round
-    by kernel and the idle share."""
+    group, and the device's idle share of the window, and with an
+    ``out_dir`` the profiler's table of ops there. Returns ms per round by
+    kernel and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     fed.run_on_device(1)
@@ -1343,9 +1381,12 @@ def profile_phase(fed, out_dir: Path, label: str, rounds: int = 2):
         fed.run_on_device(rounds)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out_dir.mkdir(parents=True, exist_ok=True)
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
-    (out_dir / f"profile_{label}.txt").write_text(table)
+    if out_dir is not None:
+        # The table's event tree takes minutes to build for a round of
+        # ShuffleNetV2's tens of thousands of ops: only when it is kept.
+        out_dir.mkdir(parents=True, exist_ok=True)
+        table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
+        (out_dir / f"profile_{label}.txt").write_text(table)
     # The chrome trace of a MobileNet round runs to hundreds of MB: it is
     # read here and not kept; the table above stays in out_dir.
     with tempfile.TemporaryDirectory() as tmp:
@@ -2516,10 +2557,8 @@ def zoo_phase(data, card, profile_dir=None):
                                    rounds=rounds, peak=True)
             out[f"{model} {layout} {codec}"] = {"clients": clients, "rounds": records}
             if (model, codec) == ("resnet18", "none"):
-                out["timed"] = _zoo_timing(fed, flops, card)
-                label = "zoo_resnet18_per_leaf_none"
-                with tempfile.TemporaryDirectory() as tmp:
-                    _, out["idle_share"] = profile_phase(fed, profile_dir or Path(tmp), label, rounds=1)
+                out["timed"] = _zoo_timing(fed, flops, card, ZOO_CLIENTS, "config 4 resnet18")
+                _, out["idle_share"] = profile_phase(fed, profile_dir, "zoo_resnet18_per_leaf_none", rounds=1)
             del fed, rec
             _free()
     counts = _launch_counts()
@@ -2543,9 +2582,10 @@ def zoo_phase(data, card, profile_dir=None):
     return out, counts
 
 
-def _zoo_timing(fed, flops, card):
-    """ZOO_TIMED_ROUNDS rounds of an engine after its checked rounds:
-    rounds/s, client-epochs/s and MFU against the bf16 peak."""
+def _zoo_timing(fed, flops, card, clients, label):
+    """ZOO_TIMED_ROUNDS rounds of an engine of ``clients`` clients after
+    its checked rounds: rounds/s, client-epochs/s and MFU against the bf16
+    peak."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2556,12 +2596,130 @@ def _zoo_timing(fed, flops, card):
         raise RuntimeError(f"zoo timing: non-finite loss {m.loss.tolist()}")
     result = {
         "rounds": ZOO_TIMED_ROUNDS, "round_s": secs, "rounds_per_s": 1 / secs,
-        "client_epochs_per_s": ZOO_CLIENTS / secs, "model_tflop_per_round": flops / 1e12,
+        "client_epochs_per_s": clients / secs, "model_tflop_per_round": flops / 1e12,
         "mfu_bf16": flops / secs / BF16_PEAK, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "card": card,
     }
-    log("zoo: config 4 resnet18 per_leaf none, timed: " + json.dumps(result))
+    log(f"zoo: {label} per_leaf none, timed: " + json.dumps(result))
     return result
+
+
+# ------------------------------------------------------ 13. zoo, part 2a
+
+# The flagship round's traffic (bench_cfg: CIFAR-10 shapes, batch 128, 6
+# local steps, iid, presharded, bf16) on the zoo's second part. ShuffleNetV2
+# runs all 64 clients; MobileNetV2's activations (three times
+# ShuffleNetV2's conv outputs an image) would need some 150 GB at 64, 8
+# times its 8-client peak, so it runs 16. Phase 13 prints each model's
+# peak at 8 clients and its linear extrapolation to the clients it runs,
+# before it runs them.
+SHUFFLENETV2_CLIENTS = 64
+MOBILENETV2_CLIENTS = 16
+PROBE_CLIENTS = 8
+ZOO2_ROUNDS = 2  # checked rounds a codec, not 3: the whole script stays near 1,000 s
+MOBILENETV2_CASES = [("topk", "per_leaf"), ("int8", "per_leaf")]
+
+# (model, image size, cases): phase 13 (a)'s small rounds, card against
+# CPU, the global model in f64 (4 clients, batch 4, one step masked). The
+# images leave at least 4 values a channel in the last map.
+ZOO2_REFERENCE = [
+    ("mobilenetv2", (16, 16, 3), [("none", "per_leaf")]),
+    ("shufflenetg3", (16, 16, 3), [("none", "per_leaf")]),
+    ("shufflenetv2", (16, 16, 3), [("none", "per_leaf"), ("topk", "per_leaf")]),
+    ("googlenet", (8, 8, 3), [("none", "per_leaf")]),
+    ("resnext29_2x64d", (8, 8, 3), [("none", "per_leaf")]),
+    ("senet18", (8, 8, 3), [("none", "per_leaf")]),
+    ("dpn26", (8, 8, 3), [("none", "per_leaf"), ("topk", "per_leaf")]),
+]
+
+
+def zoo2_reference_phase():
+    """Phase 13 (a): a small round of every family of the zoo's second
+    part on the card against the CPU, within the reference tolerance."""
+    rng = np.random.default_rng(13)
+    clients, batch = 4, 4
+    mask = torch.ones((clients, 2), dtype=torch.bool)
+    mask[1, 1] = False  # client 1's second step is padding
+    for model, size, cases in ZOO2_REFERENCE:
+        n = clients * 2 * batch
+        data = (rng.standard_normal((n,) + size, dtype=np.float32),
+                rng.integers(0, 10, size=n).astype(np.int32))
+        for codec, layout in cases:
+            card_vs_cpu(
+                f"zoo2 reference: {model} {layout} {codec}",
+                _zoo_small_cfg(model, codec, layout, "cifar10", clients, batch),
+                data, codec, f64=True, step_mask=mask,
+            )
+
+
+def _peak_probe(model, data, clients, card):
+    """One uncompressed flagship round of ``model`` at PROBE_CLIENTS
+    clients (after a first round): its peak, and that peak scaled linearly
+    to ``clients``."""
+    fed = Federation(bench_cfg("none", model=model, clients=PROBE_CLIENTS), seed=0, data=data)
+    fed.run_on_device(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fed.run_on_device(1)
+    torch.cuda.synchronize()
+    out = {"clients": PROBE_CLIENTS, "round_s": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out[f"peak_gb_scaled_to_{clients}"] = out["peak_gb"] * clients / PROBE_CLIENTS
+    out["card"] = card
+    log(f"zoo2: {model} memory probe: " + json.dumps(out))
+    del fed
+    _free()
+    return out
+
+
+def zoo2_phase(data, card, profile_dir=None):
+    """Phase 13 (b)-(c): ShuffleNetV2 at full width over 64 clients, then
+    MobileNetV2 at 16, on the flagship round's data. First each model's
+    memory probe; then the launch counts are set to 0 before the first
+    checked round and read after the last: 2 rounds each of ShuffleNetV2
+    per leaf none (no launch), topk (3 K1), int8 (2 K2) and flat rotq (2 K3
+    over [64, 2^21]), round 1's codec re-applied with the plain kernels;
+    the uncompressed engine then times 2 rounds and runs one more under
+    the profiler (the device's idle share); then 2 rounds each of
+    MobileNetV2 per leaf topk (3 K1) and int8 (2 K2). Returns the results
+    and the path's counts."""
+    _free()
+    out = {"card": card}
+    for model, clients in (("shufflenetv2", SHUFFLENETV2_CLIENTS), ("mobilenetv2", MOBILENETV2_CLIENTS)):
+        out[f"{model} probe"] = _peak_probe(model, data, clients, card)
+    flops = model_flops("shufflenetv2", 10, SHUFFLENETV2_CLIENTS * STEPS * BATCH)
+    peaks_gb = {}
+    kernels.reset_launch_counts()
+    for model, cases, clients, leaves, rounds in (
+        ("shufflenetv2", ZOO_CASES, SHUFFLENETV2_CLIENTS, SHUFFLENETV2_LEAVES, ZOO2_ROUNDS),
+        ("mobilenetv2", MOBILENETV2_CASES, MOBILENETV2_CLIENTS, MOBILENETV2_LEAVES, ZOO2_ROUNDS),
+    ):
+        codecs = slice_codecs(leaves)
+        for codec, layout in cases:
+            counted, per_round, make_plain = codecs[(codec, layout)]
+            t0 = time.perf_counter()
+            cfg = bench_cfg(codec, layout, model, clients=clients)
+            rec = Recorder(compression.make_compressor(cfg.fed)) if make_plain else None
+            fed = Federation(cfg, seed=0, data=data, compressor=rec.compressor() if rec else None)
+            tag = f"zoo2 {model} {clients} clients {layout} {codec}"
+            t_built = time.perf_counter()
+            records = check_rounds(fed, tag, codec, layout, counted, per_round, rec, make_plain,
+                                   rounds=rounds, peak=True)
+            out[tag] = {"clients": clients, "rounds": records}
+            peaks_gb[tag] = max(r["peak_gb"] for r in records)
+            t_checked = time.perf_counter()
+            if (model, codec) == ("shufflenetv2", "none"):
+                out["timed"] = _zoo_timing(fed, flops, card, clients, f"zoo2 {model} {clients} clients")
+                _, out["idle_share"] = profile_phase(fed, profile_dir, "zoo2_shufflenetv2_per_leaf_none", rounds=1)
+            del fed, rec
+            _free()
+            log(f"clock: {tag}: engine {t_built - t0:.1f} s, checked rounds {t_checked - t_built:.1f} s, "
+                f"timing and profile {time.perf_counter() - t_checked:.1f} s")
+    counts = _launch_counts()
+    log(f"zoo2: peaks {json.dumps(peaks_gb)}; device idle share of a ShuffleNetV2 round "
+        f"{out['idle_share']:.4f} | {card}")
+    return out, counts
 
 
 # --------------------------------------------------------------- main
@@ -2592,6 +2750,8 @@ def main(argv=None) -> int:
         build_phase()
         zoo_reference_phase()
         zoo_phase(datasets.load("cifar100", "train", seed=0), smi, profile_dir)
+        zoo2_reference_phase()
+        zoo2_phase(datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH), smi, profile_dir)
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.only:
@@ -2660,6 +2820,10 @@ def main(argv=None) -> int:
     clock("phase 12 (a), the zoo's reference")
     _, paths["zoo"] = zoo_phase(datasets.load("cifar100", "train", seed=0), smi, profile_dir)
     clock("phase 12 (b)-(c), config 4 and DenseNet")
+    zoo2_reference_phase()
+    clock("phase 13 (a), the zoo's second part's reference")
+    _, paths["zoo2"] = zoo2_phase(data, smi, profile_dir)
+    clock("phase 13 (b)-(c), ShuffleNetV2 and MobileNetV2")
     for kname in kernels.KERNELS:
         for path, counts in paths.items():
             if counts[kname] == 0:

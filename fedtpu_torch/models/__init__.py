@@ -1,8 +1,10 @@
-"""The port's model zoo: slice 7, part 1 of ``fedtpu.models``.
+"""The port's model zoo: slice 7, parts 1 and 2a of ``fedtpu.models``.
 
 Constructor names mirror fedtpu's (``MLP()``, ``LeNet()``, ``ResNet18()``,
 ``PreActResNet18()``, ``VGG('VGG19')``, ``DenseNet121()``,
-``densenet_cifar()``, ...), and every model is reachable by fedtpu's
+``densenet_cifar()``, ``MobileNetV2()``, ``GoogLeNet()``,
+``ResNeXt29_2x64d()``, ``SENet18()``, ``DPN26()``, ``ShuffleNetG2()``,
+``ShuffleNetV2(net_size)``, ...), and every model is reachable by fedtpu's
 registry name through :func:`create`. The rest of fedtpu's zoo
 (``registry.NOT_PORTED``) raises ``NotImplementedError`` naming its
 ROADMAP.md item.
@@ -30,6 +32,18 @@ from fedtpu_torch.models.densenet import (
     DenseNet201,
     densenet_cifar,
 )
+from fedtpu_torch.models.mobilenetv2 import MobileNetV2
+from fedtpu_torch.models.googlenet import GoogLeNet
+from fedtpu_torch.models.resnext import (
+    ResNeXt29_2x64d,
+    ResNeXt29_4x64d,
+    ResNeXt29_8x64d,
+    ResNeXt29_32x4d,
+)
+from fedtpu_torch.models.senet import SENet18
+from fedtpu_torch.models.dpn import DPN26, DPN92
+from fedtpu_torch.models.shufflenet import ShuffleNetG2, ShuffleNetG3
+from fedtpu_torch.models.shufflenetv2 import ShuffleNetV2
 
 __all__ = [
     "available",
@@ -54,4 +68,16 @@ __all__ = [
     "DenseNet169",
     "DenseNet201",
     "densenet_cifar",
+    "MobileNetV2",
+    "GoogLeNet",
+    "ResNeXt29_2x64d",
+    "ResNeXt29_4x64d",
+    "ResNeXt29_8x64d",
+    "ResNeXt29_32x4d",
+    "SENet18",
+    "DPN26",
+    "DPN92",
+    "ShuffleNetG2",
+    "ShuffleNetG3",
+    "ShuffleNetV2",
 ]

@@ -1,8 +1,10 @@
 """Shared building blocks of the port's model zoo.
 
 The port of ``fedtpu.models.common``: fedtpu's ``BatchNorm``, its
-bias-free ``conv3x3``/``conv1x1``, ``max_pool``, ``avg_pool`` and
-``global_avg_pool``. Models take NHWC inputs at their public boundary and
+bias-free ``conv3x3``/``conv1x1`` and a depthwise ``depthwise3x3``,
+``max_pool``, ``avg_pool`` (VALID or padded, as flax pads: max with -inf,
+the average counting the padding), ``global_avg_pool``, and ShuffleNet's
+``channel_shuffle``. Models take NHWC inputs at their public boundary and
 run NCHW inside, torch's default layout for convolutions. fedtpu's
 ``FEDTPU_TILED_POOL`` opt-in changes only its own max-pool's backward
 formulation, not the function, and the port does not read it.
@@ -218,16 +220,34 @@ def conv1x1(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False)
 
 
-def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None) -> torch.Tensor:
-    """fedtpu's ``max_pool`` on an NCHW tensor: VALID padding, the stride
-    equal to the window unless given."""
-    return F.max_pool2d(x, window, stride or window)
+def depthwise3x3(ch: int, stride: int = 1) -> nn.Conv2d:
+    """A 3x3 depthwise conv (one channel a group), padding 1, no bias:
+    flax's ``[3, 3, 1, C]`` kernel is torch's ``[C, 1, 3, 3]``."""
+    return nn.Conv2d(ch, ch, 3, stride=stride, padding=1, groups=ch, bias=False)
 
 
-def avg_pool(x: torch.Tensor, window: int, stride: Optional[int] = None) -> torch.Tensor:
-    """fedtpu's ``avg_pool`` on an NCHW tensor: VALID padding, the stride
-    equal to the window unless given."""
-    return F.avg_pool2d(x, window, stride or window)
+def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None, padding: int = 0) -> torch.Tensor:
+    """fedtpu's ``max_pool`` on an NCHW tensor: the stride equal to the
+    window unless given; ``padding`` values on each side of both spatial
+    dims, padded with -inf as flax's ``nn.max_pool`` pads (VALID at 0)."""
+    return F.max_pool2d(x, window, stride or window, padding)
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: Optional[int] = None, padding: int = 0) -> torch.Tensor:
+    """fedtpu's ``avg_pool`` on an NCHW tensor: the stride equal to the
+    window unless given; ``padding`` zeros on each side of both spatial
+    dims, counted in the average (flax's ``count_include_pad=True``, which
+    is torch's default too)."""
+    return F.avg_pool2d(x, window, stride or window, padding)
+
+
+def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """fedtpu's ``channel_shuffle`` on an NCHW tensor: channels viewed as
+    ``[groups, c / groups]`` and read out transposed, so that output
+    channel ``j * groups + i`` is input channel ``i * (c / groups) + j``
+    (fedtpu's ``[..., g, C/g] -> [..., C/g, g]`` in NHWC)."""
+    n, c, h, w = x.shape
+    return x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(n, c, h, w)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Model registry: a model is a config value, looked up by name.
 
 The names are fedtpu's (``fedtpu.models.registry``), case-insensitive. The
-families of slice 7, part 1 are ported (MLP, smallcnn, LeNet, MobileNet,
-ResNet, PreAct-ResNet, VGG, DenseNet); a name of fedtpu's zoo that is not
-(``NOT_PORTED``) raises ``NotImplementedError`` naming its ROADMAP.md item,
-and a name fedtpu does not know raises ``KeyError``, as fedtpu's does.
+families of slice 7, parts 1 (MLP, smallcnn, LeNet, MobileNet, ResNet,
+PreAct-ResNet, VGG, DenseNet) and 2a (MobileNetV2, GoogLeNet, ResNeXt-29,
+SENet-18, DPN, ShuffleNet, ShuffleNetV2) are ported; a name of fedtpu's zoo
+that is not (``NOT_PORTED``) raises ``NotImplementedError`` naming its
+ROADMAP.md item, and a name fedtpu does not know raises ``KeyError``, as
+fedtpu's does.
 """
 
 from __future__ import annotations
@@ -19,11 +21,8 @@ from fedtpu_torch.config import not_ported
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {}
 
 # fedtpu's registered names still to port (ROADMAP.md Queue 1, slice 7,
-# part 2), in the order they are ported.
+# part 2b), in the order they are ported.
 NOT_PORTED = (
-    "mobilenetv2", "googlenet",
-    "resnext29_2x64d", "resnext29_4x64d", "resnext29_8x64d", "resnext29_32x4d",
-    "senet18", "dpn26", "dpn92", "shufflenetg2", "shufflenetg3", "shufflenetv2",
     "efficientnetb0", "regnetx_200mf", "regnetx_400mf", "regnety_400mf",
     "pnasneta", "pnasnetb", "dla", "simpledla",
 )
@@ -42,17 +41,20 @@ def create(
     num_classes: int = 10,
     image_size: Tuple[int, int, int] = (32, 32, 3),
     remat: bool = False,
+    **kwargs,
 ) -> nn.Module:
     """Build a model by registry name (case-insensitive) for NHWC inputs of
     ``image_size``; ``remat=True`` asks for per-block recompute, which only
-    some models have (fedtpu's ``ValueError`` otherwise)."""
+    some models have (fedtpu's ``ValueError`` otherwise). Other keyword
+    arguments go to the constructor, as fedtpu's ``create`` passes them
+    (``create("shufflenetv2", net_size=0.5)``)."""
     key = name.lower()
     if key in NOT_PORTED:
-        raise not_ported(f"model '{name}'", "slice 7, part 2: the rest of the zoo")
+        raise not_ported(f"model '{name}'", "slice 7, part 2b: the rest of the zoo")
     if key not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; available: {available()}")
     ctor = _REGISTRY[key]
-    kwargs = dict(num_classes=num_classes, image_size=tuple(image_size))
+    kwargs.update(num_classes=num_classes, image_size=tuple(image_size))
     if "remat" in inspect.signature(ctor).parameters:
         kwargs["remat"] = remat
     elif remat:

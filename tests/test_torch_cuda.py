@@ -9,12 +9,13 @@ JAX nor fedtpu, so they also run where only PyTorch is installed:
 inputs are the CPU tests' (``test_torch_kernels.py``, ``test_torch_flat.py``):
 ties at the threshold, -0.0, zero scales and halfway quotients at smallcnn's
 widths; -0.0, zeros and large magnitudes for the Hadamard rotation at the
-rotq rows (smallcnn's [64, 2^20], MobileNet's [64, 2^22]) and widths around
-its phase boundary; and a small MobileNet round on the card against the same
-round on the CPU. The grouped kernels (top-k threshold and int8) also take
-lists of leaves: the 83 of a MobileNet round, empty and ragged leaves,
-views off 16-byte alignment, and more leaves than one launch's table holds;
-the top-k threshold also a leaf of 70,000 rows.
+rotq rows (smallcnn's [64, 2^20], MobileNet's [64, 2^22], ShuffleNetV2's
+[64, 2^21]) and widths around its phase boundary; and a small MobileNet
+round on the card against the same round on the CPU. The grouped kernels
+(top-k threshold and int8) also take lists of leaves: the 83 of a
+MobileNet round and the 170 of a ShuffleNetV2 one, empty and ragged
+leaves, views off 16-byte alignment, and more leaves than one launch's
+table holds; the top-k threshold also a leaf of 70,000 rows.
 """
 
 import numpy as np
@@ -125,10 +126,11 @@ def _quant_leaves(rng, shapes):
     return leaves
 
 
-def _mobilenet_leaf_shapes(clients=64):
+def _leaf_shapes(name="mobilenet", clients=64):
     from fedtpu_torch import models
 
-    model = models.create("mobilenet", 10)
+    with torch.device("meta"):
+        model = models.create(name, 10)
     return [(clients, p.numel()) for p in model.parameters()]
 
 
@@ -194,9 +196,19 @@ def test_quantdequant_int8_grouped_bit_equal_on_card(cuda_device, case):
 def test_quantdequant_int8_grouped_mobilenet_round_in_one_launch_on_card(cuda_device):
     """MobileNet's 83 leaves at 64 clients, as a per-leaf int8 round
     quantizes them: one launch."""
-    shapes = _mobilenet_leaf_shapes()
+    shapes = _leaf_shapes()
     assert len(shapes) == 83
     _grouped_on_card(cuda_device, _quant_leaves(np.random.default_rng(83), shapes))
+
+
+@pytest.mark.cuda
+def test_quantdequant_int8_grouped_shufflenetv2_round_in_two_launches_on_card(cuda_device):
+    """ShuffleNetV2's 170 leaves at 64 clients, as a per-leaf int8 round
+    quantizes them: two launches (the table holds 90 leaves)."""
+    shapes = _leaf_shapes("shufflenetv2")
+    assert len(shapes) == 170
+    leaves = _quant_leaves(np.random.default_rng(170), shapes)
+    assert _grouped_on_card(cuda_device, leaves) == 2
 
 
 @pytest.mark.cuda
@@ -241,9 +253,19 @@ def test_threshold_feedback_grouped_takes_misaligned_views_on_card(cuda_device):
 def test_threshold_feedback_grouped_mobilenet_round_in_two_launches_on_card(cuda_device):
     """MobileNet's 83 leaves at 64 clients, as a per-leaf topk round splits
     them: two launches (the table holds 77 leaves)."""
-    shapes = _mobilenet_leaf_shapes()
+    shapes = _leaf_shapes()
     leaves = _threshold_leaves(np.random.default_rng(84), shapes)
     assert _grouped_on_card(cuda_device, leaves, name="threshold_feedback") == 2
+
+
+@pytest.mark.cuda
+def test_threshold_feedback_grouped_shufflenetv2_round_in_three_launches_on_card(cuda_device):
+    """ShuffleNetV2's 170 leaves at 64 clients, as a per-leaf topk round
+    splits them: three launches."""
+    shapes = _leaf_shapes("shufflenetv2")
+    assert len(shapes) == 170
+    leaves = _threshold_leaves(np.random.default_rng(171), shapes)
+    assert _grouped_on_card(cuda_device, leaves, name="threshold_feedback") == 3
 
 
 @pytest.mark.cuda
@@ -277,6 +299,18 @@ def test_hadamard_rotate_kernel_bit_equal_on_card(cuda_device, rows, h, inverse)
     out = kernels.hadamard_rotate(yd, sd, inverse=inverse)
     torch.cuda.synchronize()
     assert kernels.hadamard_rotate.launches == before + 1
+    ref = kernels.hadamard_rotate_plain(yd, sd, inverse)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_hadamard_rotate_shufflenetv2_row_bit_equal_on_card(cuda_device, inverse):
+    """ShuffleNetV2's rotq row: 1,263,854 params and 16,180 statistics
+    padded to 2^21, at 64 clients."""
+    y, signs = _hadamard_inputs(np.random.default_rng(21), 64, 2**21)
+    yd, sd = torch.from_numpy(y).to(cuda_device), torch.from_numpy(signs).to(cuda_device)
+    out = kernels.hadamard_rotate(yd, sd, inverse=inverse)
     ref = kernels.hadamard_rotate_plain(yd, sd, inverse)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 

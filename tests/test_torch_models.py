@@ -69,4 +69,4 @@ def test_softmax_ce_matches_fedtpu():
 
 def test_unported_model_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7, part 2"):
-        tmodels.create("googlenet")
+        tmodels.create("efficientnetb0")

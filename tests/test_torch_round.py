@@ -433,9 +433,9 @@ _F, _D, _O = tconfig.FedConfig, tconfig.DataConfig, tconfig.OptimizerConfig
 
 
 @pytest.mark.parametrize("part", [
-    "googlenet",
+    "efficientnetb0",
     _F(sim=tconfig.SimConfig(population=100)),
-    "ShuffleNetV2",
+    "PNASNetA",
 ], ids=repr)
 def test_unported_options_raise_naming_the_roadmap(part):
     if isinstance(part, str):

@@ -4,10 +4,25 @@ model, in numpy, from a seed."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from fedtpu import models as jmodels
 
 _SHAPES = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The module's torch ops on one CPU thread, the count restored after.
+    With a thread per core in each of several test workers on one host,
+    some of the zoo's f64 tests ran 14 to 250 times slower than alone;
+    alone they take as long on one thread as on eight. Import it into a
+    test module to apply it there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def image_shape(name):
@@ -15,21 +30,22 @@ def image_shape(name):
     return (28, 28, 1) if name.startswith("mlp") else (32, 32, 3)
 
 
-def _shapes(name, classes, size):
-    key = (name, classes, size)
+def _shapes(name, classes, size, ctor):
+    key = (name, classes, size, tuple(sorted(ctor.items())))
     if key not in _SHAPES:
-        model = jmodels.create(name, num_classes=classes)
+        model = jmodels.create(name, num_classes=classes, **ctor)
         _SHAPES[key] = jax.eval_shape(
             lambda k: model.init(k, jnp.zeros((1,) + size), train=False), jax.random.PRNGKey(0)
         )
     return _SHAPES[key]
 
 
-def flax_variables(name, classes, size, seed):
-    """``(params, batch_stats)`` of fedtpu's ``name`` as nested numpy
-    trees (``{}`` for a model without statistics): kernels normal with
-    variance 1 / fan_in, biases small, BatchNorm leaves away from their
-    init (scale 1 + 0.2 n, bias and mean 0.1 n, var in [0.5, 2])."""
+def flax_variables(name, classes, size, seed, **ctor):
+    """``(params, batch_stats)`` of fedtpu's ``name`` (built with the
+    constructor's keyword arguments ``ctor``) as nested numpy trees (``{}``
+    for a model without statistics): kernels normal with variance 1 /
+    fan_in, biases small, BatchNorm leaves away from their init (scale 1 +
+    0.2 n, bias and mean 0.1 n, var in [0.5, 2])."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
@@ -43,7 +59,7 @@ def flax_variables(name, classes, size, seed):
             return np.float32(0.5) + np.float32(1.5) * rng.random(s.shape, dtype=np.float32)
         return np.float32(0.1) * normal  # bias, mean
 
-    shapes = _shapes(name, classes, size)
+    shapes = _shapes(name, classes, size, ctor)
     return tuple(
         jax.tree_util.tree_map_with_path(leaf, shapes.get(c, {})) for c in ("params", "batch_stats")
     )
