@@ -36,7 +36,7 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    none/topk/int8, flat for topk/int8/rotq/randk with the same injected
    draws on both sides.
 5. slice: the bench configuration at full width (smallcnn, CIFAR-10 shapes,
-   64 clients, batch 128, 6 local steps, iid, presharded, bf16) for 3
+   64 clients, batch 128, 6 local steps, iid, presharded, bf16) for 2
    rounds each of per-leaf topk and int8 and flat rotq, topk and int8, the
    launch counts reset just before and read after, each round's launches
    checked per codec, round 1's codec re-applied with the plain kernels;
@@ -45,7 +45,7 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    widths and full depth, P = 3,217,226 in 83 leaves, the same data,
    clients, steps, batch and dtype): a small MobileNet round on the card
    against the same round on the CPU, both with the global model in f64;
-   then 3 rounds each of per-leaf none, topk and int8 and flat topk and
+   then 2 rounds each of per-leaf none, topk and int8 and flat topk and
    rotq with the counts reset before and read after (2 K1, 1 K2, 1 K1,
    2 K3 a round, 0 of the others), round 1's codec re-applied with the
    plain kernels, finite losses and BatchNorm statistics; one gather-layout
@@ -66,7 +66,7 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    refuses a model with BatchNorm, as fedtpu does), no kernel; (e)
    megabatch k=4, bf16 momentum and remat, beside the plain uncompressed
    rounds of both models. Each engine is built, driven two rounds and
-   freed in turn, two turns over the cases; the launch counts are set to
+   freed in turn, one turn over the cases; the launch counts are set to
    0 before the phase, checked every round and read after it; every
    round's losses and state must be finite. Then one local step with and
    without remat, for the memory its forward holds and its peak.
@@ -75,9 +75,10 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    ``train_round`` (f32) on the card against the same call on the CPU, per
    codec and layout of the reference phase, replies held within its
    tolerance. Then at
-   MobileNet's full width: 4 trainers (ranks 0-3 of 64, 768 examples, 6
-   steps of batch 128, bf16) on one copy of the data, per leaf (none, topk,
-   int8) and flat (topk, int8, rotq, randk), a dense round 0 and 2 rounds a
+   MobileNet's full width: 4 trainers (ranks 0-3 of 64, 256 examples, 2
+   steps of batch 128, bf16: the host paths' local work, cut from 6) on
+   one copy of the data, per leaf (none, topk, int8) and flat (topk,
+   int8, rotq, randk), a dense round 0 and a round a
    codec after the global model lands as FTP1 bytes; every reply decoded
    into a [64, P] f32 buffer on the card (P = 3,239,114: params and
    BatchNorm statistics, as fedtpu's edge row; rows 4-63 copies of 0-3)
@@ -90,9 +91,9 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    counts are set to 0 before it and must read 0 after.
 10. federation: the coordinator over localhost gRPC (its only phase that
    imports grpc): a port PrimaryServer and BackupServer and 4 port
-   serve_client MobileNet clients (6 steps of batch 128, bf16), all on the
-   card. A dense round 0, then 2 rounds each of per-leaf none and topk
-   (barrier) and flat int8 and rotq (stream), each group a primary started
+   serve_client MobileNet clients (2 steps of batch 128, bf16), all on the
+   card. A dense round 0, then a round each of per-leaf none and topk
+   (barrier) and flat rotq and int8 (stream), each group a primary started
    from the last one's replica and clients of the group's codec; a round
    whose deadline holds one client back (a live straggler); then the
    failover drill: the primary stops, the backup promotes on its 2 s
@@ -131,7 +132,7 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    within the reference tolerance. (b) BASELINE config 4 at full width:
    ResNet-18 at 100 classes on CIFAR-100 shapes (the synthetic fallback,
    50,000 examples), 64 clients, batch 128, 6 local steps, iid, bf16, lr
-   0.05 constant, augmentation: 3 rounds each of per-leaf none, topk and
+   0.05 constant, augmentation: 2 rounds each of per-leaf none, topk and
    int8 and flat rotq with the counts set to 0 before and read after (1
    K1, 1 K2, 2 K3 a round, 0 of the others), round 1's codec re-applied
    with the plain kernels, finite losses and statistics; the uncompressed
@@ -179,7 +180,6 @@ import re
 import statistics
 import subprocess
 import sys
-import tempfile
 import threading
 import time
 from pathlib import Path
@@ -207,9 +207,10 @@ from fedtpu_torch.utils.observe import process_rss_bytes  # noqa: E402
 NUM_CLIENTS = 64
 BATCH = 128
 STEPS = 391 // NUM_CLIENTS  # the reference's local-epoch share at 64 clients
-CHECK_ROUNDS = 3
+CHECK_ROUNDS = 2  # round 0, and round 1 whose codec is re-applied with the plain kernels
 TIMED_ROUNDS = 5
-TIMING_REPEATS = 2  # turns over the timed cases: two keep the whole run near 900 s
+TIMING_REPEATS = 1  # turns over the timed cases: one keeps the whole run well inside its limit
+LEAF_TIMING_RUNS = 5  # runs of _time_ms a leaf where a form is timed leaf by leaf
 TOPK_FRACTION = 0.01
 
 # Published peaks (NVIDIA data sheets, dense, full power): HBM bytes/s and
@@ -260,21 +261,26 @@ ZOO_HADAMARD_SHAPE = (64, 2**24)
 FLAT_P = 545_152  # smallcnn's lane-padded flat row
 MOBILENET_FLAT_P = 3_217_280  # MobileNet's: P = 3,217,226 lane-padded
 MOBILENET_LEAVES = 83
-MOBILENET_TIMED_ROUNDS = 3
+MOBILENET_TIMED_ROUNDS = 2
 # The zoo's per-leaf shapes: ResNet-18 at 100 classes, densenet_cifar,
 # ShuffleNetV2 and MobileNetV2 at 10.
 RESNET18_LEAVES = 62
 DENSENET_LEAVES = 362
 SHUFFLENETV2_LEAVES = 170
 MOBILENETV2_LEAVES = 173
-ZOO_TIMING_RUNS = 3  # runs of _time_ms a leaf: the zoo has 767 leaves to time
+ZOO_TIMING_RUNS = 1  # runs of _time_ms a leaf: the zoo has 767 leaves to time
 # The ShuffleNetV2 rotq round's row: 1,263,854 params and 16,180 statistics
 # padded to 2^21, checked and timed beside ZOO_HADAMARD_SHAPE.
 ZOO2_HADAMARD_SHAPE = (64, 2**21)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, led by the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 # ------------------------------------------------------------- 1. device
@@ -344,26 +350,27 @@ def per_leaf_shapes(model_name: str, classes: int = 10):
 RAGGED = [(1, 1), (1, 700), (3, 257), (2, 1), (64, 1000), (5, 65537)]
 
 
-def _inputs(name, rng, rows, cols, dev):
-    """The operands at one shape, with the edge cases the tests use: a
-    -0.0, a threshold tied with a value, an all-zero row of scale 0, and
-    quotients exactly halfway between integers."""
-    x = rng.standard_normal((rows, cols), dtype=np.float32)
+def _inputs(name, g, rows, cols, dev):
+    """The operands at one shape, drawn on the card from the generator
+    ``g`` (the zoo's rounds are over a billion draws), with the edge cases
+    the tests use: a -0.0, a threshold tied with a value, an all-zero row
+    of scale 0, and quotients exactly halfway between integers."""
+    x = torch.randn((rows, cols), generator=g, device=dev)
     x[0, 0] = -0.0
     if name == "threshold_feedback":
-        v = np.abs(x[:, min(1, cols - 1)]).astype(np.float32)
+        v = x[:, min(1, cols - 1)].abs()
         v[1::2] = 0.5
         if rows > 2:
             v[2] = 0.0
     else:
-        v = (np.abs(x).max(axis=1) / np.float32(127.0)).astype(np.float32)
+        v = x.abs().amax(dim=1) / 127.0
         if rows > 1:
-            x[1] = ((rng.integers(-130, 130, size=cols) + 0.5) * 0.25).astype(np.float32)
+            x[1] = (torch.randint(-130, 130, (cols,), generator=g, device=dev) + 0.5) * 0.25
             v[1] = 0.25
         if rows > 2:
             x[2] = 0.0
             v[2] = 0.0
-    return torch.from_numpy(x).to(dev), torch.from_numpy(v).to(dev)
+    return x, v
 
 
 def _bits_equal(a, b) -> bool:
@@ -441,7 +448,7 @@ def _by_leaf(outs):
     return list(zip(*outs)) if isinstance(outs, tuple) else [(o,) for o in outs]
 
 
-def _leaves(name, rng, shapes, dev, misaligned=()):
+def _leaves(name, g, shapes, dev, misaligned=()):
     """A grouped kernel's operands at ``shapes`` (``_inputs``; zeros for an
     empty leaf), the leaves at ``misaligned`` as views one float past
     16-byte alignment."""
@@ -450,7 +457,7 @@ def _leaves(name, rng, shapes, dev, misaligned=()):
         if rows * cols == 0:
             x, v = torch.zeros((rows, cols), device=dev), torch.zeros((rows,), device=dev)
         else:
-            x, v = _inputs(name, rng, rows, cols, dev)
+            x, v = _inputs(name, g, rows, cols, dev)
         if i in misaligned:
             buf = torch.zeros(x.numel() + 1, device=dev)
             buf[1:] = x.reshape(-1)
@@ -485,7 +492,7 @@ def _check_group(name, label, xs, vs) -> float:
     return err
 
 
-def _check_cases(name, rng, dev, rounds, extra=None) -> float:
+def _check_cases(name, g, dev, rounds, extra=None) -> float:
     """The grouped kernel bit-equal over each round's leaves, ragged
     leaves, a list that mixes empty, 1-, 10- and 65,537-column leaves,
     leaves passed as views one float past 16-byte alignment, 200 leaves
@@ -493,12 +500,12 @@ def _check_cases(name, rng, dev, rounds, extra=None) -> float:
     difference."""
     cases = {
         **rounds,
-        "ragged": _leaves(name, rng, RAGGED, dev),
-        "mixed": _leaves(name, rng, [(0, 5), (3, 0), (2, 1), (3, 10), (2, 65537), (1, 1), (5, 7)], dev),
+        "ragged": _leaves(name, g, RAGGED, dev),
+        "mixed": _leaves(name, g, [(0, 5), (3, 0), (2, 1), (3, 10), (2, 65537), (1, 1), (5, 7)], dev),
         "misaligned": _leaves(
-            name, rng, [(3, 4099), (1, 2), (2, 65537), (4, 10), (64, 1000)], dev, misaligned=(0, 1, 2, 4)),
-        "200 leaves": _leaves(name, rng, [(2, 1 + i % 37) for i in range(200)], dev),
-        **{label: _leaves(name, rng, shapes, dev) for label, shapes in (extra or {}).items()},
+            name, g, [(3, 4099), (1, 2), (2, 65537), (4, 10), (64, 1000)], dev, misaligned=(0, 1, 2, 4)),
+        "200 leaves": _leaves(name, g, [(2, 1 + i % 37) for i in range(200)], dev),
+        **{label: _leaves(name, g, shapes, dev) for label, shapes in (extra or {}).items()},
     }
     max_err = max(_check_group(name, label, *leaves) for label, leaves in cases.items())
     log(f"kernels: {name} grouped bit-equal over {', '.join(cases)}")
@@ -524,7 +531,7 @@ def _host_ms(grouped, xs, vs) -> float:
     return host_ms
 
 
-def _leaf_by_leaf(fn, operands, own_syncs=False, runs=21):
+def _leaf_by_leaf(fn, operands, own_syncs=False, runs=LEAF_TIMING_RUNS):
     """A form that times ``fn`` on each leaf's operands and sums."""
     return lambda: sum(_time_ms(lambda: fn(*ops), runs=runs, own_syncs=own_syncs) for ops in operands)
 
@@ -595,15 +602,15 @@ def _grouped_phase(name, seed, peaks, extra_cases=None, round_forms=None):
     round's leaves (``round_forms(xs, vs)`` adds forms and numbers to the
     small models' turns). Returns the kernels line's entry."""
     dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
-    rounds = {m: _leaves(name, rng, per_leaf_shapes(m), dev) for m in ("smallcnn", "mobilenet")}
+    g = torch.Generator(dev).manual_seed(seed)
+    rounds = {m: _leaves(name, g, per_leaf_shapes(m), dev) for m in ("smallcnn", "mobilenet")}
     zoo = {
-        "resnet18": _leaves(name, rng, per_leaf_shapes("resnet18", 100), dev),
-        "densenet_cifar": _leaves(name, rng, per_leaf_shapes("densenet_cifar"), dev),
-        "shufflenetv2": _leaves(name, rng, per_leaf_shapes("shufflenetv2"), dev),
-        "mobilenetv2": _leaves(name, rng, per_leaf_shapes("mobilenetv2"), dev),
+        "resnet18": _leaves(name, g, per_leaf_shapes("resnet18", 100), dev),
+        "densenet_cifar": _leaves(name, g, per_leaf_shapes("densenet_cifar"), dev),
+        "shufflenetv2": _leaves(name, g, per_leaf_shapes("shufflenetv2"), dev),
+        "mobilenetv2": _leaves(name, g, per_leaf_shapes("mobilenetv2"), dev),
     }
-    max_err = _check_cases(name, rng, dev, {**rounds, **zoo}, extra_cases)
+    max_err = _check_cases(name, g, dev, {**rounds, **zoo}, extra_cases)
     timed = {}
     for model, label in (("smallcnn", "smallcnn"), ("mobilenet", "MobileNet")):
         forms, more = round_forms(*rounds[model]) if round_forms else ({}, dict)
@@ -652,10 +659,10 @@ def kernel_phase(peaks):
     name = "threshold_feedback"
     result = _grouped_phase(name, 0, peaks, extra_cases={"70,000 rows": [(70_000, 3)]})
     dev = torch.device("cuda")
-    rng = np.random.default_rng(1)
+    g = torch.Generator(dev).manual_seed(1)
     wrapper, plain = kernels.KERNELS[name]
     for model, cols in (("smallcnn", FLAT_P), ("mobilenet", MOBILENET_FLAT_P)):
-        x, v = _inputs(name, rng, NUM_CLIENTS, cols, dev)
+        x, v = _inputs(name, g, NUM_CLIENTS, cols, dev)
         err = _check_group(name, f"the {model} flat row", [x], [v])
         bytes_moved, bound_ms, bound_by = _round_bound(name, [x], peaks)
         ms = _time_ms(lambda: wrapper(x, v))
@@ -805,7 +812,7 @@ def hadamard_phase(peaks):
             if i < 3 or i in zoo_shapes:
                 timed[(i, inverse)] = (
                     _time_ms(lambda: wrapper(y, signs, inverse=inverse)),
-                    _time_ms(lambda: plain(y, signs, inverse), runs=5, calls=2) if i != 2 else None,
+                    _time_ms(lambda: plain(y, signs, inverse), runs=3, calls=1) if i != 2 else None,
                 )
         if i == 0:
             floors = _floors(wrapper, y, signs)
@@ -1191,7 +1198,6 @@ def _check_recorded(rec, make_plain, layout, tag):
     log(f"slice {tag}: round 1's codec output and residuals bit-equal to the plain codec")
     del args, kw, out, new_state, out_p, new_p
     gc.collect()
-    torch.cuda.empty_cache()
 
 
 def slice_phase(data, model="smallcnn", cases=SMALLCNN_SLICE, leaves=8):
@@ -1206,6 +1212,7 @@ def slice_phase(data, model="smallcnn", cases=SMALLCNN_SLICE, leaves=8):
         cfg = bench_cfg(codec, layout, model)
         rec = Recorder(compression.make_compressor(cfg.fed)) if make_plain else None
         fed = Federation(cfg, seed=0, data=data, compressor=rec.compressor() if rec else None)
+        log(f"slice {model} {layout} {codec}: engine built")
         check_rounds(fed, f"{model} {layout} {codec}", codec, layout, counted, per_round,
                      rec, make_plain, peak=model != "smallcnn")
         feds[(codec, layout)] = fed
@@ -1344,17 +1351,35 @@ KERNEL_GROUPS = (
 )
 
 
-def _trace_summary(trace_path: Path, rounds: int):
-    """From a chrome trace: device ms per round by kernel name, the union of
-    the device's busy intervals and the window's span, in ms."""
-    events = json.loads(trace_path.read_text())["traceEvents"]
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _on_device(e) -> bool:
+    """A profiler event of the card's own: a kernel, a copy or a memset
+    (by its activity where the event carries one, else by its device)."""
+    if hasattr(e, "activity_type"):
+        return e.activity_type() in DEVICE_ACTIVITIES
+    return e.device_type() == torch.autograd.DeviceType.CUDA
+
+
+def _span_us(e):
+    """(start, duration) of a profiler event, in us."""
+    if hasattr(e, "start_ns"):
+        return e.start_ns() / 1e3, e.duration_ns() / 1e3
+    return float(e.start_us()), float(e.duration_us())
+
+
+def _device_summary(prof, rounds: int):
+    """From a stopped profiler's events, read as they are (no trace file):
+    device ms per round by kernel name, the union of the device's busy
+    intervals and the window's span, in ms."""
+    device = [(e.name(), *_span_us(e)) for e in prof.profiler.kineto_results.events() if _on_device(e)]
     if not device:
-        raise RuntimeError(f"profile: {trace_path} holds no device activity")
+        raise RuntimeError("profile: the trace holds no device activity")
     by_name = collections.Counter()
-    for e in device:
-        by_name[e["name"]] += e["dur"] / 1e3 / rounds
-    intervals = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    for name, _, dur in device:
+        by_name[name] += dur / 1e3 / rounds
+    intervals = sorted((start, start + dur) for _, start, dur in device)
     busy, run = 0.0, list(intervals[0])
     for start, stop in intervals[1:]:
         if start <= run[1]:
@@ -1367,32 +1392,35 @@ def _trace_summary(trace_path: Path, rounds: int):
     return by_name, busy / 1e3, span / 1e3
 
 
-def profile_phase(fed, out_dir: Optional[Path], label: str, rounds: int = 2):
-    """torch.profiler over ``rounds`` rounds: device time by kernel, by
-    group, and the device's idle share of the window, and with an
-    ``out_dir`` the profiler's table of ops there. Returns ms per round by
-    kernel and the idle share."""
+def profile_phase(fed, out_dir: Optional[Path], label: str, rounds: int = 2, warm: bool = True):
+    """torch.profiler over ``rounds`` rounds (after one more round unless
+    the engine is ``warm`` already): device time by kernel, by group, and
+    the device's idle share of the window, and with an ``out_dir`` the
+    profiler's table of ops there. Without one only the device is traced:
+    the host's op events are what make a trace slow to write and read, and
+    recording them slows the host the idle share is read against. Returns
+    ms per round by kernel and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    fed.run_on_device(1)
+    if warm:
+        fed.run_on_device(1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if out_dir is not None else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fed.run_on_device(rounds)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    stop_s = time.perf_counter() - t0 - wall_ms / 1e3
     if out_dir is not None:
         # The table's event tree takes minutes to build for a round of
         # ShuffleNetV2's tens of thousands of ops: only when it is kept.
         out_dir.mkdir(parents=True, exist_ok=True)
         table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
         (out_dir / f"profile_{label}.txt").write_text(table)
-    # The chrome trace of a MobileNet round runs to hundreds of MB: it is
-    # read here and not kept; the table above stays in out_dir.
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        by_name, busy_ms, span_ms = _trace_summary(trace, rounds)
+    t_read = time.perf_counter()
+    by_name, busy_ms, span_ms = _device_summary(prof, rounds)
+    read_s = time.perf_counter() - t_read
     groups = collections.Counter()
     for name, ms in by_name.items():
         group = next(g for g, pattern in KERNEL_GROUPS if re.search(pattern, name))
@@ -1401,7 +1429,8 @@ def profile_phase(fed, out_dir: Optional[Path], label: str, rounds: int = 2):
         f"profile {label}: {rounds} rounds, {wall_ms:.1f} ms wall under the profiler; "
         f"kernels sum {sum(by_name.values()) * rounds:.1f} ms, the device busy "
         f"{busy_ms:.1f} ms of the {span_ms:.1f} ms from its first kernel to its last "
-        f"(idle {100 * (1 - busy_ms / span_ms):.1f}%)"
+        f"(idle {100 * (1 - busy_ms / span_ms):.1f}%); the profiler stopped in {stop_s:.1f} s and "
+        f"its events were read in {read_s:.1f} s"
     )
     log(f"profile {label}: ms per round by group " + json.dumps({g: round(v, 3) for g, v in groups.most_common()}))
     for name, ms in by_name.most_common(12):
@@ -1655,7 +1684,6 @@ def options_phase(data, card):
             peak[label] = torch.cuda.max_memory_allocated() / 1e9
             del fed
             gc.collect()
-            torch.cuda.empty_cache()
     results = {}
     for label, dts in secs.items():
         per_s = [1.0 / dt for dt in dts]
@@ -1676,10 +1704,14 @@ def options_phase(data, card):
 # ------------------------------------------------------------------ 9. edge
 
 EDGE_TRAINERS = 4  # ranks 0..3 of a world of NUM_CLIENTS
+# Local steps of a client round on the edge, federation and faults paths:
+# the flagship's 6 cut to 2. These paths are the host's (a client's update,
+# the codecs, gRPC, the coordinator); each client's shard is 2 batches.
+HOST_STEPS = 2
 # The edge's row is fedtpu's ``{"params", "batch_stats"}`` tree: MobileNet's
 # 3,217,226 params in 83 leaves and 21,888 BatchNorm statistics in 54.
 EDGE_P, EDGE_LEAVES = 3_239_114, 137
-EDGE_ROUNDS = 2  # rounds per codec, after the dense round 0
+EDGE_ROUNDS = 1  # rounds per codec, after the dense round 0
 # (layout, configured codec, the codecs run in turn through codec_override)
 EDGE_GROUPS = (
     ("per_leaf", "topk", ("none", "topk", "int8")),
@@ -1827,8 +1859,8 @@ def _krum_choice(rows: torch.Tensor, trim: float) -> int:
 
 def edge_phase(data, card):
     """The port's client at MobileNet's full width: EDGE_TRAINERS
-    LocalTrainers (ranks 0-3 of 64, 768 examples each, 6 steps of batch
-    128 in bf16) on one shared copy of the data, for each group of
+    LocalTrainers (ranks 0-3 of 64, 256 examples each, HOST_STEPS steps of
+    batch 128 in bf16) on one shared copy of the data, for each group of
     EDGE_GROUPS a dense round 0 (unsynced) and, from one synced global
     model, EDGE_ROUNDS rounds of each codec; every reply decoded into a
     [64, P] f32 row buffer on the card (rows 4-63 copies of rows 0-3) and
@@ -1838,9 +1870,10 @@ def edge_phase(data, card):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     stats = collections.defaultdict(lambda: collections.defaultdict(list))
+    n = NUM_CLIENTS * HOST_STEPS * BATCH
+    data, eval_data = (data[0][:n], data[1][:n]), (data[0][:256], data[1][:256])
     for layout_name, codec, chain in EDGE_GROUPS:
-        cfg = bench_cfg(codec, layout_name, "mobilenet")
-        eval_data = (data[0][:256], data[1][:256])
+        cfg = bench_cfg(codec, layout_name, "mobilenet", data_kw=dict(num_examples=n))
         trainers = [LocalTrainer(cfg, seed=k, data=data, eval_data=eval_data) for k in range(EDGE_TRAINERS)]
         lay = trainers[0].layout
         if (lay.total, lay.num_leaves) != (EDGE_P, EDGE_LEAVES):
@@ -1863,7 +1896,7 @@ def edge_phase(data, card):
                     base = global_model if override == "dense" else start
                     extra = wire.decode_into_row(reply, like, base, buf[k])
                 decode_s = time.perf_counter() - t0
-                if float(extra["num_examples"]) != STEPS * BATCH:
+                if float(extra["num_examples"]) != HOST_STEPS * BATCH:
                     raise RuntimeError(f"edge {label}: num_examples {extra['num_examples']}")
                 decoded = buf[k, : lay.total].cpu().numpy()
                 delta = _leaves_row(t.host_model()) - _leaves_row(global_model if override == "dense" else start)
@@ -1883,7 +1916,7 @@ def edge_phase(data, card):
                 for t in trainers:
                     t.set_global(g_bytes)
         buf[EDGE_TRAINERS:] = buf[:EDGE_TRAINERS].repeat(NUM_CLIENTS // EDGE_TRAINERS - 1, 1)
-        weights = torch.full((NUM_CLIENTS,), float(STEPS * BATCH), device="cuda")
+        weights = torch.full((NUM_CLIENTS,), float(HOST_STEPS * BATCH), device="cuda")
         calls = _edge_server_calls(lay, gtree, buf, weights)
         for name, fn in calls.items():
             stats["server"][f"{layout_name} {name}_ms"].append(_time_ms(fn, runs=3, calls=1, own_syncs=True))
@@ -1924,13 +1957,15 @@ def edge_phase(data, card):
 
 # --------------------------------------------------------- 10. federation
 
-FED_CLIENTS = 4  # port clients, ranks 0-3 of a world of 4, 768 examples each
+FED_CLIENTS = 4  # port clients, ranks 0-3 of a world of 4, 256 examples each
 # (layout, codec, server pipeline, rounds), after a dense round 0.
+# int8 comes last: the deadline, failover and restart rounds run the last
+# group's codec, and rotq's host encode and decode would triple their collect.
 FED_GROUPS = (
-    ("per_leaf", "none", "barrier", 2),
-    ("per_leaf", "topk", "barrier", 2),
-    ("flat", "int8", "stream", 2),
-    ("flat", "rotq", "stream", 2),
+    ("per_leaf", "none", "barrier", 1),
+    ("per_leaf", "topk", "barrier", 1),
+    ("flat", "rotq", "stream", 1),
+    ("flat", "int8", "stream", 1),
 )
 FED_WATCHDOG_S = 2.0
 FED_EVAL = 256  # examples each client evaluates a broadcast on
@@ -1945,7 +1980,7 @@ def _free_port() -> int:
 
 
 def _fed_cfg(layout: str, codec: str, pipeline: str) -> RoundConfig:
-    cfg = bench_cfg(codec, layout, "mobilenet", data_kw=dict(num_examples=FED_CLIENTS * STEPS * BATCH),
+    cfg = bench_cfg(codec, layout, "mobilenet", data_kw=dict(num_examples=FED_CLIENTS * HOST_STEPS * BATCH),
                     fed_kw=dict(server_pipeline=pipeline, ft_watchdog_timeout_s=FED_WATCHDOG_S))
     return dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed, num_clients=FED_CLIENTS))
 
@@ -2059,8 +2094,8 @@ def _fed_round(primary, agents, replies, label, card, stats, **check):
 
 def federation_phase(data, card):
     """A federation over localhost gRPC on the card: a port PrimaryServer,
-    a BackupServer and FED_CLIENTS serve_client MobileNet clients (6 steps
-    of batch 128 in bf16, one shared copy of the data). A dense round 0,
+    a BackupServer and FED_CLIENTS serve_client MobileNet clients (HOST_STEPS
+    steps of batch 128 in bf16, one shared copy of the data). A dense round 0,
     then FED_GROUPS' rounds (each group a primary started from the last
     one's replica, its clients restarted with the group's layout and
     codec), one round with a deadline that holds a client back, then the
@@ -2074,8 +2109,8 @@ def federation_phase(data, card):
 
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    # Each client's shard of a world of 4 is one round's 6 steps of 128.
-    n = FED_CLIENTS * STEPS * BATCH
+    # Each client's shard of a world of 4 is one round's HOST_STEPS steps of 128.
+    n = FED_CLIENTS * HOST_STEPS * BATCH
     data, eval_data = (data[0][:n], data[1][:n]), (data[0][:FED_EVAL], data[1][:FED_EVAL])
     backup_addr = f"localhost:{_free_port()}"
     backup = BackupServer(_fed_cfg(*FED_GROUPS[-1][:3]), [], watchdog_timeout=FED_WATCHDOG_S)
@@ -2276,7 +2311,7 @@ def faults_phase(data, card):
 
     t_phase = time.perf_counter()
     kernels.reset_launch_counts()
-    n = FED_CLIENTS * STEPS * BATCH
+    n = FED_CLIENTS * HOST_STEPS * BATCH
     data, eval_data = (data[0][:n], data[1][:n]), (data[0][:FED_EVAL], data[1][:FED_EVAL])
     cfg = _faults_cfg()
     stats, replies, seen = [], {}, {}
@@ -2386,7 +2421,7 @@ def faults_phase(data, card):
         t0 = time.perf_counter()
         tier_cfg = _faults_cfg(tier_fanout=FAULTS_TIER_FANOUT, round_quorum=0.5)
         # The lineage goes on without the flat roster: the aggregators take
-        # seats 0 and 1, so the root's world is 2 x 2 (ranks 0-3, 768
+        # seats 0 and 1, so the root's world is 2 x 2 (ranks 0-3, 256
         # examples each, as in (a)-(c)).
         root = PrimaryServer(tier_cfg, [])
         state = adaptive.state_tree()
@@ -2522,21 +2557,26 @@ def zoo_reference_phase():
 
 
 def _free() -> None:
+    """Drop the engines no one holds. Their device memory stays in the
+    caching allocator for the next engine (the allocator hands it back to
+    the driver itself if a request needs it): with the cache emptied in
+    between, the next config-4 or ShuffleNetV2 engine's first round took
+    0.6-1.2 s longer."""
     gc.collect()
-    torch.cuda.empty_cache()
 
 
 def zoo_phase(data, card, profile_dir=None):
     """Phase 12 (b)-(c): BASELINE config 4 at full width, then
     densenet_cifar at 8 clients, both on CIFAR-100 shapes. The launch
     counts are set to 0 before the first checked round and read after the
-    last: 3 rounds each of ResNet-18 per leaf none (no launch), topk (1
+    last: 2 rounds each of ResNet-18 per leaf none (no launch), topk (1
     K1), int8 (1 K2) and flat rotq (2 K3), round 1's codec re-applied with
     the plain kernels; the uncompressed engine then times 2 rounds and
     runs one more under the profiler (the device's idle share); then 2
     rounds each of DenseNet per leaf topk (5 K1) and int8 (5 K2). Last,
-    2 rounds with remat (for its memory) and 2 of config 4's local work
-    (5 local epochs), the second one timed. Returns the results and the
+    a round with remat (for its memory) and one of config 4's local work
+    (5 local epochs), each an engine's first (its time includes the
+    upload of the data). Returns the results and the
     path's counts."""
     _free()
     out = {"card": card}
@@ -2558,18 +2598,19 @@ def zoo_phase(data, card, profile_dir=None):
             out[f"{model} {layout} {codec}"] = {"clients": clients, "rounds": records}
             if (model, codec) == ("resnet18", "none"):
                 out["timed"] = _zoo_timing(fed, flops, card, ZOO_CLIENTS, "config 4 resnet18")
-                _, out["idle_share"] = profile_phase(fed, profile_dir, "zoo_resnet18_per_leaf_none", rounds=1)
+                _, out["idle_share"] = profile_phase(fed, profile_dir, "zoo_resnet18_per_leaf_none", rounds=1,
+                                                    warm=False)
             del fed, rec
             _free()
     counts = _launch_counts()
     for label, kw in (("remat", dict(remat=True)), ("local_epochs_5", dict(epochs=ZOO_EPOCHS))):
         fed = Federation(zoo_cfg("resnet18", "none", "per_leaf", **kw), seed=0, data=data)
         records = check_rounds(fed, f"zoo resnet18 per_leaf none, {label}", "none", "per_leaf", None, 0,
-                               rounds=2, peak=True)
+                               rounds=1, peak=True)
         secs = records[-1]["round_s"]
         epochs = kw.get("epochs", 1)
         out[label] = {
-            "round_s": secs, "rounds_per_s": 1 / secs,
+            "first_round": True, "round_s": secs, "rounds_per_s": 1 / secs,
             "client_epochs_per_s": ZOO_CLIENTS * epochs / secs,
             "model_tflop_per_round": flops * epochs / 1e12,
             "mfu_bf16": flops * epochs / secs / BF16_PEAK,
@@ -2616,7 +2657,7 @@ def _zoo_timing(fed, flops, card, clients, label):
 SHUFFLENETV2_CLIENTS = 64
 MOBILENETV2_CLIENTS = 16
 PROBE_CLIENTS = 8
-ZOO2_ROUNDS = 2  # checked rounds a codec, not 3: the whole script stays near 1,000 s
+ZOO2_ROUNDS = CHECK_ROUNDS  # checked rounds a codec
 MOBILENETV2_CASES = [("topk", "per_leaf"), ("int8", "per_leaf")]
 
 # (model, image size, cases): phase 13 (a)'s small rounds, card against
@@ -2711,7 +2752,8 @@ def zoo2_phase(data, card, profile_dir=None):
             t_checked = time.perf_counter()
             if (model, codec) == ("shufflenetv2", "none"):
                 out["timed"] = _zoo_timing(fed, flops, card, clients, f"zoo2 {model} {clients} clients")
-                _, out["idle_share"] = profile_phase(fed, profile_dir, "zoo2_shufflenetv2_per_leaf_none", rounds=1)
+                _, out["idle_share"] = profile_phase(fed, profile_dir, "zoo2_shufflenetv2_per_leaf_none",
+                                                    rounds=1, warm=False)
             del fed, rec
             _free()
             log(f"clock: {tag}: engine {t_built - t0:.1f} s, checked rounds {t_checked - t_built:.1f} s, "
