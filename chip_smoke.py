@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile DIR   # also torch.profiler tables in DIR
-    python3 chip_smoke.py --only zoo      # the device and build phases, then phases 12 and 13
+    python3 chip_smoke.py --only zoo      # the device and build phases, then phases 12 to 14
     python3 chip_smoke.py --only kernels  # the device and build phases, then K1's part of phase 3
 
 Phases, each of which raises on failure (exit code not 0, no result line):
@@ -14,8 +14,10 @@ Phases, each of which raises on failure (exit code not 0, no result line):
 3. kernels: the grouped K1 and K2 against their plain PyTorch versions
    over each per-leaf round's leaves as one call (smallcnn's 8,
    MobileNet's 83, ResNet-18's 62 at 100 classes, densenet_cifar's 362,
-   ShuffleNetV2's 170 and MobileNetV2's 173 leaves x 64 clients: K1 in 1,
-   2, 1, 5, 3 and 3 launches, K2 in 1, 1, 1, 5, 2 and 2), ragged and
+   ShuffleNetV2's 170, MobileNetV2's 173, EfficientNet-B0's 210,
+   RegNetY-400MF's 303 and PNASNet-B's 251 leaves x 64 clients: K1 in 1,
+   2, 1, 5, 3, 3, 3, 4 and 4 launches, K2 in 1, 1, 1, 5, 2, 2, 3, 4 and
+   3), ragged and
    empty leaves, views off 16-byte alignment and 200
    leaves (one launch per table of leaves), K1 also a leaf of 70,000 rows
    and both flat rows (one launch each); timed in turns at the small
@@ -23,8 +25,8 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    torch.fake_quantize_per_channel_affine one call a leaf and a device
    copy of the same bytes, at the zoo's as one call; K3 forward and
    inverse at the rotq row [64, 2^20], MobileNet's [64, 2^22], [8, 2^22],
-   ResNet-18's [64, 2^24], ShuffleNetV2's [64, 2^21] and widths and row
-   counts
+   ResNet-18's [64, 2^24], ShuffleNetV2's [64, 2^21], EfficientNet-B0's
+   [32, 2^22] and widths and row counts
    around its phase boundary and lag, with -0.0, zeros and large
    magnitudes. Outputs must be bit-equal, and K3's inverse(forward(y))
    within 1e-5 of y. Kernel and plain version are timed with CUDA events,
@@ -159,12 +161,33 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    idle share), with peak memory. (c) MobileNetV2 at 16 clients (its
    activations at 64 would need twice the card; its 8-client peak is
    printed first): 2 rounds each of per-leaf topk (3 K1) and int8 (2 K2).
+14. zoo, part 2b: (a) a small round of every name of the zoo's last part
+   on the card against the same round on the CPU, the global model in f64
+   (4 clients, batch 4, one local step, client 1's masked), after its f64 logits
+   and gradient under vmap (2 clients) within 1e-10 of the CPU's, per
+   leaf none: EfficientNet-B0
+   at 32x32 (both devices fed the same keep masks for its drop-connect
+   and dropout), DLA and SimpleDLA at 16x16, the RegNets and PNASNets at
+   8x8; and per-leaf topk for EfficientNet-B0 and RegNetY-400MF. (b)
+   EfficientNet-B0 at full width on the flagship round's traffic, its
+   drop-connect and dropout drawn on the card from the round's seeded
+   generator: first a round at 8 clients for its peak, scaled linearly to
+   pick the clients (64 if under 75 GB there, else 32, else 16); then 2
+   rounds each of per-leaf none, topk (3 K1 a round) and int8 (3 K2) and
+   flat rotq (2 K3 over [clients, 2^22]) with the counts set to 0 before
+   and read after, round 1's codec re-applied with the plain kernels,
+   finite losses and statistics, and the share of examples the drawn
+   masks keep in the last drop-connect block (0.825 +- 0.02) and of the
+   head's entries (0.8 +- 0.02); the uncompressed round timed (rounds/s,
+   client-epochs/s, MFU against the bf16 peak) and profiled (the device's
+   idle share), with peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
 Each kernel's ``launches`` there is the sum over the main paths, the
 smallcnn slice, the MobileNet round, the round options, the zoo and the
-zoo's second part (``zoo2``); ``launches_by_path`` has each.
+zoo's second and last parts (``zoo2``, ``zoo3``); ``launches_by_path``
+has each.
 """
 
 from __future__ import annotations
@@ -197,6 +220,7 @@ from fedtpu_torch.config import RetryPolicy, ScreenConfig, SimConfig  # noqa: E4
 from fedtpu_torch.core import round as round_lib  # noqa: E402
 from fedtpu_torch.core.round import RoundDraws, init_state  # noqa: E402
 from fedtpu_torch.data import datasets  # noqa: E402
+from fedtpu_torch.models.common import draw_masks, mask_specs  # noqa: E402
 from fedtpu_torch.ops import compression, flat, kernels  # noqa: E402
 from fedtpu_torch.transport import aggregation as edge_aggregation  # noqa: E402
 from fedtpu_torch.transport import msgpack as _msgpack  # noqa: E402
@@ -272,6 +296,15 @@ ZOO_TIMING_RUNS = 1  # runs of _time_ms a leaf: the zoo has 767 leaves to time
 # The ShuffleNetV2 rotq round's row: 1,263,854 params and 16,180 statistics
 # padded to 2^21, checked and timed beside ZOO_HADAMARD_SHAPE.
 ZOO2_HADAMARD_SHAPE = (64, 2**21)
+# The zoo's last part: EfficientNet-B0 (the full-width round), RegNetY-400MF
+# and PNASNet-B (the most leaves) at 10 classes; EfficientNet's rotq row,
+# 3,598,598 params and 39,456 statistics padded to 2^22, at the 32 clients
+# its memory probe picks on an 80 GB card (phase 14 re-applies the plain
+# K3 at whatever count it runs).
+EFFICIENTNET_LEAVES = 210
+REGNETY_LEAVES = 303
+PNASNETB_LEAVES = 251
+ZOO3_HADAMARD_SHAPE = (32, 2**22)
 
 
 T_START = time.perf_counter()
@@ -332,7 +365,8 @@ def build_phase():
 
 
 LEAVES = {"mobilenet": MOBILENET_LEAVES, "resnet18": RESNET18_LEAVES, "densenet_cifar": DENSENET_LEAVES,
-          "shufflenetv2": SHUFFLENETV2_LEAVES, "mobilenetv2": MOBILENETV2_LEAVES}
+          "shufflenetv2": SHUFFLENETV2_LEAVES, "mobilenetv2": MOBILENETV2_LEAVES,
+          "efficientnetb0": EFFICIENTNET_LEAVES, "regnety_400mf": REGNETY_LEAVES, "pnasnetb": PNASNETB_LEAVES}
 
 
 def per_leaf_shapes(model_name: str, classes: int = 10):
@@ -606,9 +640,8 @@ def _grouped_phase(name, seed, peaks, extra_cases=None, round_forms=None):
     rounds = {m: _leaves(name, g, per_leaf_shapes(m), dev) for m in ("smallcnn", "mobilenet")}
     zoo = {
         "resnet18": _leaves(name, g, per_leaf_shapes("resnet18", 100), dev),
-        "densenet_cifar": _leaves(name, g, per_leaf_shapes("densenet_cifar"), dev),
-        "shufflenetv2": _leaves(name, g, per_leaf_shapes("shufflenetv2"), dev),
-        "mobilenetv2": _leaves(name, g, per_leaf_shapes("mobilenetv2"), dev),
+        **{m: _leaves(name, g, per_leaf_shapes(m), dev)
+           for m in ("densenet_cifar", "shufflenetv2", "mobilenetv2", "efficientnetb0", "regnety_400mf", "pnasnetb")},
     }
     max_err = _check_cases(name, g, dev, {**rounds, **zoo}, extra_cases)
     timed = {}
@@ -617,7 +650,9 @@ def _grouped_phase(name, seed, peaks, extra_cases=None, round_forms=None):
         timed[model] = _grouped_round(name, label, *rounds[model], peaks, forms)
         timed[model].update(more())
     for model, label in (("resnet18", "ResNet-18"), ("densenet_cifar", "densenet_cifar"),
-                         ("shufflenetv2", "ShuffleNetV2"), ("mobilenetv2", "MobileNetV2")):
+                         ("shufflenetv2", "ShuffleNetV2"), ("mobilenetv2", "MobileNetV2"),
+                         ("efficientnetb0", "EfficientNet-B0"), ("regnety_400mf", "RegNetY-400MF"),
+                         ("pnasnetb", "PNASNet-B")):
         timed[model] = _grouped_zoo_round(name, label, *zoo[model], peaks)
     del zoo, rounds
     info = KERNEL_INFO[name]
@@ -644,14 +679,18 @@ def _grouped_phase(name, seed, peaks, extra_cases=None, round_forms=None):
         "densenet_per_leaf_round": timed["densenet_cifar"],
         "shufflenetv2_per_leaf_round": timed["shufflenetv2"],
         "mobilenetv2_per_leaf_round": timed["mobilenetv2"],
+        "efficientnetb0_per_leaf_round": timed["efficientnetb0"],
+        "regnety_400mf_per_leaf_round": timed["regnety_400mf"],
+        "pnasnetb_per_leaf_round": timed["pnasnetb"],
     }
 
 
 def kernel_phase(peaks):
     """K1, grouped: bit-equal to its plain version leaf by leaf as one call
     per round (smallcnn's 8 leaves in one launch, MobileNet's 83 in 2,
-    ResNet-18's 62 in 1, densenet_cifar's 362 in 5, ShuffleNetV2's 170 and
-    MobileNetV2's 173 in 3) and over the edge lists
+    ResNet-18's 62 in 1, densenet_cifar's 362 in 5, ShuffleNetV2's 170,
+    MobileNetV2's 173 and EfficientNet-B0's 210 in 3, RegNetY-400MF's 303
+    and PNASNet-B's 251 in 4) and over the edge lists
     and a leaf of 70,000 rows (past the 65,535 of a grid axis); timed over
     each round's leaves; then each flat row in one launch, bit-equal and
     timed. No single PyTorch call computes K1's two outputs: no library
@@ -789,14 +828,16 @@ def hadamard_phase(peaks):
     """K3 forward and inverse bit-equal to the plain version at every
     shape; inverse(forward(y)) within 1e-5 of y (fedtpu's gate) on normal
     rows; timed beside its bound at the rotq row, where a round launches it
-    twice, at MobileNet's row, at ResNet-18's and at ShuffleNetV2's."""
+    twice, at MobileNet's row, at ResNet-18's, at ShuffleNetV2's and at
+    EfficientNet-B0's."""
     dev = torch.device("cuda")
     wrapper, plain = kernels.KERNELS["hadamard_rotate"]
     g = torch.Generator(dev).manual_seed(3)
     max_err = 0.0
     timed = {}
     zoo_index = len(HADAMARD_SHAPES)
-    zoo_shapes = {zoo_index: ZOO_HADAMARD_SHAPE, zoo_index + 1: ZOO2_HADAMARD_SHAPE}
+    zoo_shapes = {zoo_index: ZOO_HADAMARD_SHAPE, zoo_index + 1: ZOO2_HADAMARD_SHAPE,
+                  zoo_index + 2: ZOO3_HADAMARD_SHAPE}
     for i, (rows, h) in enumerate([*HADAMARD_SHAPES, *zoo_shapes.values()]):
         y, signs = _hadamard_inputs(g, rows, h, dev)
         for inverse in (False, True):
@@ -864,6 +905,8 @@ def hadamard_phase(peaks):
             timed[(zoo_index, False)], timed[(zoo_index, True)], *ZOO_HADAMARD_SHAPE, peaks),
         "shufflenetv2_rotq_round": _hadamard_round(
             timed[(zoo_index + 1, False)], timed[(zoo_index + 1, True)], *ZOO2_HADAMARD_SHAPE, peaks),
+        "efficientnetb0_rotq_round": _hadamard_round(
+            timed[(zoo_index + 2, False)], timed[(zoo_index + 2, True)], *ZOO3_HADAMARD_SHAPE, peaks),
         **floors,
     }
     log(
@@ -925,7 +968,7 @@ REFERENCE_CASES = [
 ]
 
 
-def card_vs_cpu(label, cfg, data, comp, rounds=1, params_atol=1e-5, f64=False, step_mask=None):
+def card_vs_cpu(label, cfg, data, comp, rounds=1, params_atol=1e-5, f64=False, step_mask=None, draws=None):
     """``rounds`` rounds of ``cfg`` on the card against the same rounds on
     the CPU (where the wrappers run their plain versions), from the same
     init and batches, the seeded codecs fed the same numpy draws; with
@@ -933,12 +976,13 @@ def card_vs_cpu(label, cfg, data, comp, rounds=1, params_atol=1e-5, f64=False, s
     statistics are compared too. At most 0.1% of coordinates may lie
     beyond ``params_atol`` (1e-5 for the statistics) and rtol=1e-4: a
     last-bit difference in a delta can cross a top-k threshold or a
-    rounding step."""
+    rounding step. ``draws`` (a ``RoundDraws``) feeds both devices the
+    same draws."""
     codec = compression.make_compressor(cfg.fed)
     if comp in ("rotq", "randk"):
         codec = _injected(codec, _numpy_draws(comp, clients=cfg.fed.num_clients))
-    cpu = Federation(cfg, seed=0, data=data, device="cpu", compressor=codec)
-    gpu = Federation(cfg, seed=0, data=data, compressor=codec)
+    cpu = Federation(cfg, seed=0, data=data, device="cpu", compressor=codec, draws=draws)
+    gpu = Federation(cfg, seed=0, data=data, compressor=codec, draws=draws)
     if f64:
         init = dict(params=cpu.state.params, batch_stats=cpu.state.batch_stats, dtype=torch.float64)
         cpu.state = init_state(cpu.model, cfg, codec, **init)
@@ -2708,7 +2752,7 @@ def _peak_probe(model, data, clients, card):
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     out[f"peak_gb_scaled_to_{clients}"] = out["peak_gb"] * clients / PROBE_CLIENTS
     out["card"] = card
-    log(f"zoo2: {model} memory probe: " + json.dumps(out))
+    log(f"zoo: {model} memory probe: " + json.dumps(out))
     del fed
     _free()
     return out
@@ -2764,6 +2808,182 @@ def zoo2_phase(data, card, profile_dir=None):
     return out, counts
 
 
+# ------------------------------------------------------ 14. zoo, part 2b
+
+# (model, image size, cases): phase 14 (a)'s small rounds, card against
+# CPU, the global model in f64 (4 clients, batch 4, one step masked). The
+# images leave at least 2x2 in the last map.
+ZOO3_REFERENCE = [
+    ("efficientnetb0", (32, 32, 3), [("none", "per_leaf"), ("topk", "per_leaf")]),
+    ("regnetx_200mf", (8, 8, 3), [("none", "per_leaf")]),
+    ("regnetx_400mf", (8, 8, 3), [("none", "per_leaf")]),
+    ("regnety_400mf", (8, 8, 3), [("none", "per_leaf"), ("topk", "per_leaf")]),
+    ("pnasneta", (8, 8, 3), [("none", "per_leaf")]),
+    ("pnasnetb", (8, 8, 3), [("none", "per_leaf")]),
+    ("dla", (16, 16, 3), [("none", "per_leaf")]),
+    ("simpledla", (16, 16, 3), [("none", "per_leaf")]),
+]
+# The small rounds take one local step a client. The loss is computed in
+# f32 (fedtpu casts the logits), and CUDA's and the CPU's f32 log-softmax
+# part in the last bits; after a first step the 400MF RegNets' logits
+# saturate, and their second step turns those bits into far-apart
+# coordinates (RegNetY-400MF's two-step rounds parted on 29% of them, and
+# RegNetX-400MF's on 10% at lr 0.01, while their f64 logits and gradients
+# agree to 1e-13 on the two devices; an f64 loss on the CPU parts from the
+# f32 one the same way). A round of one step depends on the gradient at
+# init alone.
+ZOO3_REFERENCE_STEPS = 1
+ZOO3_MAX_GB = 75.0  # a cut's limit for the probe's peak scaled to the clients
+ZOO3_CLIENT_COUNTS = (64, 32, 16)
+ZOO3_ROUNDS = CHECK_ROUNDS  # checked rounds a codec
+# Keep shares of the drawn masks: (module, its keep probability).
+ZOO3_KEEP = (("MBConv_14", 0.825), ("Dropout_0", 0.8))
+ZOO3_KEEP_TOLERANCE = 0.02
+
+
+def _numpy_masks(model, clients, batch, steps):
+    """``RoundDraws.dropout_masks``: keep masks drawn once on the CPU per
+    round from a seeded generator, so that the card's and the CPU's rounds
+    drop the same examples and entries."""
+    with torch.device("meta"):
+        specs = mask_specs(models.create(model))
+    return lambda round_idx: draw_masks(specs, (clients, steps, batch),
+                                        torch.Generator().manual_seed(1400 + round_idx))
+
+
+ZOO3_GRADIENT_RTOL = 1e-10  # the card's f64 logits and gradients against the CPU's
+
+
+def _f64_gradient_check(model, size, clients=2, batch=4):
+    """Two clients' train-mode logits and loss gradients of ``model`` under
+    ``vmap(grad)``, in f64 from one init, on the card against the CPU:
+    their largest difference relative to the tensor's largest value, which
+    must stay under ZOO3_GRADIENT_RTOL."""
+    torch.manual_seed(0)
+    m = models.create(model, 10, size).double()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((clients, batch) + size, generator=g, dtype=torch.float64)
+    y = torch.randint(0, 10, (clients, batch), generator=g)
+    masks = draw_masks(mask_specs(m), (clients, batch), g)
+
+    def loss(p, s, x, y, masks):
+        kwargs = {"train": True, "masks": masks} if masks else {"train": True}
+        logits, _ = torch.func.functional_call(m, (p, s), (x,), kwargs)
+        return torch.nn.functional.cross_entropy(logits, y), logits
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        stack = lambda tree: {k: v.detach().expand((clients,) + v.shape).to(dev) for k, v in tree}
+        args = (stack(m.named_parameters()), stack(m.named_buffers()), x.to(dev), y.to(dev),
+                {k: v.to(dev) for k, v in masks.items()})
+        out[dev] = torch.func.vmap(torch.func.grad(loss, has_aux=True))(*args)
+    (g_cpu, l_cpu), (g_card, l_card) = out["cpu"], out["cuda"]
+    # Differences scaled by the largest value of the logits, or of the
+    # whole gradient: a leaf's own gradient can be all but 0.
+    scale = max(float(v.abs().max()) for v in g_cpu.values())
+    diffs = {k: float((g_card[k].cpu() - v).abs().max()) / scale for k, v in g_cpu.items()}
+    diffs["logits"] = float((l_card.cpu() - l_cpu).abs().max() / l_cpu.abs().max())
+    worst = max(diffs, key=diffs.get)
+    if not diffs[worst] < ZOO3_GRADIENT_RTOL:
+        raise RuntimeError(f"zoo3: {model}'s f64 {worst} on the card differs from the CPU's by "
+                           f"{diffs[worst]:.3g} of its scale")
+    log(f"zoo3 reference: {model} f64 logits and gradient under vmap, card vs CPU: largest difference "
+        f"{diffs[worst]:.3g} of the scale ({worst})")
+    return diffs[worst]
+
+
+def zoo3_reference_phase():
+    """Phase 14 (a): every name of the zoo's last part, its f64 logits and
+    gradient under ``vmap`` on the card against the CPU's within
+    ZOO3_GRADIENT_RTOL, then a small round on the card against the CPU's
+    within the reference tolerance, of ZOO3_REFERENCE_STEPS local steps."""
+    rng = np.random.default_rng(14)
+    clients, batch, steps = 4, 4, ZOO3_REFERENCE_STEPS
+    mask = torch.ones((clients, steps), dtype=torch.bool)
+    mask[1, -1] = False  # client 1's last step is padding
+    for model, size, cases in ZOO3_REFERENCE:
+        n = clients * 2 * batch
+        data = (rng.standard_normal((n,) + size, dtype=np.float32),
+                rng.integers(0, 10, size=n).astype(np.int32))
+        draws = RoundDraws(dropout_masks=_numpy_masks(model, clients, batch, steps))
+        _f64_gradient_check(model, size)
+        for codec, layout in cases:
+            cfg = dataclasses.replace(_zoo_small_cfg(model, codec, layout, "cifar10", clients, batch),
+                                      steps_per_round=steps)
+            card_vs_cpu(f"zoo3 reference: {model} {layout} {codec}", cfg, data, codec, f64=True,
+                        step_mask=mask, draws=draws)
+
+
+def _keep_shares(fed, before):
+    """The share of True in the keep masks a round of ``fed`` drew from
+    its generator, whose state before the round was ``before``: the step
+    draws its masks first (``core/client.py``), so the same draws from the
+    same state are the round's."""
+    g = torch.Generator(fed.device)
+    g.set_state(before)
+    specs = mask_specs(fed.model)
+    n, batch = fed.cfg.fed.num_clients, fed.cfg.data.batch_size
+    masks = draw_masks(specs, (n, STEPS, batch), g, fed.device)
+    shares = {name: float(masks[name].float().mean()) for name, _ in ZOO3_KEEP}
+    for name, keep in ZOO3_KEEP:
+        if abs(shares[name] - keep) > ZOO3_KEEP_TOLERANCE:
+            raise RuntimeError(f"zoo3: {name} kept {shares[name]:.4f} of its draws, expected {keep} +- "
+                               f"{ZOO3_KEEP_TOLERANCE}")
+    return shares
+
+
+def zoo3_phase(data, card, profile_dir=None):
+    """Phase 14 (b): EfficientNet-B0 at full width on the flagship round's
+    data, at the clients its memory probe picks. The launch counts are set
+    to 0 before the first checked round and read after the last: 2 rounds
+    each of per leaf none (no launch), topk (3 K1), int8 (3 K2) and flat
+    rotq (2 K3 over [clients, 2^22]), round 1's codec re-applied with the
+    plain kernels, and each engine's first round's keep shares checked; the
+    uncompressed engine then times 2 rounds and runs one more under the
+    profiler (the device's idle share). Returns the results and the path's
+    counts."""
+    _free()
+    model = "efficientnetb0"
+    out = {"card": card}
+    probe = _peak_probe(model, data, ZOO3_CLIENT_COUNTS[0], card)
+    scaled = {n: probe["peak_gb"] * n / PROBE_CLIENTS for n in ZOO3_CLIENT_COUNTS}
+    clients = next((n for n in ZOO3_CLIENT_COUNTS if scaled[n] < ZOO3_MAX_GB), ZOO3_CLIENT_COUNTS[-1])
+    out["probe"] = {**probe, "scaled_gb": scaled, "clients": clients}
+    log(f"zoo3: {model} probe {probe['peak_gb']:.2f} GB at {PROBE_CLIENTS} clients, scaled "
+        f"{json.dumps({n: round(v, 2) for n, v in scaled.items()})}: {clients} clients")
+    flops = model_flops(model, 10, clients * STEPS * BATCH)
+    codecs = slice_codecs(EFFICIENTNET_LEAVES)
+    peaks_gb, shares = {}, []
+    kernels.reset_launch_counts()
+    for codec, layout in ZOO_CASES:
+        counted, per_round, make_plain = codecs[(codec, layout)]
+        t0 = time.perf_counter()
+        cfg = bench_cfg(codec, layout, model, clients=clients)
+        rec = Recorder(compression.make_compressor(cfg.fed)) if make_plain else None
+        fed = Federation(cfg, seed=0, data=data, compressor=rec.compressor() if rec else None)
+        tag = f"zoo3 {model} {clients} clients {layout} {codec}"
+        t_built = time.perf_counter()
+        before = fed._generator.get_state()
+        records = check_rounds(fed, tag, codec, layout, counted, per_round, rec, make_plain,
+                               rounds=ZOO3_ROUNDS, peak=True)
+        shares.append(_keep_shares(fed, before))
+        out[tag] = {"clients": clients, "rounds": records, "keep_shares": shares[-1]}
+        peaks_gb[tag] = max(r["peak_gb"] for r in records)
+        t_checked = time.perf_counter()
+        if codec == "none":
+            out["timed"] = _zoo_timing(fed, flops, card, clients, f"zoo3 {model} {clients} clients")
+            _, out["idle_share"] = profile_phase(fed, profile_dir, "zoo3_efficientnetb0_per_leaf_none",
+                                                rounds=1, warm=False)
+        del fed, rec
+        _free()
+        log(f"clock: {tag}: engine {t_built - t0:.1f} s, checked rounds {t_checked - t_built:.1f} s, "
+            f"timing and profile {time.perf_counter() - t_checked:.1f} s")
+    counts = _launch_counts()
+    log(f"zoo3: peaks {json.dumps(peaks_gb)}; keep shares {json.dumps(shares)}; device idle share of an "
+        f"EfficientNet-B0 round {out['idle_share']:.4f} | {card}")
+    return out, counts
+
+
 # --------------------------------------------------------------- main
 
 
@@ -2793,7 +3013,10 @@ def main(argv=None) -> int:
         zoo_reference_phase()
         zoo_phase(datasets.load("cifar100", "train", seed=0), smi, profile_dir)
         zoo2_reference_phase()
-        zoo2_phase(datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH), smi, profile_dir)
+        data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
+        zoo2_phase(data, smi, profile_dir)
+        zoo3_reference_phase()
+        zoo3_phase(data, smi, profile_dir)
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.only:
@@ -2866,6 +3089,10 @@ def main(argv=None) -> int:
     clock("phase 13 (a), the zoo's second part's reference")
     _, paths["zoo2"] = zoo2_phase(data, smi, profile_dir)
     clock("phase 13 (b)-(c), ShuffleNetV2 and MobileNetV2")
+    zoo3_reference_phase()
+    clock("phase 14 (a), the zoo's last part's reference")
+    _, paths["zoo3"] = zoo3_phase(data, smi, profile_dir)
+    clock("phase 14 (b), EfficientNet-B0")
     for kname in kernels.KERNELS:
         for path, counts in paths.items():
             if counts[kname] == 0:

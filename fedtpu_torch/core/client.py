@@ -19,6 +19,16 @@ stays the cross-entropy. With ``megabatch_clients=k``
 (:func:`make_local_update_mega`) each group of k clients trains as one
 ``[k * batch]`` forward on one shared trajectory, broadcast back to its
 members.
+
+A model whose train mode draws random numbers (EfficientNet-B0's
+drop-connect and dropout) takes its keep masks as inputs, a tree by
+module path of bool tensors ``[clients, steps, batch, ...]``
+(``[groups, steps, k * batch, ...]`` in megabatch groups): injected by
+the caller, or drawn at the start of the local update, outside ``vmap``,
+from the step's seeded ``generator`` on the round's device
+(:func:`fedtpu_torch.models.common.draw_masks`). fedtpu draws them from
+threefry keys, which torch cannot reproduce: a parity check injects
+fedtpu's. A model without random modules gets no masks.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from torch.func import functional_call, grad, vmap
 from fedtpu_torch.config import RoundConfig, resolve_compute_dtype
 from fedtpu_torch.core import optim
 from fedtpu_torch.data.augment import augment_batch
+from fedtpu_torch.models.common import draw_masks, mask_specs
 from fedtpu_torch.ops.losses import softmax_ce_int_labels
 
 Tree = Dict[str, torch.Tensor]
@@ -52,12 +63,13 @@ def _where_rows(live: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> tor
 
 def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., ClientOutput]:
     """Build ``local_update(global_params, global_stats, momentum, xs, ys,
-    step_mask, lr, generator=None) -> ClientOutput`` over all clients:
-    ``xs [clients, steps, batch, h, w, c]``, ``ys [clients, steps, batch]``,
-    ``step_mask [clients, steps]`` bool, ``momentum`` the ``[clients, ...]``
-    buffers, ``global_stats`` the global BN statistics (``{}`` for a model
-    without any). ``generator`` draws the crop and flip when augmentation
-    is on.
+    step_mask, lr, generator=None, masks=None) -> ClientOutput`` over all
+    clients: ``xs [clients, steps, batch, h, w, c]``, ``ys [clients, steps,
+    batch]``, ``step_mask [clients, steps]`` bool, ``momentum`` the
+    ``[clients, ...]`` buffers, ``global_stats`` the global BN statistics
+    (``{}`` for a model without any). ``generator`` draws the model's keep
+    masks (unless ``masks`` brings them, ``[clients, steps, batch, ...]``
+    by module path) and, when augmentation is on, the crop and flip.
 
     With ``dtype='bfloat16'`` the f32 master params and the inputs are cast
     at use, so the forward runs in bf16 and the gradients come out f32
@@ -69,15 +81,16 @@ def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., Clien
     mu = _fedprox_mu(cfg)
     use_augment = _use_augment(cfg)
     compute_dtype = getattr(torch, resolve_compute_dtype(cfg))
+    specs = mask_specs(model)
 
-    def loss_fn(params: Tree, stats: Tree, anchor: Tree, x: torch.Tensor, y: torch.Tensor):
-        logits, new_stats = forward(params, stats, x)
+    def loss_fn(params: Tree, stats: Tree, anchor: Tree, x: torch.Tensor, y: torch.Tensor, masks: Tree):
+        logits, new_stats = forward(params, stats, x, masks)
         ce = softmax_ce_int_labels(logits, y).mean()
         loss = ce + _proximal(params, anchor, mu) if mu > 0.0 else ce
         acc = (logits.argmax(-1) == y).float().mean()
         return loss, (new_stats, ce.detach(), acc)
 
-    per_client_grad = vmap(grad(loss_fn, has_aux=True), in_dims=(0, 0, None, 0, 0))
+    per_client_grad = vmap(grad(loss_fn, has_aux=True), in_dims=(0, 0, None, 0, 0, 0))
 
     def local_update(
         global_params: Tree,
@@ -88,8 +101,10 @@ def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., Clien
         step_mask: torch.Tensor,
         lr: float,
         generator: Optional[torch.Generator] = None,
+        masks: Optional[Tree] = None,
     ) -> ClientOutput:
         n, steps = step_mask.shape
+        masks = _round_masks(specs, masks, tuple(ys.shape), generator, ys.device)
         params = {k: p.expand((n,) + tuple(p.shape)) for k, p in global_params.items()}
         stats = {k: s.expand((n,) + tuple(s.shape)) for k, s in global_stats.items()}
         ces, accs, lives = [], [], []
@@ -97,7 +112,8 @@ def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., Clien
             x = xs[:, s].to(compute_dtype)
             if use_augment:
                 x = _augment(x, cfg, generator)
-            grads, (new_stats, ce, acc) = per_client_grad(params, stats, global_params, x, ys[:, s])
+            step_masks = {k: m[:, s] for k, m in masks.items()}
+            grads, (new_stats, ce, acc) = per_client_grad(params, stats, global_params, x, ys[:, s], step_masks)
             new_params, new_momentum = optim.apply(params, grads, momentum, lr, cfg.opt)
             live = step_mask[:, s]
             params = {k: _where_rows(live, new_params[k], params[k]) for k in params}
@@ -127,19 +143,37 @@ def _use_augment(cfg: RoundConfig) -> bool:
     return cfg.data.augment and cfg.data.dataset in ("cifar10", "cifar100")
 
 
+def _round_masks(specs, masks: Optional[Tree], lead, generator, device) -> Tree:
+    """A round's keep masks ``lead + shape`` by module path (``lead`` the
+    labels' ``[clients, steps, batch]``): ``masks`` on ``device``, checked
+    against the model's ``specs``, or drawn from ``generator``; ``{}`` for a
+    model without random modules."""
+    if not specs:
+        return {}
+    if masks is None:
+        return draw_masks(specs, lead, generator, device)
+    want = {k: tuple(lead) + tuple(spec.shape) for k, spec in specs.items()}
+    got = {k: tuple(m.shape) for k, m in masks.items()}
+    if got != want:
+        raise ValueError(f"keep masks {got} do not match the model's {want}")
+    return {k: m.to(device=device, dtype=torch.bool) for k, m in masks.items()}
+
+
 def _make_forward(model: nn.Module, cfg: RoundConfig):
-    """``forward(params, stats, x) -> (f32 logits, new_stats)`` in train
-    mode, in the compute dtype."""
+    """``forward(params, stats, x, masks) -> (f32 logits, new_stats)`` in
+    train mode, in the compute dtype; ``masks`` the model's keep masks for
+    this batch (``{}`` for a model without random modules)."""
     compute_dtype = getattr(torch, resolve_compute_dtype(cfg))
 
-    def forward(params: Tree, stats: Tree, x: torch.Tensor):
+    def forward(params: Tree, stats: Tree, x: torch.Tensor, masks: Tree):
         if compute_dtype != torch.float32:
             params = {k: p.to(compute_dtype) for k, p in params.items()}
         else:
             # flax's layers compute in the promotion of the input's and the
             # params' dtypes: f64 params (a reference run) take f64 inputs.
             x = x.to(torch.promote_types(x.dtype, next(iter(params.values())).dtype))
-        logits, new_stats = functional_call(model, (params, stats), (x,), {"train": True})
+        kwargs = {"train": True, "masks": masks} if masks else {"train": True}
+        logits, new_stats = functional_call(model, (params, stats), (x,), kwargs)
         return logits.float(), new_stats
 
     return forward
@@ -174,14 +208,16 @@ def make_local_update_mega(model: nn.Module, cfg: RoundConfig, k: int) -> Callab
     statistics and its own momentum. A member's loss and accuracy are
     measured on its own examples under the group's model. At k=1 every
     array is bit-identical to the per-client path's. At k>1, BatchNorm's
-    statistics are shared over the ``k * batch`` examples."""
+    statistics are shared over the ``k * batch`` examples, and a model's
+    keep masks are the group's, ``[groups, steps, k * batch, ...]``."""
     forward = _make_forward(model, cfg)
     mu = _fedprox_mu(cfg)
     use_augment = _use_augment(cfg)
     compute_dtype = getattr(torch, resolve_compute_dtype(cfg))
+    specs = mask_specs(model)
 
-    def loss_fn(params, stats, anchor, x, y, exw):
-        logits, new_stats = forward(params, stats, x)
+    def loss_fn(params, stats, anchor, x, y, exw, masks):
+        logits, new_stats = forward(params, stats, x, masks)
         per = softmax_ce_int_labels(logits, y)  # [k * batch]
         loss = torch.sum(per * exw) / torch.clamp(torch.sum(exw), min=1.0)
         if mu > 0.0:
@@ -191,7 +227,7 @@ def make_local_update_mega(model: nn.Module, cfg: RoundConfig, k: int) -> Callab
         acc_m = correct.reshape(k, -1).mean(1)
         return loss, (new_stats, ce_m, acc_m)
 
-    group_grad = vmap(grad(loss_fn, has_aux=True), in_dims=(0, 0, None, 0, 0, 0))
+    group_grad = vmap(grad(loss_fn, has_aux=True), in_dims=(0, 0, None, 0, 0, 0, 0))
 
     def local_update(
         global_params: Tree,
@@ -202,10 +238,12 @@ def make_local_update_mega(model: nn.Module, cfg: RoundConfig, k: int) -> Callab
         step_mask: torch.Tensor,
         lr: float,
         generator: Optional[torch.Generator] = None,
+        masks: Optional[Tree] = None,
     ) -> ClientOutput:
         n, steps = step_mask.shape
         g = n // k
         batch = ys.shape[2]
+        masks = _round_masks(specs, masks, (g, steps, k * batch), generator, ys.device)
 
         def group(t: torch.Tensor) -> torch.Tensor:
             return t.reshape((g, k) + tuple(t.shape[1:]))
@@ -224,7 +262,8 @@ def make_local_update_mega(model: nn.Module, cfg: RoundConfig, k: int) -> Callab
             live_m = member_mask[:, :, s]
             live_f = live_m.float()
             exw = live_f[:, :, None].expand(g, k, batch).reshape(g, k * batch)
-            grads, (new_stats, ce_m, acc_m) = group_grad(params, stats, global_params, x, y, exw)
+            step_masks = {kk: m[:, s] for kk, m in masks.items()}
+            grads, (new_stats, ce_m, acc_m) = group_grad(params, stats, global_params, x, y, exw, step_masks)
             new_params, new_mom = optim.apply(params, grads, mom, lr, cfg.opt)
             live = live_m.any(1)
             params = {kk: _where_rows(live, new_params[kk], params[kk]) for kk in params}

@@ -19,7 +19,9 @@ device; the host supplies only the round's batch and learning rate.
 fedtpu draws the DP noise, the noise attack and the attack's fire draws
 from JAX's PRNG, which torch cannot reproduce: the port draws them from
 ``torch.Generator`` streams seeded from ``(base seed, round)`` and takes
-them injected through :class:`RoundDraws` for parity checks.
+them injected through :class:`RoundDraws` for parity checks, as it takes
+a model's dropout keep masks (drawn otherwise from the round's
+generator).
 """
 
 from __future__ import annotations
@@ -143,12 +145,17 @@ class RoundDraws(NamedTuple):
       noise attack, ``[clients, ...]`` per leaf of the deltas (one leaf,
       ``""``, on the flat layout), or ``[...]`` in colluding mode;
     - ``attack_uniforms(round_idx, n) -> [n]`` (``[]`` colluding): the
-      attack's fire draws.
+      attack's fire draws;
+    - ``dropout_masks(round_idx) -> tree``: the model's keep masks by
+      module path, ``[clients, steps, batch, ...]`` (megabatch: ``[groups,
+      steps, k * batch, ...]``), in place of the step's draws from the
+      round's generator (:mod:`fedtpu_torch.core.client`).
     """
 
     dp_noise: Optional[Callable[[int, Tree], Tree]] = None
     attack_noise: Optional[Callable[[int, Tree], Tree]] = None
     attack_uniforms: Optional[Callable[[int, int], torch.Tensor]] = None
+    dropout_masks: Optional[Callable[[int], Tree]] = None
 
 
 def init_state(
@@ -445,6 +452,7 @@ def make_round_step(
         out: ClientOutput = local_update(
             state.params, state.batch_stats, state.opt_state, batch.x, batch.y, step_mask,
             cfg.opt.lr_at(r), generator,
+            draws.dropout_masks(r) if draws.dropout_masks is not None else None,
         )
         n = step_mask.shape[0]
         if fed.weighted:

@@ -1,13 +1,16 @@
-"""The port's model zoo: slice 7, parts 1 and 2a of ``fedtpu.models``.
+"""The port's model zoo: all of ``fedtpu.models`` (slice 7, parts 1, 2a
+and 2b).
 
 Constructor names mirror fedtpu's (``MLP()``, ``LeNet()``, ``ResNet18()``,
 ``PreActResNet18()``, ``VGG('VGG19')``, ``DenseNet121()``,
 ``densenet_cifar()``, ``MobileNetV2()``, ``GoogLeNet()``,
 ``ResNeXt29_2x64d()``, ``SENet18()``, ``DPN26()``, ``ShuffleNetG2()``,
-``ShuffleNetV2(net_size)``, ...), and every model is reachable by fedtpu's
-registry name through :func:`create`. The rest of fedtpu's zoo
-(``registry.NOT_PORTED``) raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+``ShuffleNetV2(net_size)``, ``EfficientNetB0()``, ``RegNetX_200MF()``,
+``RegNetX_400MF()``, ``RegNetY_400MF()``, ``PNASNetA()``, ``PNASNetB()``,
+``DLA()``, ``SimpleDLA()``, ...), and every model is reachable by
+fedtpu's registry name through :func:`create`. EfficientNet-B0 is the one
+model whose train mode draws random numbers: it takes them as keep masks
+(:func:`fedtpu_torch.models.common.draw_masks`).
 """
 
 from fedtpu_torch.models.registry import available, create
@@ -44,6 +47,11 @@ from fedtpu_torch.models.senet import SENet18
 from fedtpu_torch.models.dpn import DPN26, DPN92
 from fedtpu_torch.models.shufflenet import ShuffleNetG2, ShuffleNetG3
 from fedtpu_torch.models.shufflenetv2 import ShuffleNetV2
+from fedtpu_torch.models.efficientnet import EfficientNetB0
+from fedtpu_torch.models.regnet import RegNetX_200MF, RegNetX_400MF, RegNetY_400MF
+from fedtpu_torch.models.pnasnet import PNASNetA, PNASNetB
+from fedtpu_torch.models.dla import DLA
+from fedtpu_torch.models.dla_simple import SimpleDLA
 
 __all__ = [
     "available",
@@ -80,4 +88,12 @@ __all__ = [
     "ShuffleNetG2",
     "ShuffleNetG3",
     "ShuffleNetV2",
+    "EfficientNetB0",
+    "RegNetX_200MF",
+    "RegNetX_400MF",
+    "RegNetY_400MF",
+    "PNASNetA",
+    "PNASNetB",
+    "DLA",
+    "SimpleDLA",
 ]

@@ -3,7 +3,8 @@
 The port of ``fedtpu.models.common``: fedtpu's ``BatchNorm``, its
 bias-free ``conv3x3``/``conv1x1`` and a depthwise ``depthwise3x3``,
 ``max_pool``, ``avg_pool`` (VALID or padded, as flax pads: max with -inf,
-the average counting the padding), ``global_avg_pool``, and ShuffleNet's
+the average counting the padding), ``global_avg_pool``, ``spatial_mean``
+(a squeeze-and-excitation gate's input), and ShuffleNet's
 ``channel_shuffle``. Models take NHWC inputs at their public boundary and
 run NCHW inside, torch's default layout for convolutions. fedtpu's
 ``FEDTPU_TILED_POOL`` opt-in changes only its own max-pool's backward
@@ -21,11 +22,20 @@ form of flax's ``apply(..., train=True, mutable=["batch_stats"])``:
   "<path>.var": ...}``, the names of its buffers). No buffer is written:
   an in-place write inside ``torch.func.vmap(grad(...))`` would raise or
   be lost, so the round carries the statistics as values.
+
+A model whose train mode draws random numbers (EfficientNet-B0's
+drop-connect and dropout; fedtpu's ``make_rng("dropout")``) takes its
+draws as keep masks, ``model(x, train=True, masks=...)``: a dict by
+module path of bool tensors, one per example, shaped as
+``model.mask_specs()`` says (:func:`mask_specs`, :func:`draw_masks`). The
+caller draws them, outside any ``vmap``: a draw inside
+``torch.func.vmap`` would follow no seed that a caller can set. Eval mode
+takes none.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -253,3 +263,58 @@ def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over the spatial dims of an NCHW tensor -> ``[n, c]``."""
     return x.mean(dim=(2, 3))
+
+
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean(x, axis=(1, 2), keepdims=True)`` of fedtpu's NHWC tensor
+    on an NCHW one, -> ``[n, c, 1, 1]``: summed in ``promote(x.dtype,
+    f32)``, divided and cast back to ``x.dtype`` (``jnp.mean``'s rule for a
+    bf16 input)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return (x.sum(dim=(2, 3), keepdim=True, dtype=acc) / (x.shape[2] * x.shape[3])).to(x.dtype)
+
+
+class MaskSpec(NamedTuple):
+    """The keep mask of one random module: its shape for one example
+    (broadcast against the module's output), and the probability of a
+    True."""
+
+    shape: Sequence[int]
+    keep: float
+
+
+Masks = Dict[str, torch.Tensor]
+
+
+def mask_specs(model: nn.Module) -> Dict[str, MaskSpec]:
+    """``{module path: MaskSpec}`` of every random module ``model`` runs in
+    train mode, in the order it runs them; ``{}`` for a model without
+    any."""
+    specs = getattr(model, "mask_specs", None)
+    return specs() if specs is not None else {}
+
+
+def draw_masks(
+    specs: Dict[str, MaskSpec],
+    lead: Sequence[int],
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> Masks:
+    """Keep masks ``lead + spec.shape`` for every module of ``specs``,
+    Bernoulli(``keep``) as ``uniform < keep`` (jax's ``bernoulli``), one
+    draw a module from ``generator`` in the order of ``specs``."""
+    return {
+        name: torch.rand(tuple(lead) + tuple(spec.shape), generator=generator, device=device) < spec.keep
+        for name, spec in specs.items()
+    }
+
+
+def drop(y: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """fedtpu's drop-connect and flax's ``Dropout`` under a drawn mask:
+    ``where(mask, y / keep, 0)``, ``keep`` in ``y``'s dtype as jax casts a
+    Python float, so that a kept entry is ``y / keep`` rounded once and a
+    dropped one exactly 0. ``keep`` is a tensor on ``y``'s device: CUDA
+    turns a division by a CPU scalar into a product with its reciprocal,
+    which rounds differently."""
+    keep_t = torch.full((), keep, dtype=y.dtype, device=y.device)
+    return torch.where(mask, y / keep_t, 0.0)

@@ -1,12 +1,13 @@
 """Model registry: a model is a config value, looked up by name.
 
-The names are fedtpu's (``fedtpu.models.registry``), case-insensitive. The
-families of slice 7, parts 1 (MLP, smallcnn, LeNet, MobileNet, ResNet,
-PreAct-ResNet, VGG, DenseNet) and 2a (MobileNetV2, GoogLeNet, ResNeXt-29,
-SENet-18, DPN, ShuffleNet, ShuffleNetV2) are ported; a name of fedtpu's zoo
-that is not (``NOT_PORTED``) raises ``NotImplementedError`` naming its
-ROADMAP.md item, and a name fedtpu does not know raises ``KeyError``, as
-fedtpu's does.
+The names are fedtpu's (``fedtpu.models.registry``), case-insensitive,
+and every one of them is ported: the families of slice 7, parts 1 (MLP,
+smallcnn, LeNet, MobileNet, ResNet, PreAct-ResNet, VGG, DenseNet), 2a
+(MobileNetV2, GoogLeNet, ResNeXt-29, SENet-18, DPN, ShuffleNet,
+ShuffleNetV2) and 2b (EfficientNet-B0, RegNetX/Y, PNASNet, DLA,
+SimpleDLA). A name of fedtpu's zoo listed in ``NOT_PORTED`` (none now)
+raises ``NotImplementedError`` naming its ROADMAP.md item; a name fedtpu
+does not know raises ``KeyError``, as fedtpu's does.
 """
 
 from __future__ import annotations
@@ -20,12 +21,9 @@ from fedtpu_torch.config import not_ported
 
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {}
 
-# fedtpu's registered names still to port (ROADMAP.md Queue 1, slice 7,
-# part 2b), in the order they are ported.
-NOT_PORTED = (
-    "efficientnetb0", "regnetx_200mf", "regnetx_400mf", "regnety_400mf",
-    "pnasneta", "pnasnetb", "dla", "simpledla",
-)
+# fedtpu's registered names still to port: none since slice 7, part 2b.
+# The tests hold ported and unported names together to fedtpu's registry.
+NOT_PORTED: Tuple[str, ...] = ()
 
 
 def register(name: str):
@@ -50,7 +48,7 @@ def create(
     (``create("shufflenetv2", net_size=0.5)``)."""
     key = name.lower()
     if key in NOT_PORTED:
-        raise not_ported(f"model '{name}'", "slice 7, part 2b: the rest of the zoo")
+        raise not_ported(f"model '{name}'", "slice 7")
     if key not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; available: {available()}")
     ctor = _REGISTRY[key]

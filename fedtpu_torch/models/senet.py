@@ -31,6 +31,7 @@ from fedtpu_torch.models.common import (
     global_avg_pool,
     name_batch_norms,
     run_block,
+    spatial_mean,
 )
 from fedtpu_torch.models.registry import register
 from fedtpu_torch.models.resnet import stage_plan
@@ -38,8 +39,7 @@ from fedtpu_torch.models.resnet import stage_plan
 
 class SEGate(nn.Module):
     """Squeeze and excitation: a per-channel sigmoid gate from the
-    spatial mean, which is summed in ``promote(x.dtype, f32)``, divided
-    and cast back to ``x.dtype`` (``jnp.mean``'s rule for a bf16 input)."""
+    spatial mean (``common.spatial_mean``)."""
 
     def __init__(self, ch: int, reduction: int = 16):
         super().__init__()
@@ -47,9 +47,7 @@ class SEGate(nn.Module):
         self.Conv_1 = nn.Conv2d(ch // reduction, ch, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        acc = torch.promote_types(x.dtype, torch.float32)
-        w = (x.sum(dim=(2, 3), keepdim=True, dtype=acc) / (x.shape[2] * x.shape[3])).to(x.dtype)
-        w = F.relu(self.Conv_0(w))
+        w = F.relu(self.Conv_0(spatial_mean(x)))
         return x * torch.sigmoid(self.Conv_1(w))
 
 

@@ -1406,9 +1406,13 @@ class BackupServer(TrainerServicer):
     def _stop_acting(self, wait: float = 120.0) -> None:
         if self._acting_stop is not None:
             self._acting_stop.set()
-        if self._promote_thread is not None:
-            self._promote_thread.join(timeout=wait)
-            if not self._promote_thread.is_alive():
+        # Two callers (the watchdog's demotion and a FetchModel) can stop
+        # the same acting primary: read the thread once, and clear the
+        # attribute only while it still holds that thread.
+        thread = self._promote_thread
+        if thread is not None:
+            thread.join(timeout=wait)
+            if not thread.is_alive() and self._promote_thread is thread:
                 self._promote_thread = None
 
     def start(self, address: str):

@@ -23,7 +23,9 @@ clients (``torch_coordinator.ScriptedClient``).
   the round the original primary runs itself;
 - every option the port does not run raises ``NotImplementedError``
   naming its ROADMAP item, and the backup refuses Join and Leave in its
-  role.
+  role;
+- ``_stop_acting`` survives a second caller that clears the promotion
+  thread while it joins it (fedtpu's copy raises ``AttributeError``).
 """
 
 import threading
@@ -332,6 +334,39 @@ def test_promotion_survives_a_corrupted_replica():
         assert backup.acting is not None and backup.acting._coord_epoch == 2
     finally:
         backup._stop_acting(wait=30)
+
+
+class _RacedThread:
+    """A promotion thread whose ``join`` lets a second caller of
+    ``_stop_acting`` (the watchdog's demotion beside a FetchModel) finish
+    first and clear the backup's ``_promote_thread``."""
+
+    def __init__(self, backup):
+        self.backup = backup
+
+    def join(self, timeout=None):
+        self.backup._promote_thread = None
+
+    def is_alive(self):
+        return False
+
+
+def test_stop_acting_survives_a_second_caller():
+    """fedtpu's ``_stop_acting`` reads ``_promote_thread`` again after the
+    join, and raised ``AttributeError: 'NoneType' object has no attribute
+    'is_alive'`` when another caller had cleared it meanwhile; the port's
+    reads it once."""
+    _, tcfg = configs()
+    backup = tfederation.BackupServer(tcfg, [], watchdog_timeout=3600.0, device="cpu")
+    backup._acting_stop = threading.Event()
+    backup._promote_thread = _RacedThread(backup)
+    backup._stop_acting(wait=1)
+    assert backup._acting_stop.is_set() and backup._promote_thread is None
+    later = threading.Thread(target=lambda: None)
+    backup._promote_thread = raced = _RacedThread(backup)
+    raced.join = lambda timeout=None: setattr(backup, "_promote_thread", later)
+    backup._stop_acting(wait=1)
+    assert backup._promote_thread is later  # a newer promotion's thread stays
 
 
 def test_options_the_coordinator_does_not_run_raise():

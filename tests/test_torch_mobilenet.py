@@ -1,8 +1,10 @@
-"""The port's BatchNorm and MobileNet, and MobileNet rounds, against fedtpu.
+"""The port's BatchNorm and MobileNet against fedtpu; MobileNet rounds are
+held in ``test_torch_mobilenet_rounds.py``.
 
 Inputs come from one numpy seed and go through both packages; fedtpu's
-MobileNet is initialised once per module (its init and its compiles are
-what this file spends its time on). Tolerances:
+MobileNet is initialised once per module (``torch_mobilenet.
+flax_mobilenet``; its init and its compiles are what this file spends its
+time on). Tolerances:
 
 - BatchNorm alone, f32: output and new running statistics within
   ``atol=1e-6`` (the statistics are sums in another order); bf16: within
@@ -14,21 +16,8 @@ what this file spends its time on). Tolerances:
   rtol=1e-4`` in train mode (27 batch normalizations over as few as 16
   values a channel amplify the last-bit differences of the statistics),
   new statistics within ``atol=1e-5, rtol=1e-4``; the flat row is
-  fedtpu's bit for bit.
-- Whole rounds (``Federation.step`` on explicit batches, each round from
-  fedtpu's state before it), the global model in f64 in both packages
-  (fedtpu under ``jax.enable_x64``): loss within ``rtol=1e-6``; params and
-  ``batch_stats`` within ``atol=1e-5, rtol=1e-4``, with the codecs'
-  allowances of ``TOLERANCE``. Why f64 and a state per round: at init, 27
-  BatchNorms over 4-example batches make MobileNet's gradient so
-  ill-conditioned that fedtpu's own f32 gradient on the CPU is 1-2.5% from
-  its f64 gradient (torch's f32 is 1e-5 to 7e-3 from it), and in f64 the
-  f32 roundings both packages keep (logits cast for the loss, momentum
-  stored f32) still grow past any tolerance within one more round. The
-  same f64 rounds agree to 2e-10 in the gradients of one step.
+  fedtpu's bit for bit; one f64 step's gradient within ``rtol=1e-8``.
 """
-
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -36,11 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from fedtpu import config as jconfig
-from fedtpu import models as jmodels
-from fedtpu.core import round as jround
 from fedtpu.models.common import batch_norm as j_batch_norm
-from fedtpu.ops import compression as jcomp
 from fedtpu.ops import flat as jflat
 from fedtpu.ops.losses import softmax_ce_int_labels as j_ce
 from fedtpu_torch import config as tconfig
@@ -50,57 +35,12 @@ from fedtpu_torch.core import round as tround
 from fedtpu_torch.core.engine import Federation as TFederation
 from fedtpu_torch.models import common
 from fedtpu_torch.models.common import BatchNorm
-from fedtpu_torch.ops import compression as tcomp
 from fedtpu_torch.ops import flat as tflat
 from fedtpu_torch.ops.losses import softmax_ce_int_labels as t_ce
-from test_torch_round import _beyond_tolerance
+from torch_mobilenet import BATCH, CLIENTS, _configs, _f64, flax_mobilenet  # noqa: F401 (a fixture)
+from torch_zoo import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 MOBILENET_P = 3_217_226
-CLIENTS, STEPS, BATCH = 2, 2, 4
-# Per codec: (params atol, share of coordinates allowed beyond tolerance).
-# A last-bit difference of an f64 delta can round to another f32 and so
-# cross a top-k threshold or an int8 step. rotq's row is f64 in fedtpu's
-# x64 round and f32 in the port's (fedtpu packs in the leaves' dtype, the
-# port in f32, which is fedtpu's own dtype outside x64): the f32 rounding
-# moves a few rotated coordinates across a stochastic-rounding step, and
-# each such step moves every coordinate of that client's row by
-# step / 2048; 2e-4 bounds that (7e-5 measured, against rounds that move
-# params by up to 1.9).
-TOLERANCE = {
-    "none": (1e-5, 0.0), "topk": (1e-5, 0.001), "int8": (1e-5, 0.001),
-    "rotq": (2e-4, 0.0),
-}
-
-
-def _perturb(rng):
-    """BatchNorm leaves away from their init (scale 1, bias 0, mean 0,
-    var 1), so that a swapped or misnamed leaf shows."""
-
-    def leaf(path, a):
-        name, owner = path[-1].key, path[-2].key
-        if not owner.startswith("BatchNorm"):
-            return a
-        if name == "scale":
-            return (1 + 0.2 * rng.normal(size=a.shape)).astype(np.float32)
-        if name in ("bias", "mean"):
-            return (0.1 * rng.normal(size=a.shape)).astype(np.float32)
-        return rng.uniform(0.5, 2.0, size=a.shape).astype(np.float32)  # var
-
-    return leaf
-
-
-@pytest.fixture(scope="module")
-def flax_mobilenet():
-    """fedtpu's MobileNet and its variables (numpy), BatchNorm leaves
-    perturbed."""
-    model = jmodels.create("mobilenet", num_classes=10)
-    variables = jax.jit(lambda k: model.init(k, jnp.zeros((1, 32, 32, 3)), train=False))(
-        jax.random.PRNGKey(0)
-    )
-    leaf = _perturb(np.random.default_rng(0))
-    params = jax.tree_util.tree_map_with_path(leaf, jax.tree.map(np.asarray, variables["params"]))
-    stats = jax.tree_util.tree_map_with_path(leaf, jax.tree.map(np.asarray, variables["batch_stats"]))
-    return model, params, stats
 
 
 # ------------------------------------------------------------ BatchNorm
@@ -342,142 +282,3 @@ def test_mobilenet_flat_row_is_fedtpus(flax_mobilenet, pow2):
     back = tflat.unpack_stacked(tlay, got)
     for k, v in tstacked.items():
         assert torch.equal(back[k], v), k
-
-
-# ------------------------------------------------------------ the rounds
-
-
-def _configs(compression, delta_layout):
-    kw = dict(
-        model="mobilenet", steps_per_round=STEPS,
-        data=dict(dataset="cifar10", batch_size=BATCH, eval_batch_size=8,
-                  partition="iid", augment=False),
-        fed=dict(num_clients=CLIENTS, compression=compression, delta_layout=delta_layout),
-    )
-    return tuple(
-        mod.RoundConfig(
-            model=kw["model"], steps_per_round=kw["steps_per_round"],
-            data=mod.DataConfig(**kw["data"]), fed=mod.FedConfig(**kw["fed"]),
-        )
-        for mod in (jconfig, tconfig)
-    )
-
-
-def _round_inputs(rng, r):
-    x = rng.normal(size=(CLIENTS, STEPS, BATCH, 32, 32, 3)).astype(np.float32)
-    y = rng.integers(0, 10, size=(CLIENTS, STEPS, BATCH)).astype(np.int32)
-    step_mask = np.ones((CLIENTS, STEPS), bool)
-    step_mask[1, 1] = False  # client 1's second step is padding
-    weights = np.array([8.0, 4.0], np.float32)
-    alive = np.array([True, r == 0])  # client 1 dies in round 2
-    return x, y, step_mask, weights, alive
-
-
-def _count_beyond(got_tree, want_tree, atol=1e-5):
-    """(coordinates beyond ``atol``, rtol=1e-4, coordinates)."""
-    bad = total = 0
-    for (path, want), got in zip(
-        jax.tree_util.tree_leaves_with_path(want_tree), jax.tree.leaves(got_tree)
-    ):
-        assert got.shape == want.shape, jax.tree_util.keystr(path)
-        bad += int(_beyond_tolerance(got, np.asarray(want), atol=atol).sum())
-        total += want.size
-    return bad, total
-
-
-def _f64(tree):
-    return jax.tree.map(lambda a: np.asarray(a, np.float64), tree)
-
-
-def _x64_rotq_draws(comp):
-    """rotq fed the signs and uniforms fedtpu's round draws under
-    ``jax.enable_x64`` (its Rademacher signs differ there from the default
-    mode's), from the int32 round index its state carries."""
-
-    def apply_flat(y, state, lay, round_idx=0):
-        with jax.enable_x64(True):
-            key = jax.random.fold_in(jax.random.PRNGKey(0x5EED0), jnp.int32(round_idx))
-            k_sign, k_unif = jax.random.split(key)
-            signs = np.asarray(jax.random.rademacher(k_sign, (lay.padded,), jnp.float32))
-            unif = np.asarray(jax.random.uniform(k_unif, tuple(y.shape), jnp.float32))
-        return comp.apply_flat(
-            y, state, lay, round_idx=round_idx,
-            signs=torch.tensor(signs), uniforms=torch.tensor(unif),
-        )
-
-    return comp._replace(apply_flat=apply_flat)
-
-
-def _port_state(jstate, round_idx):
-    """fedtpu's state as the port's (the global model f64, the momentum and
-    the codec's residuals f32, as fedtpu keeps them)."""
-    comp = jstate.comp_state
-    if isinstance(comp, dict):
-        comp = from_flax(comp)
-    elif not isinstance(comp, tuple):
-        comp = torch.tensor(np.asarray(comp))
-    return tround.FederatedState(
-        params=from_flax(jstate.params),
-        batch_stats=from_flax(jstate.batch_stats),
-        opt_state=from_flax(jstate.opt_state.momentum),
-        round_idx=round_idx,
-        comp_state=comp,
-    )
-
-
-@pytest.mark.parametrize("compression,delta_layout,rounds", [
-    ("none", "per_leaf", 2),
-    ("topk", "per_leaf", 2),
-    ("int8", "per_leaf", 2),
-    ("rotq", "flat", 1),
-])
-def test_mobilenet_rounds_track_fedtpu(flax_mobilenet, compression, delta_layout, rounds):
-    """MobileNet rounds of both packages on the same batches, each round
-    from fedtpu's state before it, the global model in f64 (fedtpu under
-    ``jax.enable_x64``): the local step, BatchNorm's statistics through it
-    and through the combine, the momentum (stored f32 in both), the codecs
-    and their residuals (f32 in both) and the mean. Round 2 has a dead
-    client and carries round 1's momentum and residuals. rotq is held for
-    one round, as on smallcnn."""
-    jmodel, params, stats = flax_mobilenet
-    jcfg, tcfg = _configs(compression, delta_layout)
-    rng = np.random.default_rng(4)
-    batches = [_round_inputs(rng, r) for r in range(rounds)]
-    states, losses = [], []
-    with jax.enable_x64(True):
-        jcodec = jcomp.make_compressor(jcfg.fed)
-        variables = {"params": _f64(params), "batch_stats": _f64(stats)}
-        jstate = jround.init_state(
-            SimpleNamespace(init=lambda *a, **k: variables), jcfg,
-            jax.random.PRNGKey(0), None, jcodec,
-        )
-        jstep = jax.jit(jround.make_round_step(jmodel, jcfg, jcodec))
-        states.append(jax.tree.map(np.asarray, jstate))
-        for x, y, sm, w, alive in batches:
-            jstate, jm = jstep(jstate, jround.RoundBatch(
-                x=jnp.asarray(x), y=jnp.asarray(y), step_mask=jnp.asarray(sm),
-                weights=jnp.asarray(w), alive=jnp.asarray(alive),
-            ))
-            states.append(jax.tree.map(np.asarray, jstate))
-            losses.append(float(jm.loss))
-    tcodec = tcomp.make_compressor(tcfg.fed)
-    if compression == "rotq":
-        tcodec = _x64_rotq_draws(tcodec)
-    data = (rng.normal(size=(16, 32, 32, 3)).astype(np.float32),
-            rng.integers(0, 10, size=16).astype(np.int32))
-    tfed = TFederation(tcfg, seed=0, data=data, device="cpu", compressor=tcodec)
-    for r, (x, y, sm, w, alive) in enumerate(batches):
-        tfed.state = _port_state(states[r], r)
-        tm = tfed.step(tround.RoundBatch(
-            x=torch.from_numpy(x), y=torch.from_numpy(y), step_mask=torch.from_numpy(sm),
-            weights=torch.from_numpy(w), alive=torch.from_numpy(alive),
-        ))
-        np.testing.assert_allclose(float(tm.loss), losses[r], rtol=1e-6)
-        atol, allowance = TOLERANCE[compression]
-        for name in ("params", "batch_stats"):
-            bad, total = _count_beyond(
-                to_flax(getattr(tfed.state, name)), getattr(states[r + 1], name),
-                atol if name == "params" else 1e-5,
-            )
-            assert bad <= allowance * total, f"round {r} {name}: {bad} of {total} differ"
-        assert tfed.state.params["Conv_0.weight"].dtype == torch.float64

@@ -17,8 +17,8 @@ leaves away from their init, so that a swapped or misnamed leaf shows.
 - ``remat=True`` only where fedtpu has it.
 - The constructor surface mirrors fedtpu's
   (``tests/test_models.py::test_constructor_surface_matches_reference``);
-  the rest of fedtpu's zoo raises ``NotImplementedError`` naming ROADMAP
-  slice 7, part 2.
+  a name still in ``registry.NOT_PORTED`` (none since part 2b) raises
+  ``NotImplementedError`` naming ROADMAP slice 7.
 
 Train mode (logits, statistics, a step's gradient in f64, remat) is held
 in ``test_torch_zoo_train.py``, whole rounds in

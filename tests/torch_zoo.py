@@ -1,6 +1,7 @@
 """Shared helpers of the zoo's parity tests: fedtpu's variables for a
-model, in numpy, from a seed."""
+model, in numpy, from a seed; fedtpu's dropout keep masks for a key."""
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,3 +64,36 @@ def flax_variables(name, classes, size, seed, **ctor):
     return tuple(
         jax.tree_util.tree_map_with_path(leaf, shapes.get(c, {})) for c in ("params", "batch_stats")
     )
+
+
+class _Draw(fnn.Module):
+    """One random module's draw as fedtpu's drop-connect and flax's
+    ``Dropout`` make it: ``bernoulli(make_rng("dropout"), keep, shape)``."""
+
+    @fnn.compact
+    def __call__(self, keep, shape):
+        return jax.random.bernoulli(self.make_rng("dropout"), keep, shape)
+
+
+class _Draws(fnn.Module):
+    """A ``_Draw`` at each random module's path: flax derives a module's
+    ``make_rng`` key from the apply's key and the module's path alone, so
+    these are the masks fedtpu's model draws under the same key, without
+    running its forward."""
+
+    specs: tuple
+
+    @fnn.compact
+    def __call__(self):
+        return {name: _Draw(name=name)(keep, shape) for name, shape, keep in self.specs}
+
+
+def fedtpu_masks(model, batch, keys):
+    """fedtpu's keep masks for the port's ``model`` (its ``mask_specs``) at
+    ``batch`` examples, one set per key of ``keys`` (each an apply's
+    ``rngs={"dropout": key}``), stacked: ``{path: [len(keys), batch,
+    ...]}`` numpy bools. Call it in the x64 mode of the apply it stands
+    for: jax draws the uniforms in the dtype of ``keep``."""
+    specs = tuple((name, (batch,) + tuple(spec.shape), spec.keep) for name, spec in model.mask_specs().items())
+    draws = [_Draws(specs).apply({}, rngs={"dropout": key}) for key in keys]
+    return {name: np.stack([np.asarray(d[name]) for d in draws]) for name, _, _ in specs}
