@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile DIR   # also torch.profiler tables in DIR
     python3 chip_smoke.py --only zoo      # the device and build phases, then phases 12 to 14
     python3 chip_smoke.py --only kernels  # the device and build phases, then K1's part of phase 3
+    python3 chip_smoke.py --only sim      # the device and build phases, then phase 15's sim parts
+    python3 chip_smoke.py --only disaster # the device and build phases, then phase 15's drills
 
 Phases, each of which raises on failure (exit code not 0, no result line):
 
@@ -181,13 +183,42 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    head's entries (0.8 +- 0.02); the uncompressed round timed (rounds/s,
    client-epochs/s, MFU against the bf16 peak) and profiled (the device's
    idle share), with peak memory.
+15. the sim engine and disaster recovery: (ref) a small sim round on the
+   card against the same round on the CPU (smallcnn, a population of 256
+   through 4 seats, per-leaf topk, 2 rounds with reassigned seats, the same
+   numpy gather keys on both devices). (a) ``docs/SIMULATION.md``'s
+   deployment: MobileNet at full width, a population of 10,000 through 64
+   seats, scenario ``dirichlet:alpha=0.1+quantity_skew:power=1.5``, on the
+   flagship round's traffic (gather layout): 3 rounds each of per-leaf
+   topk (2 K1 a round) and int8 (1 K2) through step(), a new cohort each
+   round, every reassigned seat's momentum and residual checked reset
+   before it trains, the population's tables advancing 64 draws a round,
+   round 1's codec re-applied with the plain kernels; one run_on_device(2)
+   block (one cohort, 2 K2); the warm round timed, the peak memory, and
+   the per-seat state bytes, equal at populations 10,000 and 5,000. (b)
+   engine resume: bench.py's smallcnn round (64 clients, per-leaf topk with
+   error feedback) saving every round through a BackgroundCheckpointer
+   (keep 3), generation 3 rotted by ckpt_rot; after round 3 the engine is
+   dropped, a new one restores generation 2 and runs rounds 3-4, bit-equal
+   to a control that never stopped (rounds under deterministic algorithms;
+   an op torch names as having none makes it a tolerance check naming it);
+   1 K1 a round. Its three steps run around (a) and (c), so the writer
+   compresses beside them. (c) the coordinator's cold restart over
+   localhost gRPC: 4 port MobileNet clients (2 steps, flat int8, stream,
+   server momentum), each with a state_dir; a control of 5 rounds; a
+   primary saving every round, its newest generation rotted, stopped after
+   round 3; a new primary restores generation 2, re-runs round 3 through
+   the clients' rollback and runs round 4: the lineage continuous, the
+   roster and the server momentum restored, the global within phase 10's
+   tolerance of the control's, the time to recover printed; no K1-K3.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
 Each kernel's ``launches`` there is the sum over the main paths, the
 smallcnn slice, the MobileNet round, the round options, the zoo and the
-zoo's second and last parts (``zoo2``, ``zoo3``); ``launches_by_path``
-has each.
+zoo's second and last parts (``zoo2``, ``zoo3``), the sim engine
+(``sim``: K1 and K2) and the engine drill (``disaster``: K1);
+``launches_by_path`` has each.
 """
 
 from __future__ import annotations
@@ -205,12 +236,16 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 from typing import Optional
 
 # The MobileNet round fills most of the card; segments that grow keep the
 # caching allocator from fragmenting it. Read at the first allocation.
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+# cuBLAS's fixed workspace, which deterministic algorithms need (phase 15's
+# engine resume). Read when cuBLAS starts.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -285,7 +320,7 @@ ZOO_HADAMARD_SHAPE = (64, 2**24)
 FLAT_P = 545_152  # smallcnn's lane-padded flat row
 MOBILENET_FLAT_P = 3_217_280  # MobileNet's: P = 3,217,226 lane-padded
 MOBILENET_LEAVES = 83
-MOBILENET_TIMED_ROUNDS = 2
+MOBILENET_TIMED_ROUNDS = 1  # a warm round after the checked ones: the script stays under 900 s with phase 15
 # The zoo's per-leaf shapes: ResNet-18 at 100 classes, densenet_cifar,
 # ShuffleNetV2 and MobileNetV2 at 10.
 RESNET18_LEAVES = 62
@@ -2521,7 +2556,7 @@ ZOO_CLIENTS = 64
 ZOO_CLASSES = 100
 ZOO_EPOCHS = 5
 ZOO_CASES = [("none", "per_leaf"), ("topk", "per_leaf"), ("int8", "per_leaf"), ("rotq", "flat")]
-ZOO_TIMED_ROUNDS = 2
+ZOO_TIMED_ROUNDS = 1  # as MOBILENET_TIMED_ROUNDS
 # densenet_cifar has no remat in fedtpu, and its concatenations make its
 # activations at 64 clients of batch 128 several times the card's memory
 # (phase 12 prints its peak at 8), so its rounds run 8 clients.
@@ -2987,6 +3022,478 @@ def zoo3_phase(data, card, profile_dir=None):
 # --------------------------------------------------------------- main
 
 
+# -------------------------------------------- 15. sim engine, disaster drill
+
+SIM_POPULATION = 10_000
+SIM_HALF_POPULATION = 5_000
+SIM_SCENARIO = "dirichlet:alpha=0.1+quantity_skew:power=1.5"  # docs/SIMULATION.md:27
+SIM_ROUNDS = 3  # step() rounds per codec, each a new cohort
+SIM_BLOCK = 2  # rounds of the run_on_device block
+SIM_CASES = (("topk", 2), ("int8", 1))  # codec, launches a round at MobileNet's 83 leaves
+DISASTER_ROT_ROUND = 3  # the newest generation when the engine "crashes"
+DISASTER_ROUNDS = 4  # the control's rounds; the resumed engine runs 3-4
+GRPC_CLIENTS = 4
+GRPC_CRASH_AFTER = 4  # the primary commits rounds 0-3, then stops
+GRPC_ROUNDS = 5  # the control's rounds, and the recovered lineage's end
+# The kernels each phase-15 path runs (every other path runs all three).
+PATH_KERNELS = {"sim": ("threshold_feedback", "quantdequant_int8"), "disaster": ("threshold_feedback",)}
+
+
+def _sim_cfg(codec, population=SIM_POPULATION) -> RoundConfig:
+    """The deployment of ``docs/SIMULATION.md``: MobileNet at full width,
+    ``population`` clients through NUM_CLIENTS seats, on the flagship
+    round's traffic, the gather layout (the sim engine's)."""
+    return bench_cfg(codec, "per_leaf", "mobilenet", data_kw=dict(device_layout="gather"),
+                     fed_kw=dict(sim=SimConfig(population=population, scenario=SIM_SCENARIO)))
+
+
+def _seat_bytes(fed) -> int:
+    """Device bytes of the per-seat state: momentum, codec residuals and
+    loss observations, each ``[cohort, ...]``."""
+    ts = list(fed.state.opt_state.values()) + _tensors(fed.state.comp_state) + [fed.state.last_client_loss]
+    if any(t.shape[0] != fed.cfg.fed.num_clients for t in ts):
+        raise RuntimeError("sim: a per-seat tensor is not cohort-sized")
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _uniform_keys(fed, r) -> torch.Tensor:
+    """Gather keys for round ``r`` from numpy, the same on both devices."""
+    return torch.from_numpy(np.random.default_rng(7000 + r).random(fed.client_idx.shape, dtype=np.float32))
+
+
+def sim_reference_phase():
+    """A small sim round on the card against the same round on the CPU:
+    smallcnn, a population of 256 through 4 seats, per-leaf top-k, 2
+    rounds, each a new cohort (seats reset), the same numpy gather keys on
+    both devices and no augmentation; params within the reference
+    tolerance, the population tables equal."""
+    from fedtpu_torch.sim import SimFederation
+
+    rng = np.random.default_rng(15)
+    data = (rng.standard_normal((512, 32, 32, 3), dtype=np.float32), rng.integers(0, 10, 512).astype(np.int32))
+    cfg = dataclasses.replace(_small_cfg("topk"), data=DataConfig(
+        dataset="cifar10", batch_size=8, partition="iid", augment=False, device_layout="gather"))
+    cfg = dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed, sim=SimConfig(population=256)))
+    cpu = SimFederation(cfg, seed=0, data=data, device="cpu")
+    gpu = SimFederation(cfg, seed=0, data=data)
+    gpu.state = gpu.state._replace(params={k: v.cuda() for k, v in cpu.state.params.items()})
+    reset = 0
+    for r in range(2):
+        for fed in (cpu, gpu):
+            before = fed._slot_ids.copy()
+            fed._install_cohort(r)
+            reset += int((before != fed._slot_ids).sum()) if fed is gpu else 0
+            Federation.step(fed, fed.device_batch(r, keys=_uniform_keys(fed, r)))
+            fed._observe_back()
+    if not reset:
+        raise RuntimeError("sim reference: no seat was reassigned")
+    if not np.array_equal(cpu.population.times_sampled, gpu.population.times_sampled):
+        raise RuntimeError("sim reference: the two devices drew other cohorts")
+    bad = total = 0
+    worst = 0.0
+    for k, w in cpu.state.params.items():
+        g = gpu.state.params[k].cpu()
+        bad += int(((g - w).abs() > 1e-5 + 1e-4 * w.abs()).sum())
+        total += w.numel()
+        worst = max(worst, float((g - w).abs().max()))
+    if bad > 0.001 * total or not np.allclose(cpu.population.last_seen_loss, gpu.population.last_seen_loss,
+                                                rtol=1e-4, equal_nan=True):
+        raise RuntimeError(f"sim reference: {bad} of {total} coordinates differ from the CPU")
+    log(f"sim reference: card vs CPU after 2 sim rounds ({reset} seats reassigned), {bad} of {total} "
+        f"coordinates beyond tolerance, largest difference {worst:.3g}")
+
+
+def _check_reset(fed, fresh: np.ndarray, tag: str) -> int:
+    """The reassigned seats' momentum and residuals are zero (their
+    initial values) and the engine holds the population's losses."""
+    m = torch.from_numpy(fresh).cuda()
+    for t in list(fed.state.opt_state.values()) + _tensors(fed.state.comp_state):
+        if bool(t[m].any()):
+            raise RuntimeError(f"sim {tag}: a reset seat kept momentum or residual")
+    want = torch.from_numpy(fed.population.last_seen_loss[fed._cohort_ids]).cuda()
+    if not torch.equal(torch.nan_to_num(fed.state.last_client_loss, 7.0), torch.nan_to_num(want, 7.0)):
+        raise RuntimeError(f"sim {tag}: the engine does not hold the population's losses")
+    return int(fresh.sum())
+
+
+def sim_phase(data, card):
+    """MobileNet at full width through the sim engine: a population of
+    SIM_POPULATION (``docs/SIMULATION.md``'s deployment) through
+    NUM_CLIENTS seats. SIM_ROUNDS rounds each of per-leaf topk (2 K1) and
+    int8 (1 K2) through step(), a new cohort each round, the reassigned
+    seats' state checked reset before it trains, round 1's codec re-applied
+    with the plain kernels; then one run_on_device(SIM_BLOCK) block (one
+    cohort). The launch counts are set to 0 before each engine's rounds and
+    checked every round. The per-seat bytes at SIM_POPULATION and at
+    SIM_HALF_POPULATION must be equal."""
+    from fedtpu_torch.sim import SimFederation
+
+    codecs = slice_codecs(MOBILENET_LEAVES)
+    counts = collections.Counter()
+    out = {"card": card}
+    for codec, per_round in SIM_CASES:
+        counted, want, make_plain = codecs[(codec, "per_leaf")]
+        if want != per_round:
+            raise RuntimeError(f"sim: {codec} expects {want} launches a round, not {per_round}")
+        cfg = _sim_cfg(codec)
+        rec = Recorder(compression.make_compressor(cfg.fed))
+        t0 = time.perf_counter()
+        fed = SimFederation(cfg, seed=0, data=data, compressor=rec.compressor())
+        build_s = time.perf_counter() - t0
+        pop = fed.population
+        log(f"sim {codec}: engine over a population of {pop.size} built in {build_s:.1f} s "
+            f"(shard_len {pop.idx.shape[1]}, heterogeneity {fed.heterogeneity:.4f}, "
+            f"live seats {int(fed.alive.sum())})")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        for r in range(SIM_ROUNDS):
+            before = fed._slot_ids.copy()
+            fed._install_cohort(r)
+            reset = _check_reset(fed, before != fed._slot_ids, codec)
+            if r and not reset:
+                raise RuntimeError(f"sim {codec} round {r}: no seat was reassigned")
+            launched = _launch_counts()
+            rec.armed = r == 1
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = fed.step()
+            loss = float(m.loss)
+            secs = time.perf_counter() - t1
+            after = _launch_counts()
+            for name in after:
+                expect = per_round if name == counted else 0
+                if after[name] - launched[name] != expect:
+                    raise RuntimeError(f"sim {codec} round {r}: {name} launched "
+                                       f"{after[name] - launched[name]} times, expected {expect}")
+            live = int(fed.alive.sum())
+            if not math.isfinite(loss) or not all(bool(torch.isfinite(t).all()) for t in _state_tensors(fed.state)):
+                raise RuntimeError(f"sim {codec} round {r}: loss {loss} or a state tensor is not finite")
+            if pop.times_sampled.sum() != NUM_CLIENTS * (r + 1) or live != NUM_CLIENTS:
+                raise RuntimeError(f"sim {codec} round {r}: {pop.times_sampled.sum()} draws, {live} live seats")
+            log(f"sim {codec} round {r}: loss {loss:.6f} seats reset {reset} "
+                f"launches {({k: after[k] - launched[k] for k in after})} {secs:.3f} s")
+            if r == 1:
+                _check_recorded(rec, make_plain, "per_leaf", f"sim {codec}")
+            if r == SIM_ROUNDS - 1:
+                out[codec] = {"warm_round_s": secs, "rounds_per_s": 1 / secs,
+                              "client_epochs_per_s": live / secs,
+                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                              "seat_state_bytes": _seat_bytes(fed),
+                              "never_sampled": pop.never_sampled(), "build_s": build_s}
+        if codec == "int8":
+            launched = _launch_counts()
+            drawn = pop.times_sampled.sum()
+            t1 = time.perf_counter()
+            block = fed.run_on_device(SIM_BLOCK)
+            losses = block.loss.cpu().numpy()
+            secs = time.perf_counter() - t1
+            got = _launch_counts()[counted] - launched[counted]
+            if got != per_round * SIM_BLOCK or pop.times_sampled.sum() != drawn + NUM_CLIENTS:
+                raise RuntimeError(f"sim block: {got} launches, {pop.times_sampled.sum() - drawn} draws")
+            if not np.isfinite(losses).all() or not np.isfinite(pop.last_seen_loss[fed._cohort_ids]).all():
+                raise RuntimeError(f"sim block: losses {losses}")
+            log(f"sim int8 block of {SIM_BLOCK}: losses {losses.tolist()} one cohort, {got} K2, {secs:.3f} s")
+            out["block_s"] = secs
+        counts.update(_launch_counts())
+        del fed, rec
+        _free()
+    cfg = _sim_cfg("topk", SIM_HALF_POPULATION)
+    half = SimFederation(cfg, seed=0, data=data)
+    out["seat_state_bytes_half_population"] = _seat_bytes(half)
+    del half
+    _free()
+    if out["seat_state_bytes_half_population"] != out["topk"]["seat_state_bytes"]:
+        raise RuntimeError(f"sim: per-seat bytes differ with the population: {out}")
+    log("sim: " + json.dumps(out))
+    return dict(counts)
+
+
+class _Deterministic:
+    """Deterministic CUDA algorithms and cuDNN while a block runs (warn
+    only), restoring the flags after; ``ops`` collects the ops torch warns
+    have no deterministic form."""
+
+    def __init__(self):
+        self.ops = set()
+
+    def __enter__(self):
+        self._prev = (torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled(),
+                      torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        self._warnings = warnings.catch_warnings(record=True)
+        self._seen = self._warnings.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        self._warnings.__exit__(*exc)
+        for w in self._seen:
+            text = str(w.message)
+            if "deterministic" in text:
+                self.ops.add(text.split(" does not have")[0].strip())
+        on, warn_only, det, bench = self._prev
+        torch.use_deterministic_algorithms(on, warn_only=warn_only)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+        return False
+
+
+class DisasterEngineDrill:
+    """Engine resume with generation fallback, bench.py's headline round
+    (smallcnn, NUM_CLIENTS clients, per-leaf topk with error feedback):
+    a control of DISASTER_ROUNDS rounds; an engine that saves every round
+    through ``BackgroundCheckpointer(Checkpointer(keep=3))``, a ckpt_rot
+    armed for round DISASTER_ROT_ROUND, and "crashes" after that round; a
+    new engine that restores the newest generation that verifies (2) and
+    runs on to DISASTER_ROUNDS. Its final state must be the control's bit
+    for bit (rounds under deterministic algorithms; an op torch names as
+    having no deterministic form makes it a tolerance check, naming the
+    op). The three steps run apart, so the writer's compression runs
+    beside other phases (zlib releases the GIL)."""
+
+    def __init__(self, data, card):
+        import tempfile
+
+        from fedtpu_torch.checkpoint import BackgroundCheckpointer, Checkpointer
+        from fedtpu_torch.ft import parse_chaos_spec
+
+        self.data, self.card = data, card
+        self.cfg = bench_cfg("topk", "per_leaf")
+        self.det = _Deterministic()
+        self.counts = collections.Counter()
+        self.dir = tempfile.mkdtemp(prefix="fedtpu_torch_ckpt_")
+        self.chaos = parse_chaos_spec(f"ckpt_rot:p=1.0,rounds={DISASTER_ROT_ROUND},max=1")
+        self.chaos.set_round(0)
+        self.ckpt = BackgroundCheckpointer(Checkpointer(self.dir, keep=3, chaos=self.chaos))
+        self.writes, self.snap_s, self.gen_s = {}, [], []
+        inner, save = self.ckpt.inner, self.ckpt.inner.save
+
+        def written(r, tree):  # on the writer's thread: each write's seconds and bytes
+            out = save(r, tree)
+            self.writes[r] = dict(inner.last_save or {}, failed=out is None)
+            return out
+
+        inner.save = written
+
+    def _rounds(self, fed, n):
+        kernels.reset_launch_counts()
+        with self.det:
+            for _ in range(n):
+                m = fed.step()
+                if not math.isfinite(float(m.loss)):
+                    raise RuntimeError("disaster engine: a non-finite loss")
+        got = _launch_counts()
+        if got["threshold_feedback"] != n or got["quantdequant_int8"] or got["hadamard_rotate"]:
+            raise RuntimeError(f"disaster engine: {got} launches in {n} rounds")
+        self.counts.update(got)
+
+    def _save(self, fed, r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = fed.generation
+        t1 = time.perf_counter()
+        self.ckpt.save(r, gen)
+        self.gen_s.append(t1 - t0)
+        self.snap_s.append(time.perf_counter() - t0)
+
+    def start(self):
+        control = Federation(self.cfg, seed=0, data=self.data)
+        self._rounds(control, DISASTER_ROUNDS)
+        s = control.state
+        self.control = {f: {k: v.cpu() for k, v in getattr(s, f).items()}
+                        for f in ("params", "opt_state", "comp_state")}
+        del control, s
+        self.engine = Federation(self.cfg, seed=0, data=self.data)
+        for r in range(1, DISASTER_ROT_ROUND):
+            self._rounds(self.engine, 1)
+            self._save(self.engine, r)
+        log(f"disaster engine: control ran {DISASTER_ROUNDS} rounds; generations "
+            f"1-{DISASTER_ROT_ROUND - 1} submitted")
+
+    def crash(self):
+        """The last round and its (rotting) generation, then the crash."""
+        self._rounds(self.engine, 1)
+        # The writer consults the schedule when it takes a save up: drain
+        # it before the round moves, so the rot lands on this generation.
+        t0 = time.perf_counter()
+        self.ckpt.flush()
+        self.wait_s = time.perf_counter() - t0
+        self.chaos.set_round(DISASTER_ROT_ROUND)
+        self._save(self.engine, DISASTER_ROT_ROUND)
+        del self.engine
+        _free()
+        log("disaster engine: generation 3 submitted, the engine dropped")
+
+    def finish(self):
+        import shutil
+
+        t0 = time.perf_counter()
+        self.ckpt.flush()
+        wait = time.perf_counter() - t0
+        fed = Federation(self.cfg, seed=0, data=self.data)
+        t0 = time.perf_counter()
+        r, tree = self.ckpt.restore_latest(fed.generation)
+        fed.generation = tree
+        restore_s = time.perf_counter() - t0
+        if r != DISASTER_ROT_ROUND - 1 or fed.state.round_idx != r:
+            raise RuntimeError(f"disaster engine: restored generation {r}, expected {DISASTER_ROT_ROUND - 1}")
+        self._rounds(fed, DISASTER_ROUNDS - r)
+        bad = total = 0
+        worst = 0.0
+        for f, want in self.control.items():
+            for k, w in want.items():
+                g = getattr(fed.state, f)[k].cpu()
+                total += w.numel()
+                if self.det.ops:
+                    bad += int(((g - w).abs() > 1e-5 + 1e-4 * w.abs()).sum())
+                    worst = max(worst, float((g - w).abs().max()))
+                elif not _bits_equal(g, w):
+                    raise RuntimeError(f"disaster engine: {f}/{k} differs from the control")
+        if bad > 0.001 * total:
+            raise RuntimeError(f"disaster engine: {bad} of {total} coordinates differ from the control")
+        sizes = sorted(os.path.getsize(os.path.join(self.dir, f)) for f in os.listdir(self.dir)
+                       if f.endswith(".fckpt"))
+        out = {"restored": r, "bit_equal": not self.det.ops, "nondeterministic_ops": sorted(self.det.ops),
+               "beyond_tolerance": bad, "largest_difference": worst,
+               "state_bytes": sum(t.numel() * t.element_size() for t in _state_tensors(fed.state)),
+               "generation_bytes": sizes, "writes": self.writes,
+               "on_loop_snapshot_s": self.snap_s, "generation_to_host_s": self.gen_s,
+               "flush_wait_s": [self.wait_s, wait], "restore_s": restore_s, "card": self.card}
+        log("disaster engine: " + json.dumps(out))
+        self.ckpt.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        del fed
+        _free()
+        return dict(self.counts)
+
+
+def _serialized(t, lock) -> None:
+    """One client's card work at a time (as phase 10's clients); the state
+    saves that follow a round run side by side."""
+    impl = t._train_round_impl
+
+    def train(*args):
+        with lock:
+            return impl(*args)
+
+    t._train_round_impl = train
+
+
+def disaster_grpc_phase(data, card):
+    """The coordinator's cold restart over localhost gRPC
+    (``tests/test_disaster.py``'s drill): GRPC_CLIENTS port MobileNet
+    clients (HOST_STEPS steps, flat int8, the stream pipeline, server
+    momentum), each with a ``state_dir``. A control of GRPC_ROUNDS rounds;
+    then a primary that saves every round, its newest generation rotted,
+    and stops after GRPC_CRASH_AFTER rounds; a new primary restores (falls
+    back a generation), re-runs the voided round through the clients'
+    rollback and runs on. The lineage must be continuous, the roster and
+    the server momentum restored, the final global within phase 10's
+    tolerance of the control's; K1-K3 launch 0 times."""
+    import shutil
+    import tempfile
+
+    from fedtpu_torch.checkpoint import Checkpointer
+    from fedtpu_torch.ft import parse_chaos_spec
+    from fedtpu_torch.transport.federation import PrimaryServer, serve_client
+
+    kernels.reset_launch_counts()
+    n = GRPC_CLIENTS * HOST_STEPS * BATCH
+    data, eval_data = (data[0][:n], data[1][:n]), (data[0][:FED_EVAL], data[1][:FED_EVAL])
+    cfg = _fed_cfg("flat", "int8", "stream")
+    cfg = dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed, server_optimizer="momentum", server_lr=1.0))
+    root = tempfile.mkdtemp(prefix="fedtpu_torch_drill_")
+    lock = threading.Lock()
+
+    def fleet(tag):
+        servers, agents = [], []
+        for k in range(GRPC_CLIENTS):
+            # The control's clients keep no state on disk: it never stops.
+            state_dir = os.path.join(root, f"{tag}{k}") if tag else None
+            server, agent = serve_client(f"localhost:{_free_port()}", cfg, seed=k, data=data, eval_data=eval_data,
+                                         state_dir=state_dir)
+            _serialized(agent.trainer, lock)
+            servers.append(server)
+            agents.append(agent)
+        return servers, agents
+
+    def stop(servers):
+        for s in servers:
+            s.stop(0)
+
+    try:
+        servers, agents = fleet(None)
+        primary = PrimaryServer(cfg, [a.trainer.identity for a in agents])
+        t0 = time.perf_counter()
+        lineage = [primary.round()["round"] for _ in range(GRPC_ROUNDS)]
+        control_s = time.perf_counter() - t0
+        want = _leaves_row(primary._host_model())
+        del primary
+        stop(servers)
+        servers, agents = fleet("client")
+        addrs = [a.trainer.identity for a in agents]
+        chaos = parse_chaos_spec(f"ckpt_rot:p=1.0,rounds={GRPC_CRASH_AFTER - 1},max=1")
+        ckpt = Checkpointer(os.path.join(root, "primary"), keep=3, chaos=chaos)
+        primary = PrimaryServer(cfg, addrs, chaos=chaos)
+        first, save_s, round_s = [], [], []
+        for r in range(GRPC_CRASH_AFTER):
+            t0 = time.perf_counter()
+            rec = primary.round()
+            t1 = time.perf_counter()
+            ckpt.save(r, primary.state_tree())
+            save_s.append(time.perf_counter() - t1)
+            round_s.append((t1 - t0, rec["t_collect_s"]))
+            first.append(rec["round"])
+        roster, version = sorted(primary.registry.clients), primary.registry.version
+        t_stop = time.perf_counter()
+        del primary  # the crash: the disk is the only copy
+        primary = PrimaryServer(cfg, addrs)
+        start = primary.restore_from_checkpoint(Checkpointer(os.path.join(root, "primary"), keep=3))
+        t_restored = time.perf_counter()
+        gen = Checkpointer(os.path.join(root, "primary"), keep=3).restore(start - 1, primary.state_template())
+        trace = _leaves_row(gen["server_opt"]["0"]["trace"])
+        got_trace = _leaves_row(primary.state_tree()["server_opt"]["0"]["trace"])
+        if start != GRPC_CRASH_AFTER - 1 or sorted(primary.registry.clients) != roster \
+                or primary.registry.version != version or trace.tobytes() != got_trace.tobytes():
+            raise RuntimeError(f"disaster grpc: restored round {start}, roster or moments not restored")
+        second = []
+        for i in range(GRPC_ROUNDS - start):
+            t0 = time.perf_counter()
+            rec = primary.round()
+            round_s.append((time.perf_counter() - t0, rec["t_collect_s"]))
+            if i == 0:
+                recover_s = time.perf_counter() - t_stop
+            if rec["participants"] != GRPC_CLIENTS or rec.get("aborted"):
+                raise RuntimeError(f"disaster grpc: a recovered round lost clients: {rec}")
+            second.append(rec["round"])
+        if lineage != list(range(GRPC_ROUNDS)) or [r for r in first if r < start] + second != lineage:
+            raise RuntimeError(f"disaster grpc: lineage {first} + {second}, control {lineage}")
+        got = _leaves_row(primary._host_model())
+        bad = _beyond(got, want)
+        if not np.isfinite(got).all() or bad > 0.001 * want.size:
+            raise RuntimeError(f"disaster grpc: {bad} of {want.size} coordinates differ from the control")
+        client_gen = sorted(os.path.getsize(os.path.join(root, "client0", f))
+                            for f in os.listdir(os.path.join(root, "client0")) if f.endswith(".fckpt"))
+        out = {"restored_from": start - 1, "lineage": [r for r in first if r < start] + second,
+               "beyond_tolerance": bad, "largest_difference": float(np.abs(got - want).max()),
+               "time_to_recover_s": recover_s, "restore_s": t_restored - t_stop,
+               "control_round_s": control_s / GRPC_ROUNDS, "drill_round_and_collect_s": round_s,
+               "client_save_s": [a.trainer._state_ckpt.last_save["wall_s"] for a in agents],
+               "primary_save_s": save_s,
+               "primary_generation_bytes": ckpt.last_save["bytes"], "client_generation_bytes": client_gen,
+               "card": card}
+        log("disaster grpc: " + json.dumps(out))
+        del primary
+    finally:
+        stop(servers)
+        shutil.rmtree(root, ignore_errors=True)
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"disaster grpc: K1-K3 launched on the coordinator's path: {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
@@ -2996,7 +3503,7 @@ def main(argv=None) -> int:
         "and flat rotq; write the tables to DIR",
     )
     ap.add_argument(
-        "--only", choices=["kernels", "federation", "faults", "zoo"],
+        "--only", choices=["kernels", "federation", "faults", "zoo", "sim", "disaster"],
         help="run the device phase and this phase alone, and print no result line",
     )
     args = ap.parse_args(argv)
@@ -3017,6 +3524,20 @@ def main(argv=None) -> int:
         zoo2_phase(data, smi, profile_dir)
         zoo3_reference_phase()
         zoo3_phase(data, smi, profile_dir)
+        log(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.only in ("sim", "disaster"):
+        build_phase()
+        data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
+        if args.only == "sim":
+            sim_reference_phase()
+            sim_phase(data, smi)
+        else:
+            drill = DisasterEngineDrill(data, smi)
+            drill.start()
+            drill.crash()
+            disaster_grpc_phase(data, smi)
+            drill.finish()
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.only:
@@ -3093,12 +3614,22 @@ def main(argv=None) -> int:
     clock("phase 14 (a), the zoo's last part's reference")
     _, paths["zoo3"] = zoo3_phase(data, smi, profile_dir)
     clock("phase 14 (b), EfficientNet-B0")
+    # The engine drill's writer compresses its generations beside the sim
+    # phases and the gRPC drill.
+    drill = DisasterEngineDrill(data, smi)
+    drill.start()
+    sim_reference_phase()
+    paths["sim"] = sim_phase(data, smi)
+    drill.crash()
+    disaster_grpc_phase(data, smi)
+    paths["disaster"] = drill.finish()
+    clock("phase 15 (a)-(c), the sim engine and the disaster drills")
     for kname in kernels.KERNELS:
         for path, counts in paths.items():
-            if counts[kname] == 0:
+            if kname in PATH_KERNELS.get(path, kernels.KERNELS) and counts.get(kname, 0) == 0:
                 raise RuntimeError(f"slice: {kname} was never launched on the {path} path")
-        results[kname]["launches"] = sum(counts[kname] for counts in paths.values())
-        results[kname]["launches_by_path"] = {path: counts[kname] for path, counts in paths.items()}
+        results[kname]["launches"] = sum(counts.get(kname, 0) for counts in paths.values())
+        results[kname]["launches_by_path"] = {path: counts.get(kname, 0) for path, counts in paths.items()}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

@@ -95,16 +95,31 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """The seeded-adversary fields of ``fedtpu.config.SimConfig``, and
-    ``population``, which the port does not run yet (ROADMAP.md slice 8).
+    """``fedtpu.config.SimConfig``: the massive-cohort simulation and the
+    seeded attackers.
 
-    ``malicious_fraction`` of the clients are seeded attackers, chosen by
-    ``(data.seed + seed + the attack's own seed)``; ``attack`` is the spec
+    With ``population > 0``, :class:`fedtpu_torch.sim.SimFederation` keeps
+    ``population`` clients as host rows and draws each round's cohort of
+    ``FedConfig.num_clients`` seats from them: ``cohort_sampler`` is
+    ``uniform`` or ``loss`` (in proportion to last-seen losses, the
+    never-sampled at ``loss_prior``, or at the largest observed loss when it
+    is negative); ``scenario`` partitions the population
+    (:func:`fedtpu_torch.sim.scenario.make_partition`; empty: the
+    ``DataConfig`` partition); ``availability`` and ``churn`` drive the
+    seeded availability trace; ``seed`` is folded into the sampler's and
+    the trace's seeds. ``malicious_fraction`` of the clients (of the
+    population with one) are seeded attackers, chosen by ``(data.seed +
+    seed + the attack's own seed)``; ``attack`` is the spec
     :func:`fedtpu_torch.sim.adversary.parse_attack` reads (``sign_flip``,
     ``scale:factor=F``, ``noise:std=S``, ``label_flip:offset=K``, with
     ``p=``, ``rounds=lo-hi``, ``collude=1`` and ``seed=``)."""
 
     population: int = 0
+    cohort_sampler: str = "uniform"
+    scenario: str = ""
+    loss_prior: float = -1.0
+    availability: float = 1.0
+    churn: float = 0.0
     seed: int = 0
     malicious_fraction: float = 0.0
     attack: str = "sign_flip"
@@ -350,6 +365,44 @@ def validate_round_options(cfg: RoundConfig, compressed: bool) -> None:
             )
 
 
+def validate_sim_config(fed: FedConfig) -> None:
+    """fedtpu's ``validate_sim_config``, with its messages: raise on
+    inconsistent simulation settings, before any build work."""
+    sim = fed.sim
+    if not 0.0 <= sim.malicious_fraction < 1.0:
+        raise ValueError(
+            f"sim.malicious_fraction must be in [0, 1), got "
+            f"{sim.malicious_fraction}"
+        )
+    if sim.malicious_fraction > 0:
+        parse_attack(sim.attack)  # raises on a malformed spec
+    if sim.population <= 0:
+        return
+    if sim.population < fed.num_clients:
+        raise ValueError(
+            f"sim.population={sim.population} < cohort "
+            f"(num_clients={fed.num_clients}); the cohort is drawn FROM the "
+            "population"
+        )
+    if sim.cohort_sampler not in ("uniform", "loss"):
+        raise ValueError(
+            f"unknown cohort_sampler {sim.cohort_sampler!r}; "
+            "have uniform | loss"
+        )
+    if fed.participation_fraction != 1.0:
+        raise ValueError(
+            "sim.population and participation_fraction are mutually "
+            "exclusive: the cohort sampler IS the participation model "
+            "(set participation_fraction=1.0)"
+        )
+    if not 0.0 < sim.availability <= 1.0:
+        raise ValueError(
+            f"sim.availability must be in (0, 1], got {sim.availability}"
+        )
+    if not 0.0 <= sim.churn <= 1.0:
+        raise ValueError(f"sim.churn must be in [0, 1], got {sim.churn}")
+
+
 def validate(cfg: RoundConfig) -> RoundConfig:
     """Raise on a setting the port does not run or fedtpu forbids, before
     any build work."""
@@ -391,15 +444,7 @@ def validate(cfg: RoundConfig) -> RoundConfig:
         raise ValueError(
             f"unknown momentum_dtype {opt.momentum_dtype!r}; have float32 | bfloat16"
         )
-    if not 0.0 <= fed.sim.malicious_fraction < 1.0:
-        raise ValueError(
-            f"sim.malicious_fraction must be in [0, 1), got "
-            f"{fed.sim.malicious_fraction}"
-        )
-    if fed.sim.malicious_fraction > 0:
-        parse_attack(fed.sim.attack)  # raises on a malformed spec
-    if fed.sim.population > 0:
-        raise not_ported("sim.population > 0", "slice 8")
+    validate_sim_config(fed)
     validate_round_options(cfg, compressed=fed.compression != "none")
     return cfg
 

@@ -10,22 +10,27 @@ store more than twice the balanced footprint falls back to gather with a
 warning, as fedtpu's engine does. The client assignment is a partition
 (round_robin, iid, Dirichlet label skew) or the caller's ``(idx, mask)``;
 a round's participants are a seeded draw, uniform or in proportion to the
-clients' last losses; seeded attackers take their seats at build time. The
-engine runs on CUDA unless the caller names another device: without a card
-and without ``device="cpu"`` it raises, it never falls back to the CPU.
+clients' last losses; seeded attackers take their seats at build time.
+:attr:`Federation.generation` is the engine's checkpoint, fedtpu's
+``FederatedState`` layout on the host; assigning a restored one resumes
+the run where it stopped. The engine runs on CUDA unless the caller names
+another device: without a card and without ``device="cpu"`` it raises, it
+never falls back to the CPU.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fedtpu_torch import models
-from fedtpu_torch.config import RoundConfig, resolve_compute_dtype, screening_enabled, validate
+from fedtpu_torch.config import RoundConfig, not_ported, resolve_compute_dtype, screening_enabled, validate
+from fedtpu_torch.convert import from_flax, to_flax
+from fedtpu_torch.core import server_opt
 from fedtpu_torch.core.client import batch_eval_arrays, make_eval_fn
 from fedtpu_torch.core.round import (
     FederatedState,
@@ -40,6 +45,33 @@ from fedtpu_torch.ops.compression import Compressor, make_compressor
 from fedtpu_torch.sim import adversary
 from fedtpu_torch.sim.sampling import loss_weights
 from fedtpu_torch.utils.metrics import MetricsLogger
+
+
+class EngineGeneration(NamedTuple):
+    """An engine's checkpoint: fedtpu's ``FederatedState`` fields, in its
+    order, as host arrays (:attr:`Federation.generation`)."""
+
+    params: dict
+    batch_stats: dict
+    opt_state: dict
+    client_rng: np.ndarray
+    round_idx: np.ndarray
+    comp_state: object = ()
+    server_opt_state: object = ()
+    last_client_loss: object = ()
+
+
+def _on_device(x, device: torch.device):
+    """Every tensor of a state (dicts, tuples, named tuples) on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _on_device(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_on_device(v, device) for v in x])
+    if isinstance(x, tuple):
+        return tuple(_on_device(v, device) for v in x)
+    return x
 
 
 def resolve_device(device=None) -> torch.device:
@@ -124,22 +156,26 @@ class Federation:
         self._attack_plan = None
         self._attack_seats = None
         self._attack_seats_dev = ()
+        # With a population (the sim engine) the attackers are population
+        # clients: SimFederation poisons their rows and seats them.
         if cfg.fed.sim.malicious_fraction > 0:
             plan = adversary.parse_attack(cfg.fed.sim.attack)
             self._attack_plan = plan
-            amask = adversary.attacker_mask(
-                n, cfg.fed.sim.malicious_fraction, cfg.data.seed + cfg.fed.sim.seed + plan.seed
-            )
-            self.attacker_clients = amask
-            if plan.kind == "label_flip":
-                self.labels = adversary.flip_labels(
-                    labels, idx, mask, amask, plan.label_offset, cfg.num_classes
+            if cfg.fed.sim.population <= 0:
+                amask = adversary.attacker_mask(
+                    n, cfg.fed.sim.malicious_fraction, cfg.data.seed + cfg.fed.sim.seed + plan.seed
                 )
-            else:
-                self._attack_seats = amask.astype(np.float32)
-                self._attack_seats_dev = torch.tensor(self._attack_seats, device=self.device)
+                self.attacker_clients = amask
+                if plan.kind == "label_flip":
+                    self.labels = adversary.flip_labels(
+                        labels, idx, mask, amask, plan.label_offset, cfg.num_classes
+                    )
+                else:
+                    self._attack_seats = amask.astype(np.float32)
+                    self._attack_seats_dev = torch.tensor(self._attack_seats, device=self.device)
 
-        self.state: FederatedState = init_state(self.model, cfg, compressor)
+        self._state: FederatedState = init_state(self.model, cfg, compressor)
+        self._server_opt = server_opt.make_server_optimizer(cfg.fed)
         self._round_step = make_round_step(self.model, cfg, compressor, draws)
         self._shuffle = cfg.data.partition != "round_robin"
         self.layout = cfg.data.device_layout
@@ -234,7 +270,7 @@ class Federation:
             p = None
             if self.cfg.fed.participation_sampling == "loss":
                 if losses is None:
-                    losses = self.state.last_client_loss.cpu().numpy()
+                    losses = self._state.last_client_loss.cpu().numpy()
                 p = loss_weights(np.asarray(losses)[live])
             keep = rng.choice(live, size=k, replace=False, p=p)
             alive = np.zeros_like(alive)
@@ -326,12 +362,87 @@ class Federation:
         from, recorded at construction."""
         return self._data_source
 
+    # ------------------------------------------------------------ state
+    @property
+    def state(self) -> FederatedState:
+        """The cross-round state on the engine's device."""
+        return self._state
+
+    @state.setter
+    def state(self, s: FederatedState) -> None:
+        # A state built elsewhere (on the host, by a test) moves to the
+        # engine's device; the round counter is its host int.
+        self._state = _on_device(s, self.device)
+
+    @property
+    def generation(self) -> "EngineGeneration":
+        """The whole resumable state as a host tree in fedtpu's
+        ``FederatedState`` layout, what a checkpoint of the engine holds
+        (:mod:`fedtpu_torch.checkpoint`): flax names and layouts, the
+        momentum as ``{"momentum": tree}``, the codec residuals per leaf or as
+        the flat ``[clients, P]`` row, the server optimizer's state as optax
+        keeps it. One leaf differs from fedtpu's: ``client_rng`` holds the
+        state of the engine's ``torch.Generator`` (uint8), where fedtpu keeps
+        ``[clients, 2]`` threefry keys; every round draws from that one
+        generator, so a resume that did not restore it would draw another
+        trajectory."""
+        s = self._state
+        if any(t.dtype == torch.bfloat16 for t in s.opt_state.values()):
+            raise not_ported(
+                "a generation of bf16 momentum (momentum_dtype='bfloat16'; the "
+                "port's wire format has no bfloat16 arrays)", "slice 8, bf16 generations",
+            )
+        comp = s.comp_state
+        if isinstance(comp, torch.Tensor):
+            comp = comp.detach().cpu().numpy()
+        elif comp:
+            comp = to_flax(comp)
+        return EngineGeneration(
+            params=to_flax(s.params),
+            batch_stats=to_flax(s.batch_stats),
+            opt_state={"momentum": to_flax(s.opt_state)},
+            client_rng=self._generator.get_state().numpy(),
+            round_idx=np.asarray(s.round_idx, np.int32),
+            comp_state=comp,
+            server_opt_state=server_opt.to_flax_state(self._server_opt, s.server_opt_state),
+            last_client_loss=s.last_client_loss.detach().cpu().numpy(),
+        )
+
+    @generation.setter
+    def generation(self, g: "EngineGeneration") -> None:
+        """Install a restored :attr:`generation`: every leaf to the engine's
+        device in the engine's own names, order and dtypes, the round
+        counter re-synced and the generator's state restored."""
+        dev, s = self.device, self._state
+
+        def like(old: dict, tree) -> dict:
+            new = from_flax(tree, device=dev)
+            return {k: new[k].to(old[k].dtype) for k in old}
+
+        comp = g.comp_state
+        if isinstance(s.comp_state, torch.Tensor):
+            comp = torch.tensor(np.asarray(comp), device=dev)
+        elif s.comp_state:
+            comp = like(s.comp_state, comp)
+        else:
+            comp = ()
+        self._state = FederatedState(
+            params=like(s.params, g.params),
+            batch_stats=like(s.batch_stats, g.batch_stats),
+            opt_state=like(s.opt_state, g.opt_state["momentum"]),
+            round_idx=int(np.asarray(g.round_idx)),
+            comp_state=comp,
+            server_opt_state=server_opt.from_flax_state(self._server_opt, g.server_opt_state, dev),
+            last_client_loss=torch.tensor(np.asarray(g.last_client_loss, np.float32), device=dev),
+        )
+        self._generator.set_state(torch.from_numpy(np.array(g.client_rng, np.uint8)))
+
     # ----------------------------------------------------------- rounds
     def step(self, batch: Optional[RoundBatch] = None) -> RoundMetrics:
         """One round, on ``batch`` or on the device-resident data."""
         if batch is None:
-            batch = self.device_batch(self.state.round_idx)
-        self.state, metrics = self._round_step(self.state, batch, self._generator)
+            batch = self.device_batch(self._state.round_idx)
+        self._state, metrics = self._round_step(self._state, batch, self._generator)
         return metrics
 
     def run_on_device(self, num_rounds: int) -> RoundMetrics:
@@ -342,8 +453,8 @@ class Federation:
         fedtpu's fused block does."""
         if num_rounds < 1:
             raise ValueError(f"num_rounds must be >= 1, got {num_rounds}")
-        losses = self.state.last_client_loss.cpu().numpy() if self._loss_sampled() else None
-        r = self.state.round_idx
+        losses = self._state.last_client_loss.cpu().numpy() if self._loss_sampled() else None
+        r = self._state.round_idx
         per_round = [self.step(self.device_batch(r + i, losses=losses)) for i in range(num_rounds)]
         return RoundMetrics(*(torch.stack(f) for f in zip(*per_round)))
 
@@ -368,7 +479,7 @@ class Federation:
         screen_on = screening_enabled(self.cfg.fed.screen)
         for r in range(num_rounds):
             t0 = time.perf_counter()
-            ridx = self.state.round_idx
+            ridx = self._state.round_idx
             metrics = self.step()
             rec = {
                 "loss": float(metrics.loss),
@@ -402,12 +513,17 @@ class Federation:
         """Loss and accuracy of the global model on ``(images, labels)``."""
         xs, ys = batch_eval_arrays(images, labels, self.cfg.data.eval_batch_size)
         loss, acc = self._evaluate(
-            self.state.params,
-            self.state.batch_stats,
+            self._state.params,
+            self._state.batch_stats,
             torch.from_numpy(np.asarray(xs, np.float32)).to(self.device),
             torch.from_numpy(np.asarray(ys, np.int64)).to(self.device),
         )
         return float(loss), float(acc)
+
+    def status_snapshot(self) -> dict:
+        raise not_ported(
+            "Federation.status_snapshot (the engine's status board)", "slice 8, part 5"
+        )
 
     def set_alive(self, client: int, alive: bool) -> None:
         """Mark a simulated client dead or alive."""

@@ -35,9 +35,11 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fedtpu_torch.config import FedConfig, RoundConfig, validate
+from fedtpu_torch.convert import from_flax, to_flax
 
 Tree = Dict[str, torch.Tensor]
 
@@ -76,6 +78,39 @@ def init(opt: Optional[ServerOptimizer], params: Tree):
         "count": torch.zeros((), dtype=torch.int32, device=device),
         "mu": {k: torch.full_like(p, fill) for k, p in params.items()},
         "nu": {k: torch.full_like(p, fill) for k, p in params.items()},
+    }
+
+
+def to_flax_state(opt: Optional[ServerOptimizer], state):
+    """The server state as flax's state dict of fedtpu's optax state, on the
+    host: ``{"0": {"trace": tree}, "1": {}}`` for momentum, ``{"0":
+    {"count", "mu", "nu"}, "1": {}}`` for adam and yogi (the chain's
+    second element, the learning-rate scale, holds nothing); ``()`` for
+    FedAvg."""
+    if opt is None:
+        return ()
+    if opt.name == "momentum":
+        inner = {"trace": to_flax(state["trace"])}
+    else:
+        inner = {
+            "count": np.asarray(int(state["count"]), np.int32),
+            "mu": to_flax(state["mu"]),
+            "nu": to_flax(state["nu"]),
+        }
+    return {"0": inner, "1": {}}
+
+
+def from_flax_state(opt: Optional[ServerOptimizer], tree, device):
+    """Inverse of :func:`to_flax_state`, on ``device``."""
+    if opt is None:
+        return ()
+    inner = tree["0"]
+    if opt.name == "momentum":
+        return {"trace": from_flax(inner["trace"], device=device)}
+    return {
+        "count": torch.tensor(int(np.asarray(inner["count"])), dtype=torch.int32, device=device),
+        "mu": from_flax(inner["mu"], device=device),
+        "nu": from_flax(inner["nu"], device=device),
     }
 
 

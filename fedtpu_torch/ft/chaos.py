@@ -17,8 +17,8 @@ both packages. Four classes of kinds, which never cross:
   (:meth:`FaultSchedule.decide_attack`, the pseudo-RPC ``Attack``) and
   transform the update it sends (:meth:`FaultSchedule.apply_attack_delta`);
 - disk kinds (``ckpt_fail``, ``ckpt_torn``, ``ckpt_rot``, the pseudo-RPC
-  ``Disk``) parse and stay in their class; the checkpoint store that
-  consults them is not ported yet (ROADMAP.md slice 8).
+  ``Disk``) are consulted by the checkpoint store's save
+  (:meth:`fedtpu_torch.checkpoint.Checkpointer.save`).
 
 The draw rule is fedtpu's to the bit: each ``(rule, rpc, peer)`` stream
 keeps its own counter, and its n-th draw fires iff

@@ -30,3 +30,10 @@ def loss_weights(
     w = np.where(np.isnan(obs), fill, obs)
     w = np.maximum(w, 0.0) + 1e-8
     return w / w.sum()
+
+
+def round_rng(seed: int, round_idx: int, salt: int = 0) -> np.random.Generator:
+    """fedtpu's seeded per-round generator, ``seed * 7919 + round``, with a
+    salt that keeps two consumers of one round apart (the cohort sampler
+    and the availability trace)."""
+    return np.random.default_rng((seed + salt * 1_000_003) * 7919 + round_idx)

@@ -85,7 +85,6 @@ from fedtpu_torch.config import (
     validate_screen_config,
     validate_tier_config,
 )
-from fedtpu_torch.convert import from_flax, to_flax
 from fedtpu_torch.core import server_opt
 from fedtpu_torch.core.engine import resolve_device
 from fedtpu_torch.core.round import warn_weighted_robust
@@ -149,32 +148,10 @@ def _split_collections(leaves: Dict[str, torch.Tensor]) -> Tree:
     return out
 
 
-def _opt_state_to_flax(opt: Optional[server_opt.ServerOptimizer], state) -> dict:
-    """The port's server-optimizer state as flax's state dict of fedtpu's
-    optax state: ``{"0": {"trace": tree}, "1": {}}`` for momentum,
-    ``{"0": {"count", "mu", "nu"}, "1": {}}`` for adam and yogi (the
-    chain's second element, the learning-rate scale, holds nothing)."""
-    if opt.name == "momentum":
-        inner = {"trace": to_flax(state["trace"])}
-    else:
-        inner = {
-            "count": np.asarray(int(state["count"]), np.int32),
-            "mu": to_flax(state["mu"]),
-            "nu": to_flax(state["nu"]),
-        }
-    return {"0": inner, "1": {}}
-
-
-def _opt_state_from_flax(opt: Optional[server_opt.ServerOptimizer], tree: dict, device) -> Any:
-    """Inverse of :func:`_opt_state_to_flax`, on ``device``."""
-    inner = tree["0"]
-    if opt.name == "momentum":
-        return {"trace": from_flax(inner["trace"], device=device)}
-    return {
-        "count": torch.tensor(int(np.asarray(inner["count"])), dtype=torch.int32, device=device),
-        "mu": from_flax(inner["mu"], device=device),
-        "nu": from_flax(inner["nu"], device=device),
-    }
+# The server optimizer's state in fedtpu's optax layout (the replica's and
+# the checkpoint's ``server_opt`` leaf).
+_opt_state_to_flax = server_opt.to_flax_state
+_opt_state_from_flax = server_opt.from_flax_state
 
 
 # -------------------------------------------------------------------- primary
@@ -726,10 +703,57 @@ class PrimaryServer:
     def run_async(self, *args, **kwargs):
         raise not_ported("PrimaryServer.run_async (FedBuff)", "slice 8")
 
-    def restore_from_checkpoint(self, ckpt):
-        raise not_ported(
-            "PrimaryServer.restore_from_checkpoint, fedtpu's on-disk checkpoints", "slice 8"
+    def restore_from_checkpoint(self, ckpt) -> Optional[int]:
+        """A cold start from the newest generation of ``ckpt`` (a
+        :class:`fedtpu_torch.checkpoint.Checkpointer` or its background
+        wrapper) that verifies, its ``restore_latest`` falling back past
+        corrupt ones: the model, the lineage counter, the roster with its
+        suspicion scores, the server optimizer's moments and the fencing
+        epoch. The roster's adoption rebuilds the stubs, and the initial
+        sync flag is cleared, so the first round pushes the restored global
+        to every client (whose next StartTrain carries the lineage round
+        they roll back to).
+
+        Layouts, newest first: the current one, before fencing (the epoch
+        kept), before elastic membership (the startup roster kept), and a
+        model-only generation (the counter taken from its index). Returns
+        the next round to run, or None for an empty directory; raises
+        :class:`wire.WireError` when generations exist and none verifies."""
+        latest = None
+        for template in (
+            self.state_template(),
+            self.state_template(epoch=False),
+            self.state_template(membership=False, epoch=False),
+        ):
+            try:
+                latest = ckpt.restore_latest(template)
+                break
+            except wire.WireError:
+                raise
+            except ValueError:
+                continue
+        if latest is None:
+            legacy = ckpt.restore_latest(self._model_template)
+            if legacy is None:
+                return None
+            r, tree = legacy
+            self.global_tree = self._device_model(tree)
+            self._round_counter = r + 1
+            self._did_initial_sync = False
+            log.info("resumed legacy model-only checkpoint from round %d", r)
+            return r + 1
+        r, tree = latest
+        self.install_state(tree)
+        # Survivors hold weights from rounds the restored lineage may not
+        # know: the pre-round broadcast re-bases every one of them.
+        self._did_initial_sync = False
+        log.info(
+            "cold start: restored round %d from %s (lineage continues at %d; "
+            "roster size %d, membership v%d)",
+            r, getattr(ckpt, "directory", "?"), self._round_counter,
+            self.registry.size, self.registry.version,
         )
+        return r + 1
 
     # ---------------------------------------------------------- the round
     def _abort_record(self, reason: dict, completed, stragglers, world, roster_now,

@@ -199,11 +199,19 @@ def msgpack_serialize(tree) -> bytes:
     return packb(_chunk_leaves(_sorted_tree(tree)))
 
 
+def is_namedtuple(x) -> bool:
+    """A named tuple, which flax serializes by field name."""
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _state_dict(target):
-    """flax's ``to_state_dict`` for the trees the edge ships: a dict keeps
-    its order with ``str`` keys, a list or tuple becomes ``{"0": ...}``."""
+    """flax's ``to_state_dict`` for the trees the edge and the checkpoints
+    ship: a dict keeps its order with ``str`` keys, a named tuple becomes
+    ``{field: ...}`` in field order, a list or tuple ``{"0": ...}``."""
     if isinstance(target, dict):
         return {str(k): _state_dict(v) for k, v in target.items()}
+    if is_namedtuple(target):
+        return {k: _state_dict(getattr(target, k)) for k in target._fields}
     if isinstance(target, (list, tuple)):
         return {str(i): _state_dict(v) for i, v in enumerate(target)}
     return target
@@ -354,9 +362,11 @@ def msgpack_restore(data) -> Any:
 
 
 def restore_into(target, state, path: str = "."):
-    """flax's ``from_state_dict`` for trees of dicts and lists: every key
-    of ``target`` must be in ``state`` (keys ``state`` has beyond it are
-    dropped); a leaf is the state's value as it was decoded."""
+    """flax's ``from_state_dict`` for trees of dicts, named tuples and
+    lists: every key of a dict ``target`` must be in ``state`` (keys
+    ``state`` has beyond it are dropped), a named tuple's fields must be
+    exactly the state's keys; a leaf is the state's value as it was
+    decoded."""
     if isinstance(target, Mapping):
         if not isinstance(state, Mapping):
             raise MsgpackError(f"expected a dict at path {path}")
@@ -368,6 +378,16 @@ def restore_into(target, state, path: str = "."):
                 f"dict at path {path}"
             )
         return {k: restore_into(v, state[str(k)], f"{path}{k}/") for k, v in target.items()}
+    if is_namedtuple(target):
+        if not isinstance(state, Mapping) or set(state) != set(target._fields):
+            raise MsgpackError(
+                "The field names of the state dict and the named tuple do not "
+                f"match, got {set(state) if isinstance(state, Mapping) else state!r} "
+                f"and {set(target._fields)} at path {path}"
+            )
+        return type(target)(**{
+            k: restore_into(getattr(target, k), state[k], f"{path}{k}/") for k in target._fields
+        })
     if isinstance(target, (list, tuple)):
         if len(state) != len(target):
             raise MsgpackError(f"list length mismatch at path {path}")

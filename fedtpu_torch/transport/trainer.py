@@ -30,7 +30,11 @@ for bit), packed into flax's order and layout there
 codecs run on the host (:mod:`fedtpu_torch.transport.sparse`), as
 fedtpu's do. A ring of round-start snapshots lets a coordinator that
 replays a round (after recovering from an older checkpoint) find this
-client's state as it was.
+client's state as it was. With ``state_dir`` the local state (round
+counter, generator, momentum, error-feedback residual) is saved every
+round through the checkpoint store (:mod:`fedtpu_torch.checkpoint`) and
+restored on construction, so a restarted client resumes rather than
+diverges; a replay deeper than the ring reads the generation from disk.
 
 fedtpu draws the crop and flip of augmentation from a threefry key split
 each round, which torch cannot reproduce: the port draws them from a
@@ -49,6 +53,7 @@ import torch
 
 from fedtpu_torch import models
 from fedtpu_torch.config import RoundConfig, not_ported, validate_edge
+from fedtpu_torch.convert import from_flax, to_flax
 from fedtpu_torch.core import optim
 from fedtpu_torch.core.client import make_eval_fn, make_local_update
 from fedtpu_torch.core.engine import resolve_device
@@ -84,13 +89,8 @@ class LocalTrainer:
         model) and the augmentation draws. ``data`` / ``eval_data``:
         ``(images, labels)`` instead of loading ``cfg.data.dataset``'s train
         / test split (several trainers in one process can share one copy).
-        ``state_dir`` (the client's local state kept on disk across
-        restarts) is not ported yet and raises."""
-        if state_dir:
-            raise not_ported(
-                "LocalTrainer(state_dir=...), the client's local state kept in "
-                "fedtpu's checkpoint format", "slice 8",
-            )
+        ``state_dir``: where the client's local state is kept across
+        restarts, a generation a round (keep 3), restored here."""
         validate_edge(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -145,6 +145,15 @@ class LocalTrainer:
         self.compression_ratio = 0.0
         # Seconds of the last round: local update, copy to the host, encode.
         self.last_times: Dict[str, float] = {}
+        # The local state a cold restart needs to resume, not diverge: a
+        # reset counter would replay old batch draws, a fresh residual
+        # re-inject mass top-k already shipped.
+        self._state_ckpt = None
+        if state_dir:
+            from fedtpu_torch.checkpoint import Checkpointer
+
+            self._state_ckpt = Checkpointer(state_dir, keep=3, backend="wire")
+            self._restore_client_state()
 
     # ------------------------------------------------------------ layout
 
@@ -171,6 +180,60 @@ class LocalTrainer:
             raise ValueError(f"unknown partition {cfg.data.partition}")
         return idx[rank : rank + 1], mask[rank : rank + 1]
 
+    # ------------------------------------------------- local durability
+
+    def _client_state(self) -> dict:
+        """fedtpu's client-state tree, in flax names and layouts: the local
+        round counter, the generator (fedtpu keeps a threefry key under
+        ``rng``; the port its ``torch.Generator``'s state, so a file does
+        not cross packages), the momentum, and the error-feedback residual
+        (``has_residual`` tells "none yet" from a zero residual)."""
+        if any(t.dtype == torch.bfloat16 for t in self.opt_state.values()):
+            raise not_ported(
+                "a client state of bf16 momentum (momentum_dtype='bfloat16'; the "
+                "port's wire format has no bfloat16 arrays)", "slice 8, bf16 generations",
+            )
+        residual = self.edge_residual
+        return {
+            "round_idx": np.asarray(self.round_idx, np.int64),
+            "rng": self.generator.get_state().numpy(),
+            "opt_state": {"momentum": to_flax({k: v[0] for k, v in self.opt_state.items()})},
+            "has_residual": np.asarray(0 if residual is None else 1, np.int8),
+            "residual": self._template if residual is None else residual,
+        }
+
+    def _install_client_state(self, tree: dict) -> None:
+        self.round_idx = int(tree["round_idx"])
+        self.generator.set_state(torch.from_numpy(np.array(tree["rng"], np.uint8)))
+        mom = from_flax(tree["opt_state"]["momentum"], device=self.device)
+        self.opt_state = {k: mom[k][None].to(v.dtype) for k, v in self.opt_state.items()}
+        self.edge_residual = (
+            wire.tree_map(np.array, tree["residual"]) if int(tree["has_residual"]) else None
+        )
+
+    def _restore_client_state(self) -> None:
+        try:
+            latest = self._state_ckpt.restore_latest(self._client_state())
+        except (ValueError, OSError) as exc:
+            log.warning("client state in %s unusable (%s); starting fresh", self._state_ckpt.directory, exc)
+            return
+        if latest is None:
+            return
+        self._install_client_state(latest[1])
+        # The restored cut seeds the ring: a coordinator replaying exactly
+        # this round (the usual recovery) needs nothing more.
+        self._snapshot_round(self.round_idx)
+        log.info(
+            "client state restored: resuming at local round %d (residual=%s)",
+            self.round_idx, "yes" if self.edge_residual is not None else "no",
+        )
+
+    def _persist_client_state(self) -> None:
+        if self._state_ckpt is not None:
+            # A failed save is logged by the store and costs the client its
+            # restartability, never the round.
+            self._state_ckpt.save(self.round_idx, self._client_state())
+
     # --------------------------------------------------- replay rollback
 
     def _snapshot_round(self, round_idx: int) -> None:
@@ -192,7 +255,19 @@ class LocalTrainer:
     def _rollback(self, target_round: int) -> bool:
         snap = self._snapshots.get(target_round)
         if snap is None:
-            return False
+            # Deeper than the ring (this client restarted too, and seeded
+            # only its newest cut): a generation on disk may hold the round.
+            # It has no weights; the coordinator's broadcast re-bases them.
+            if self._state_ckpt is None:
+                return False
+            try:
+                tree = self._state_ckpt.restore(target_round, self._client_state())
+            except (ValueError, OSError):
+                return False
+            self._install_client_state(tree)
+            for r in [r for r in self._snapshots if r > target_round]:
+                del self._snapshots[r]
+            return True
         self.round_idx = target_round
         self.params = dict(snap["params"])
         self.batch_stats = dict(snap["batch_stats"])
@@ -215,6 +290,7 @@ class LocalTrainer:
         state back to that round's snapshot. ``codec_override``: the
         coordinator's codec for this round, else the configured one."""
         payload = self._train_round_impl(rank, world, coord_round, codec_override)
+        self._persist_client_state()
         if self._count:
             self.tx_bytes += len(payload)
             self.compression_ratio = len(payload) / max(self._dense_bytes, 1)

@@ -15,8 +15,9 @@ under its own rule.
 A tree here is what fedtpu ships: nested dicts of arrays in flax's layout
 (Conv kernels HWIO, Dense kernels ``[in, out]``), whose leaves are taken in
 ``jax.tree_util.tree_flatten``'s order: dict keys sorted at every level
-(:func:`tree_leaves`). A leaf may be a numpy array or scalar, or a torch
-tensor, which is copied to the host.
+(:func:`tree_leaves`). A named tuple (a checkpointed state) keeps its
+fields in their order, as flax serializes it by field name. A leaf may be
+a numpy array or scalar, or a torch tensor, which is copied to the host.
 """
 
 from __future__ import annotations
@@ -65,6 +66,8 @@ def tree_unflatten(like: Tree, leaves) -> Tree:
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if msgpack.is_namedtuple(node):
+            return type(node)(*[build(v) for v in node])
         if isinstance(node, (list, tuple)):
             return type(node)(build(v) for v in node)
         return None if node is None else next(it)
@@ -92,9 +95,14 @@ def host(x) -> Any:
 
 
 def host_tree(tree: Tree) -> Tree:
-    """Every leaf through :func:`host`, dict keys sorted."""
+    """Every leaf through :func:`host`, dict keys sorted, tuples and named
+    tuples kept (``()`` is an empty node, as in jax)."""
     if isinstance(tree, dict):
         return {k: host_tree(tree[k]) for k in sorted(tree)}
+    if msgpack.is_namedtuple(tree):
+        return type(tree)(*[host_tree(v) for v in tree])
+    if isinstance(tree, tuple):
+        return tuple(host_tree(v) for v in tree)
     return host(tree)
 
 

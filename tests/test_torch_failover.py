@@ -369,7 +369,7 @@ def test_stop_acting_survives_a_second_caller():
     assert backup._promote_thread is later  # a newer promotion's thread stays
 
 
-def test_options_the_coordinator_does_not_run_raise():
+def test_options_the_coordinator_does_not_run_raise(tmp_path):
     _, tcfg = configs()
     rebuild = lambda **kw: tcfg.__class__(**{**tcfg.__dict__, "fed": tcfg.fed.__class__(
         **{**tcfg.fed.__dict__, **kw})})
@@ -383,8 +383,11 @@ def test_options_the_coordinator_does_not_run_raise():
     p = _primary(tcfg, [])
     with pytest.raises(NotImplementedError, match="slice 8"):
         p.run_async(4)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        p.restore_from_checkpoint(None)
+    # A cold start runs since slice 8 part 1 (tests/test_torch_disaster.py):
+    # an empty directory is a fresh start.
+    from fedtpu_torch.checkpoint import Checkpointer
+
+    assert p.restore_from_checkpoint(Checkpointer(str(tmp_path / "none"))) is None
     with pytest.raises(ValueError, match="round_quorum"):
         _primary(rebuild(round_quorum=1.5), [])
     with pytest.raises(ValueError, match="codec_policy"):

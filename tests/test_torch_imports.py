@@ -9,7 +9,10 @@ modules import grpc. The coordinator (``fedtpu_torch.ft``,
 ``transport.aggregator``) are held to the same boundary;
 ``fedtpu_torch.ft`` loads no grpc (the chaos interceptors import it when
 they are built). The zoo (``fedtpu_torch.models``' families and
-``fedtpu_torch.data.datasets``' loaders) loads none of them either.
+``fedtpu_torch.data.datasets``' loaders), the checkpoint store
+(``fedtpu_torch.checkpoint``) and the massive-cohort engine
+(``fedtpu_torch.sim``, ``SimFederation`` included) load none of them
+either.
 
 One check imports every module in a fresh interpreter and looks at
 ``sys.modules``; the other reads every source file's imports. Top-level
@@ -22,6 +25,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "fedtpu"}
@@ -142,6 +147,16 @@ def test_zoo_loads_no_jax_no_fedtpu_and_no_grpc():
     for path in ZOO_MODULES:
         assert (ROOT / (path.replace(".", "/") + ".py")).exists(), path
     loaded = _loaded_by("import " + ", ".join(ZOO_MODULES) + "  # noqa: F401")
+    assert "fedtpu_torch" in loaded
+    assert not (FORBIDDEN | NOT_ON_THE_CARD) & loaded, (FORBIDDEN | NOT_ON_THE_CARD) & loaded
+
+
+@pytest.mark.parametrize("imports", [
+    "import fedtpu_torch.checkpoint, fedtpu_torch.checkpoint.writer  # noqa: F401",
+    "import fedtpu_torch.sim\nfrom fedtpu_torch.sim import SimFederation  # noqa: F401",
+], ids=["checkpoint", "sim"])
+def test_checkpoint_and_sim_load_no_jax_no_fedtpu_and_no_grpc(imports):
+    loaded = _loaded_by(imports)
     assert "fedtpu_torch" in loaded
     assert not (FORBIDDEN | NOT_ON_THE_CARD) & loaded, (FORBIDDEN | NOT_ON_THE_CARD) & loaded
 

@@ -435,14 +435,20 @@ _F, _D, _O = tconfig.FedConfig, tconfig.DataConfig, tconfig.OptimizerConfig
 
 @pytest.mark.parametrize("part", [
     "efficientnetb0",
-    _F(sim=tconfig.SimConfig(population=100)),
+    "status_snapshot",
     "PNASNetA",
 ], ids=repr)
 def test_unported_options_raise_naming_the_roadmap(part, monkeypatch):
-    """A slice-8 option, or a model name still listed in
-    ``registry.NOT_PORTED``, raises naming its ROADMAP item when the
-    engine is built. Every name of fedtpu's zoo is ported: the model cases
-    list theirs there."""
+    """A slice-8 surface, or a model name still listed in
+    ``registry.NOT_PORTED``, raises naming its ROADMAP item. Every name of
+    fedtpu's zoo is ported: the model cases list theirs there. The engine's
+    status board waits for the observability slice."""
+    data = (np.zeros((64, 32, 32, 3), np.float32), np.zeros(64, np.int32))
+    if part == "status_snapshot":
+        fed = TFederation(tconfig.RoundConfig(model="smallcnn"), data=data, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.*part 5"):
+            fed.status_snapshot()
+        return
     if isinstance(part, str):
         monkeypatch.setattr(registry, "NOT_PORTED", (part.lower(),))
         cfg = tconfig.RoundConfig(model=part)
