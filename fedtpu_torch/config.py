@@ -263,6 +263,8 @@ class FedConfig:
     round_quorum: float = 0.0
     ft_watchdog_timeout_s: float = 10.0
     ft_heartbeat_period_s: float = 1.0
+    # run_async's reply-queue poll, in seconds (unchecked, as in fedtpu)
+    async_poll_s: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,8 +14,9 @@ a client's params, statistics and momentum exactly as they were, through
 
 With ``algorithm='fedprox'`` the loss carries FedProx's proximal term
 ``0.5 * mu * ||w - anchor||^2``, the anchor being the round's global
-params (an un-batched input of the vmapped gradient); the reported loss
-stays the cross-entropy. With ``megabatch_clients=k``
+params (an un-batched input of the vmapped gradient), or in the
+asynchronous engine's per-client form each client's own pull snapshot;
+the reported loss stays the cross-entropy. With ``megabatch_clients=k``
 (:func:`make_local_update_mega`) each group of k clients trains as one
 ``[k * batch]`` forward on one shared trajectory, broadcast back to its
 members.
@@ -61,15 +62,25 @@ def _where_rows(live: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> tor
     return torch.where(live.view((-1,) + (1,) * (new.ndim - 1)), new, old)
 
 
-def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., ClientOutput]:
+def make_local_update(
+    model: nn.Module, cfg: RoundConfig, per_client: bool = False
+) -> Callable[..., ClientOutput]:
     """Build ``local_update(global_params, global_stats, momentum, xs, ys,
-    step_mask, lr, generator=None, masks=None) -> ClientOutput`` over all
-    clients: ``xs [clients, steps, batch, h, w, c]``, ``ys [clients, steps,
-    batch]``, ``step_mask [clients, steps]`` bool, ``momentum`` the
-    ``[clients, ...]`` buffers, ``global_stats`` the global BN statistics
-    (``{}`` for a model without any). ``generator`` draws the model's keep
-    masks (unless ``masks`` brings them, ``[clients, steps, batch, ...]``
-    by module path) and, when augmentation is on, the crop and flip.
+    step_mask, lr, generator=None, masks=None, anchor=None) -> ClientOutput``
+    over all clients: ``xs [clients, steps, batch, h, w, c]``, ``ys
+    [clients, steps, batch]``, ``step_mask [clients, steps]`` bool,
+    ``momentum`` the ``[clients, ...]`` buffers, ``global_stats`` the global
+    BN statistics (``{}`` for a model without any). ``generator`` draws the
+    model's keep masks (unless ``masks`` brings them, ``[clients, steps,
+    batch, ...]`` by module path) and, when augmentation is on, the crop and
+    flip.
+
+    With ``per_client=True`` (the asynchronous engine's form, fedtpu's
+    ``vmap`` with ``in_axes=(0, 0, 0, 0, 0, 0, 0, None, 0)``) every client
+    starts from its own ``[clients, ...]`` params and statistics, and
+    FedProx's anchor is ``anchor``, each client's own ``[clients, ...]``
+    pull snapshot; otherwise every client starts from the global model,
+    which is also the anchor.
 
     With ``dtype='bfloat16'`` the f32 master params and the inputs are cast
     at use, so the forward runs in bf16 and the gradients come out f32
@@ -90,7 +101,9 @@ def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., Clien
         acc = (logits.argmax(-1) == y).float().mean()
         return loss, (new_stats, ce.detach(), acc)
 
-    per_client_grad = vmap(grad(loss_fn, has_aux=True), in_dims=(0, 0, None, 0, 0, 0))
+    per_client_grad = vmap(
+        grad(loss_fn, has_aux=True), in_dims=(0, 0, 0 if per_client else None, 0, 0, 0)
+    )
 
     def local_update(
         global_params: Tree,
@@ -102,18 +115,23 @@ def make_local_update(model: nn.Module, cfg: RoundConfig) -> Callable[..., Clien
         lr: float,
         generator: Optional[torch.Generator] = None,
         masks: Optional[Tree] = None,
+        anchor: Optional[Tree] = None,
     ) -> ClientOutput:
         n, steps = step_mask.shape
         masks = _round_masks(specs, masks, tuple(ys.shape), generator, ys.device)
-        params = {k: p.expand((n,) + tuple(p.shape)) for k, p in global_params.items()}
-        stats = {k: s.expand((n,) + tuple(s.shape)) for k, s in global_stats.items()}
+        if per_client:
+            params, stats = global_params, global_stats
+        else:
+            anchor = global_params
+            params = {k: p.expand((n,) + tuple(p.shape)) for k, p in global_params.items()}
+            stats = {k: s.expand((n,) + tuple(s.shape)) for k, s in global_stats.items()}
         ces, accs, lives = [], [], []
         for s in range(steps):
             x = xs[:, s].to(compute_dtype)
             if use_augment:
                 x = _augment(x, cfg, generator)
             step_masks = {k: m[:, s] for k, m in masks.items()}
-            grads, (new_stats, ce, acc) = per_client_grad(params, stats, global_params, x, ys[:, s], step_masks)
+            grads, (new_stats, ce, acc) = per_client_grad(params, stats, anchor, x, ys[:, s], step_masks)
             new_params, new_momentum = optim.apply(params, grads, momentum, lr, cfg.opt)
             live = step_mask[:, s]
             params = {k: _where_rows(live, new_params[k], params[k]) for k in params}

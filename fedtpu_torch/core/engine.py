@@ -302,6 +302,22 @@ class Federation:
         ``keys`` the gather layout's ``[clients, shard_len]`` sort keys;
         ``losses`` are the last losses loss-proportional sampling draws
         from (by default read from the state)."""
+        x, y = self.window(round_idx, offset, keys)
+        return RoundBatch(
+            x=x,
+            y=y,
+            step_mask=self._has_data[:, None].expand(self.cfg.fed.num_clients, self._steps),
+            weights=self.weights,
+            alive=self._alive_tensor(round_idx, losses),
+            attack_seats=self._attack_seats_dev,
+        )
+
+    def window(
+        self, round_idx: int, offset: Optional[int] = None, keys: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Round ``round_idx``'s ``(x, y)`` from the device-resident data:
+        the presharded rotation at ``offset``, or the gather by the sort
+        ``keys`` (each by default the round's seeded draw)."""
         data = self._ensure_device_data()
         shape, batch = tuple(self.images.shape[1:]), self.cfg.data.batch_size
         if self.layout == "presharded":
@@ -310,29 +326,14 @@ class Federation:
                 offset = device_data.round_offset(
                     labels.shape[1] // 2, self._shuffle, self.cfg.data.seed, round_idx
                 )
-            x, y = device_data.presharded_window(
-                images, labels, offset, self._steps, batch, shape
-            )
-        else:
-            images, labels, idx, mask = data
-            if keys is None and self._shuffle:
-                keys = device_data.round_keys(
-                    tuple(idx.shape), self.cfg.data.seed, round_idx, self.device
-                )
-            take = device_data.round_take_indices(
-                idx, mask, self._steps * batch,
-                None if keys is None else keys.to(self.device),
-            )
-            x, y = device_data.gather_window(images, labels, take, self._steps, batch, shape)
-        n = self.cfg.fed.num_clients
-        return RoundBatch(
-            x=x,
-            y=y,
-            step_mask=self._has_data[:, None].expand(n, self._steps),
-            weights=self.weights,
-            alive=self._alive_tensor(round_idx, losses),
-            attack_seats=self._attack_seats_dev,
+            return device_data.presharded_window(images, labels, offset, self._steps, batch, shape)
+        images, labels, idx, mask = data
+        if keys is None and self._shuffle:
+            keys = device_data.round_keys(tuple(idx.shape), self.cfg.data.seed, round_idx, self.device)
+        take = device_data.round_take_indices(
+            idx, mask, self._steps * batch, None if keys is None else keys.to(self.device),
         )
+        return device_data.gather_window(images, labels, take, self._steps, batch, shape)
 
     def round_batch(self, round_idx: int) -> RoundBatch:
         """Round ``round_idx``'s batch built on the host, as fedtpu's
@@ -379,7 +380,8 @@ class Federation:
         """The whole resumable state as a host tree in fedtpu's
         ``FederatedState`` layout, what a checkpoint of the engine holds
         (:mod:`fedtpu_torch.checkpoint`): flax names and layouts, the
-        momentum as ``{"momentum": tree}``, the codec residuals per leaf or as
+        momentum as ``{"momentum": tree}`` (bf16 momentum as flax's
+        ``"bfloat16"`` arrays), the codec residuals per leaf or as
         the flat ``[clients, P]`` row, the server optimizer's state as optax
         keeps it. One leaf differs from fedtpu's: ``client_rng`` holds the
         state of the engine's ``torch.Generator`` (uint8), where fedtpu keeps
@@ -387,11 +389,6 @@ class Federation:
         generator, so a resume that did not restore it would draw another
         trajectory."""
         s = self._state
-        if any(t.dtype == torch.bfloat16 for t in s.opt_state.values()):
-            raise not_ported(
-                "a generation of bf16 momentum (momentum_dtype='bfloat16'; the "
-                "port's wire format has no bfloat16 arrays)", "slice 8, bf16 generations",
-            )
         comp = s.comp_state
         if isinstance(comp, torch.Tensor):
             comp = comp.detach().cpu().numpy()

@@ -17,7 +17,10 @@ layout (:func:`fedtpu_torch.ops.flat.make_tree_layout`).
 - :func:`finalize_stream` (``_finalize_stream_impl``): the streaming
   pipeline's weighted mean over the row buffer, unpacked once;
 - :func:`finalize_partial` (``_finalize_partial_impl``): the tiered root's
-  combine of pre-weighted partial sums, divided once.
+  combine of pre-weighted partial sums, divided once;
+- :func:`fedbuff_apply`: ``run_async``'s FedBuff update of a buffer of
+  deltas, the staleness-discounted weights (and the damping) in front of
+  :func:`aggregate`.
 
 The mean sums the weighted rows as fedtpu's compiled reduce sums them on
 the CPU (:func:`fedtpu_torch.ops.flat.fma_row_sum`), so these functions
@@ -63,15 +66,37 @@ def _apply(cfg: RoundConfig, server, global_tree: Tree, deltas: Tree, opt_state)
     return {"params": new_params, "batch_stats": new_stats}, new_opt
 
 
-def _mean(stacked: Leaves, weights: torch.Tensor, total: torch.Tensor) -> Leaves:
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def _narrow_mean(x: torch.Tensor, weights: torch.Tensor, total: torch.Tensor, excess: bool) -> torch.Tensor:
+    """fedtpu's ``sum(d * w, axis=0) / total`` of a bf16 (or f16) leaf as
+    XLA compiles it on the CPU, where excess precision is allowed: the
+    weights cast to the leaf's dtype, the products (exact in f32) summed
+    over the clients in f32 in row order (``jnp.sum`` upcasts a narrow
+    float), the sum rounded to the leaf's dtype and divided by the total
+    cast to it, through f32. ``excess``: the quotient stays f32, as where
+    its one consumer is the add to the f32 global model (FedAvg, the
+    statistics), whose fusion elides the rounding; else it is rounded to
+    the leaf's dtype (a server optimizer's program keeps the rounding)."""
+    w = weights.to(x.dtype).float().view((-1,) + (1,) * (x.ndim - 1))
+    s = flat_ops.row_sum(x.float() * w).to(x.dtype)
+    q = s.float() / total.to(x.dtype).float()
+    return q if excess else q.to(x.dtype)
+
+
+def _mean(stacked: Leaves, weights: torch.Tensor, total: torch.Tensor, excess: bool = True) -> Leaves:
     """fedtpu's per-leaf ``sum(d * w, axis=0) / total`` of every stacked
-    leaf, taken over the leaves side by side (each coordinate is its own
-    sum, so this is the per-leaf result, in one pass)."""
-    if not stacked:
-        return {}
-    leaves = list(stacked.values())
-    row = flat_ops.fma_row_sum(_cat_rows(leaves), weights.to(torch.float32)) / total
-    return dict(zip(stacked, _split_row(row, leaves)))
+    leaf, the wide ones taken side by side (each coordinate is its own
+    sum, so this is the per-leaf result, in one pass), a narrow one in its
+    own dtype's arithmetic (:func:`_narrow_mean`, ``excess`` passed on)."""
+    wide = {k: x for k, x in stacked.items() if x.dtype not in _NARROW}
+    out = {k: _narrow_mean(x, weights, total, excess) for k, x in stacked.items() if x.dtype in _NARROW}
+    if wide:
+        leaves = list(wide.values())
+        row = flat_ops.fma_row_sum(_cat_rows(leaves), weights.to(torch.float32)) / total
+        out.update(zip(wide, _split_row(row, leaves)))
+    return {k: out[k] for k in stacked}
 
 
 def aggregate(
@@ -106,7 +131,8 @@ def aggregate(
         params, stats = _krum_over_clients((params, stats), live, fed.trim_fraction)
     elif fed.aggregator == "mean":
         total = torch.clamp(flat_ops.row_sum(weights), min=1e-9)
-        params, stats = _mean(params, weights, total), _mean(stats, weights, total)
+        server = _server(cfg, server)
+        params, stats = _mean(params, weights, total, excess=server is None), _mean(stats, weights, total)
     else:
         params = _robust_over_clients(params, live, fed.aggregator, fed.trim_fraction)
         stats = _robust_over_clients(stats, live, fed.aggregator, fed.trim_fraction)
@@ -148,3 +174,36 @@ def finalize_partial(
     combine_partial_rows`), then the flat path's tail."""
     deltas = flat_ops.unpack_tree(layout, flat_ops.combine_partial_rows(sum_rows, weight_sums))
     return _apply(cfg, server, global_tree, deltas, opt_state)
+
+
+def fedbuff_apply(
+    cfg: RoundConfig,
+    global_tree: Tree,
+    stacked_deltas: Tree,
+    raw,
+    stalenesses,
+    staleness_power: float,
+    staleness_damping: bool,
+    opt_state,
+    round_idx: int,
+    server: Optional[server_opt.ServerOptimizer] = None,
+) -> Tuple[Tree, object]:
+    """One FedBuff update of ``PrimaryServer.run_async``: the buffer's
+    ``[k, ...]`` deltas (each reply against the model it pulled), ``raw``
+    their weights before the discount (example counts, or ones) and
+    ``stalenesses`` the server updates since each pull. The weights are
+    ``w / (1 + s)^p`` in Python floats; with ``staleness_damping`` every delta is
+    first scaled by ``sum(disc) / max(sum(raw), 1e-9)``, the factor in f32
+    and each product cast back to its leaf's dtype, so that the discount
+    damps the applied magnitude; then :func:`aggregate`. Returns ``(new
+    global tree, new server-optimizer state)``."""
+    disc = [w / (1.0 + st) ** staleness_power for w, st in zip(raw, stalenesses)]
+    device = next(iter(stacked_deltas["params"].values())).device
+    weights = torch.tensor(disc, dtype=torch.float32, device=device)
+    if staleness_damping:
+        damp = torch.tensor(sum(disc) / max(sum(raw), 1e-9), dtype=torch.float32, device=device)
+        stacked_deltas = {
+            col: {k: (x.float() * damp).to(x.dtype) for k, x in leaves.items()}
+            for col, leaves in stacked_deltas.items()
+        }
+    return aggregate(cfg, global_tree, stacked_deltas, weights, opt_state, round_idx, server=server)

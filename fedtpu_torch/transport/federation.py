@@ -52,12 +52,16 @@ fault-injection interceptors on every channel a coordinator dials and on
 every server it or a client hosts, and seeds the retries' jitter; its
 attack rules make a client an attacker.
 
+:meth:`PrimaryServer.run_async` is fedtpu's semi-asynchronous FedBuff
+loop: a worker thread per seat, no barrier, an update every ``buffer_k``
+replies (:func:`~fedtpu_torch.transport.aggregation.fedbuff_apply`).
+
 The round record is API whatever ``telemetry`` says (``off`` or
 ``basic``); the port exports no metrics registry, spans or flight
-recorder. Not ported yet, and raising ``NotImplementedError``:
-``run_async``, ``restore_from_checkpoint``, ``flight=`` and
-``telemetry="trace"`` (slice 8). The trace context a coordinator may
-attach as metadata is not read.
+recorder (``counters`` holds fedtpu's counters, no histogram). Not ported
+yet, and raising ``NotImplementedError``: ``flight=`` and
+``telemetry="trace"`` (slice 8, part 5). The trace context a coordinator
+may attach as metadata is not read.
 """
 
 from __future__ import annotations
@@ -700,8 +704,230 @@ class PrimaryServer:
             snap["codec_policy"] = self._codec_policy.snapshot()
         return snap
 
-    def run_async(self, *args, **kwargs):
-        raise not_ported("PrimaryServer.run_async (FedBuff)", "slice 8")
+    # ------------------------------------------------------ async (FedBuff)
+    def run_async(
+        self,
+        num_updates: int,
+        buffer_k: int = 2,
+        staleness_power: float = 0.5,
+        stop: Optional[Callable[[], bool]] = None,
+        on_update: Optional[Callable[[int, dict], None]] = None,
+        staleness_damping: bool = True,
+    ) -> List[dict]:
+        """Semi-asynchronous orchestration (FedBuff, Nguyen et al. 2022),
+        fedtpu's ``run_async``. No round barrier: one worker thread per
+        seat loops on its own (SendModel of the current global, StartTrain
+        and the decode as one retryable unit, the delta against the model
+        it pulled), and the server applies an update as soon as
+        ``buffer_k`` deltas are buffered (:func:`~fedtpu_torch.transport.
+        aggregation.fedbuff_apply`: weights ``w / (1 + staleness)^p``,
+        damped by default). Below ``round_quorum`` of the current
+        membership the buffer is held and the global model untouched;
+        with every client dead and nothing buffered for 10 s the loop
+        stops. Each update is replicated to the backup and recorded
+        (``update``, ``contributors``, ``staleness``, ``alive``); the
+        final model is broadcast to every live client. Composes with the
+        mean aggregator and a server optimizer only: compression, robust
+        aggregators, DP and screening are refused, with fedtpu's messages.
+        Runs until ``num_updates`` updates or ``stop()``; returns the
+        records.
+
+        The updates are counted in ``counters`` (``fedtpu_async_updates_total``
+        unless ``telemetry='off'``, beside the RPC byte and failure
+        counters); the staleness histogram and the flight recorder's
+        events stay with the observability slice."""
+        import queue
+
+        fed = self.cfg.fed
+        tel = self.counters
+        if fed.compression != "none":
+            raise ValueError(
+                "run_async requires compression='none': sparse deltas "
+                "against stale baselines corrupt aggregation."
+            )
+        if fed.aggregator != "mean":
+            raise ValueError(
+                "run_async requires aggregator='mean': a buffer of "
+                f"{buffer_k} is too small a population for robust statistics."
+            )
+        if fed.dp_clip_norm > 0:
+            raise ValueError(
+                "run_async does not support DP: per-update participation "
+                "accounting differs from the synchronous analysis."
+            )
+        if self._screen_cfg is not None:
+            raise ValueError(
+                "run_async does not support update screening: the "
+                f"buffer of {buffer_k} is too small a population for the "
+                "median/MAD reference statistics. Use the synchronous "
+                "round loop."
+            )
+        if buffer_k < 1:
+            raise ValueError(f"buffer_k must be >= 1, got {buffer_k}")
+
+        lay = self.layout
+        payload_like = dict(self._model_template, num_examples=np.zeros((), np.float32))
+        replies: "queue.Queue" = queue.Queue()
+        done = threading.Event()
+        version_lock = threading.Lock()
+        self._async_version = 0
+
+        def snapshot():
+            """(version, payload, host base) of the current global model,
+            built once a version."""
+            return self._async_version, self.model_bytes(), self._host_model()
+
+        current = [snapshot()]  # guarded by version_lock
+
+        def worker(client: str, rank: int) -> None:
+            """One client's loop: sync, train, enqueue, until done."""
+            while not done.is_set():
+                if not self.registry.is_alive(client):
+                    time.sleep(0.2)  # the heartbeat monitor may revive it
+                    continue
+                stub = self._stub(client)
+                if stub is None:
+                    return  # evicted mid-run: this worker retires
+                try:
+                    with version_lock:
+                        base_version, payload, base = current[0]
+                    self._send_model(stub, payload, client)
+                    tel.counter("fedtpu_rpc_bytes_down_total").inc(len(payload))
+
+                    def train_attempt():
+                        # RPC and decode as one retryable unit: a corrupt
+                        # reply is asked for again.
+                        reply = stub.StartTrain(
+                            proto.TrainRequest(rank=rank, world=self.registry.capacity(),
+                                               epoch=self._coord_epoch),
+                            timeout=self._deadlines["StartTrain"],
+                        )
+                        row = np.zeros(lay.padded, np.float32)
+                        extra = wire.decode_into_row(reply.message, payload_like, base, row)
+                        return reply, row, extra
+
+                    reply, row, extra = call_with_retry(
+                        self.retry_policy, "StartTrain", train_attempt, peer=client,
+                        telemetry=tel, rand=self._retry_rand,
+                    )
+                    tel.counter("fedtpu_rpc_bytes_up_total").inc(len(reply.message))
+                    replies.put((client, row, float(extra["num_examples"]), base_version))
+                except (grpc.RpcError, wire.WireError) as e:
+                    if is_stale_coordinator(e):
+                        # Superseded: the client stays alive, this worker
+                        # retires and the caller re-bases.
+                        self._handle_stale("AsyncWorker", client, e)
+                        return
+                    if isinstance(e, grpc.RpcError):
+                        log.warning("async client %s failed: %s %s", client, e.code(), e.details())
+                    else:
+                        log.warning("async client %s reply still corrupt after retries: %s", client, e)
+                    tel.counter("fedtpu_rpc_failures_total", labels={"rpc": "AsyncWorker"}).inc()
+                    self.registry.mark_failed(client)
+
+        self.monitor.start()
+        if self.pinger is not None:
+            self.pinger.tick()
+            self.pinger.start()
+        # One worker per member at start; a member admitted mid-run joins
+        # the training loop on the next run_async.
+        workers = [
+            threading.Thread(target=worker, args=(c, rank), daemon=True)
+            for c, rank in sorted(self.registry.seat_map().items())
+        ]
+        for w in workers:
+            w.start()
+        all_dead_since: List[Optional[float]] = [None]
+
+        def hopeless() -> bool:
+            """Every client dead and nothing buffered, for over 10 s."""
+            if self.registry.active_clients() or not replies.empty():
+                all_dead_since[0] = None
+                return False
+            if all_dead_since[0] is None:
+                all_dead_since[0] = time.monotonic()
+            return time.monotonic() - all_dead_since[0] > 10.0
+
+        poll_s = fed.async_poll_s
+        # The quorum counts against the current membership.
+        quorum_n = max(1, math.ceil(fed.round_quorum * self.registry.size)) if fed.round_quorum > 0 else 0
+        try:
+            while self._async_version < num_updates:
+                if stop is not None and stop():
+                    break
+                buf = []
+                while len(buf) < buffer_k:
+                    try:
+                        buf.append(replies.get(timeout=poll_s))
+                    except queue.Empty:
+                        if (stop is not None and stop()) or hopeless():
+                            break
+                if len(buf) < buffer_k:
+                    if hopeless():
+                        log.warning("all async clients dead; stopping")
+                        break
+                    continue
+                if quorum_n and len(self.registry.active_clients()) < quorum_n:
+                    log.warning(
+                        "async update held: %d alive < quorum %d; waiting for recovery",
+                        len(self.registry.active_clients()), quorum_n,
+                    )
+                    tel.counter("fedtpu_round_aborts_total").inc()
+                    while (len(self.registry.active_clients()) < quorum_n and not hopeless()
+                           and not (stop is not None and stop())):
+                        time.sleep(poll_s)
+                    if len(self.registry.active_clients()) < quorum_n:
+                        log.warning("quorum never recovered; stopping")
+                        break
+                with version_lock:
+                    v = self._async_version
+                    stalenesses = [v - b for _, _, _, b in buf]
+                    raw = [n if fed.weighted else 1.0 for _, _, n, _ in buf]
+                    rows = torch.from_numpy(np.stack([r for _, r, _, _ in buf])).to(self.device)
+                    stacked = _split_collections(flat_ops.unpack_stacked(lay, rows))
+                    new_global, self._server_opt_state = aggregation.fedbuff_apply(
+                        self.cfg, self.global_tree, stacked, raw, stalenesses, staleness_power,
+                        staleness_damping, self._server_opt_state, v, server=self._server_opt,
+                    )
+                    del rows, stacked
+                    self.global_tree = new_global
+                    self._async_version = v + 1
+                    # The lineage counter stays monotone across modes: a
+                    # backup promoted from async replicas continues it.
+                    self._round_counter += 1
+                    current[0] = snapshot()
+                if self.backup_stub is not None:
+                    try:
+                        self._send_model(self.backup_stub, self.replica_bytes(), "backup")
+                    except grpc.RpcError as e:
+                        if is_stale_coordinator(e):
+                            self._handle_stale("Replicate", "backup", e)
+                        else:
+                            log.warning("backup unreachable during replication")
+                rec = {
+                    "update": self._async_version,
+                    "contributors": [c for c, _, _, _ in buf],
+                    "staleness": stalenesses,
+                    "alive": self.registry.alive_mask().tolist(),
+                }
+                self.history.append(rec)
+                if fed.telemetry != "off":
+                    tel.counter("fedtpu_async_updates_total").inc()
+                log.info("async update %s", rec)
+                if on_update is not None:
+                    on_update(self._async_version, rec)
+            # Deliver the final model: the workers stop syncing once done
+            # is set, and every client would end an update stale.
+            done.set()
+            for w in workers:
+                w.join(timeout=self.rpc_timeout)
+            self.sync_clients()
+        finally:
+            done.set()
+            self.monitor.stop()
+            if self.pinger is not None:
+                self.pinger.stop()
+        return self.history
 
     def restore_from_checkpoint(self, ckpt) -> Optional[int]:
         """A cold start from the newest generation of ``ckpt`` (a

@@ -19,6 +19,12 @@ without flax and without the ``msgpack`` package:
 The decoder reads any msgpack document into dicts, lists, ``str``,
 ``bytes`` and numbers, with arrays as read-only numpy arrays over the
 input's bytes.
+
+numpy has no bfloat16, and the port does not need ``ml_dtypes``: a
+bfloat16 array travels as :class:`Bfloat16Array`, its raw 16-bit words,
+written as flax writes an ``ml_dtypes`` array (``(shape, "bfloat16",
+bytes)``) and read back into the same holder
+(:func:`fedtpu_torch.convert.from_flax` turns it into a bf16 tensor).
 """
 
 from __future__ import annotations
@@ -38,6 +44,26 @@ _CHUNKED = "__msgpack_chunked_array__"
 
 class MsgpackError(ValueError):
     """Bytes that are not a msgpack document of the form read here."""
+
+
+class Bfloat16Array:
+    """A bfloat16 array as its raw 16-bit words (``words``: a uint16 numpy
+    array of the same shape, C order when written)."""
+
+    __slots__ = ("words",)
+
+    def __init__(self, words: np.ndarray):
+        words = np.asarray(words)
+        if words.dtype.itemsize != 2:
+            raise MsgpackError(f"bfloat16 words must be 16-bit, got {words.dtype}")
+        self.words = words.view(np.uint16)
+
+    @property
+    def shape(self):
+        return self.words.shape
+
+    def __repr__(self) -> str:
+        return f"Bfloat16Array(shape={self.shape})"
 
 
 # ------------------------------------------------------------------ encoding
@@ -141,6 +167,10 @@ def _pack(out: bytearray, obj: Any, strict: bool) -> None:
             _pack(out, v, strict)
     elif isinstance(obj, np.ndarray):
         _pack_ext(out, _EXT_NDARRAY, _ndarray_bytes(obj))
+    elif t is Bfloat16Array:
+        inner = bytearray()
+        _pack(inner, [list(obj.shape), "bfloat16", obj.words.tobytes("C")], strict=False)
+        _pack_ext(out, _EXT_NDARRAY, bytes(inner))
     elif isinstance(obj, np.generic):
         _pack_ext(out, _EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
     elif t is complex:
@@ -226,17 +256,15 @@ def to_bytes(target) -> bytes:
 # ------------------------------------------------------------------ decoding
 
 
-def _dtype(name) -> np.dtype:
+def _ndarray_from(data: memoryview):
+    """An array extension's numpy array, or a :class:`Bfloat16Array` of
+    its words for flax's ``"bfloat16"``."""
+    shape, name, buf = _Reader(data, raw=True).document()
     if isinstance(name, bytes):
         name = name.decode("ascii")
     if name == "bfloat16":
-        raise MsgpackError("bfloat16 arrays are not read here (numpy has no bfloat16)")
-    return np.dtype(name)
-
-
-def _ndarray_from(data: memoryview) -> np.ndarray:
-    shape, name, buf = _Reader(data, raw=True).document()
-    return np.frombuffer(buf, dtype=_dtype(name)).reshape(shape, order="C")
+        return Bfloat16Array(np.frombuffer(buf, dtype=np.uint16).reshape(shape, order="C"))
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape, order="C")
 
 
 class _Reader:
@@ -274,7 +302,8 @@ class _Reader:
         if code == _EXT_NDARRAY:
             return _ndarray_from(data)
         if code == _EXT_NPSCALAR:
-            return _ndarray_from(data)[()]
+            arr = _ndarray_from(data)
+            return arr if isinstance(arr, Bfloat16Array) else arr[()]
         if code == _EXT_COMPLEX:
             re, im = _Reader(data).document()
             return complex(re, im)

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from fedtpu_torch import models
-from fedtpu_torch.config import RoundConfig, not_ported, validate_edge
+from fedtpu_torch.config import RoundConfig, validate_edge
 from fedtpu_torch.convert import from_flax, to_flax
 from fedtpu_torch.core import optim
 from fedtpu_torch.core.client import make_eval_fn, make_local_update
@@ -188,11 +188,6 @@ class LocalTrainer:
         ``rng``; the port its ``torch.Generator``'s state, so a file does
         not cross packages), the momentum, and the error-feedback residual
         (``has_residual`` tells "none yet" from a zero residual)."""
-        if any(t.dtype == torch.bfloat16 for t in self.opt_state.values()):
-            raise not_ported(
-                "a client state of bf16 momentum (momentum_dtype='bfloat16'; the "
-                "port's wire format has no bfloat16 arrays)", "slice 8, bf16 generations",
-            )
         residual = self.edge_residual
         return {
             "round_idx": np.asarray(self.round_idx, np.int64),

@@ -29,6 +29,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from fedtpu_torch.convert import host_array
 from fedtpu_torch.transport import msgpack
 
 Tree = Any
@@ -86,11 +87,14 @@ def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
 
 
 def host(x) -> Any:
-    """A leaf on the host: a torch tensor as a numpy array, anything else
-    through ``np.asarray`` (a numpy scalar becomes a 0-d array, as
+    """A leaf on the host: a torch tensor as a numpy array (a bf16 one as
+    its :class:`~fedtpu_torch.transport.msgpack.Bfloat16Array`), anything
+    else through ``np.asarray`` (a numpy scalar becomes a 0-d array, as
     ``jax.tree.map(np.asarray, ...)`` makes it)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return host_array(x)
+    if isinstance(x, msgpack.Bfloat16Array):
+        return x
     return np.asarray(x)
 
 

@@ -90,6 +90,13 @@ class CounterTable:
         with self._lock:
             return self._counters.setdefault(key, Counter())
 
+    def histogram(self, name: str, help: str = "", buckets=(), labels: Dict[str, str] = None):
+        """fedtpu's registry histograms (``run_async``'s
+        ``fedtpu_async_staleness`` among them) are not kept here."""
+        from fedtpu_torch.config import not_ported
+
+        raise not_ported(f"the metrics registry's histogram {name!r}", "slice 8, part 5")
+
     def value(self, name: str, **labels: str) -> float:
         """The counter's value, 0 when it never counted."""
         with self._lock:

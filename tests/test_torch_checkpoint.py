@@ -416,5 +416,13 @@ def test_bf16_momentum_generations_raise_naming_their_item(tmp_path):
         fed=tconfig.FedConfig(num_clients=2),
     )
     fed = TFederation(cfg, data=seeded_data(6, n=16), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*bf16 generations"):
-        fed.generation
+    # Written since bf16 generations were ported (tests/test_torch_bf16_generation.py
+    # holds them against fedtpu's bytes): a round of bf16 momentum, then a
+    # generation that restores bit for bit.
+    fed.step()
+    assert all(t.dtype == torch.bfloat16 for t in fed.state.opt_state.values())
+    save(str(tmp_path), 1, fed.generation)
+    other = TFederation(cfg, data=seeded_data(6, n=16), device="cpu")
+    other.generation = restore(str(tmp_path), 1, other.generation)
+    assert twire.encode(other.generation) == twire.encode(fed.generation)
+    assert all(torch.equal(other.state.opt_state[k], fed.state.opt_state[k]) for k in fed.state.opt_state)

@@ -381,8 +381,12 @@ def test_options_the_coordinator_does_not_run_raise(tmp_path):
         with pytest.raises(NotImplementedError, match="slice 8"):
             cls(tcfg, [], flight=object(), device="cpu")
     p = _primary(tcfg, [])
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        p.run_async(4)
+    # run_async runs since slice 8 part 3 (tests/test_torch_async_edge.py):
+    # what it refuses, it refuses with fedtpu's guards.
+    with pytest.raises(ValueError, match="buffer_k must be >= 1"):
+        p.run_async(4, buffer_k=0)
+    with pytest.raises(ValueError, match="run_async requires compression='none'"):
+        _primary(rebuild(compression="topk"), []).run_async(4)
     # A cold start runs since slice 8 part 1 (tests/test_torch_disaster.py):
     # an empty directory is a fresh start.
     from fedtpu_torch.checkpoint import Checkpointer

@@ -11,8 +11,9 @@ modules import grpc. The coordinator (``fedtpu_torch.ft``,
 they are built). The zoo (``fedtpu_torch.models``' families and
 ``fedtpu_torch.data.datasets``' loaders), the checkpoint store
 (``fedtpu_torch.checkpoint``) and the massive-cohort engine
-(``fedtpu_torch.sim``, ``SimFederation`` included) load none of them
-either.
+(``fedtpu_torch.sim``, ``SimFederation`` included), the asynchronous
+engine (``fedtpu_torch.core.async_engine``) and the standalone trainer
+(``fedtpu_torch.core.solo``) load none of them either.
 
 One check imports every module in a fresh interpreter and looks at
 ``sys.modules``; the other reads every source file's imports. Top-level
@@ -154,7 +155,10 @@ def test_zoo_loads_no_jax_no_fedtpu_and_no_grpc():
 @pytest.mark.parametrize("imports", [
     "import fedtpu_torch.checkpoint, fedtpu_torch.checkpoint.writer  # noqa: F401",
     "import fedtpu_torch.sim\nfrom fedtpu_torch.sim import SimFederation  # noqa: F401",
-], ids=["checkpoint", "sim"])
+    "from fedtpu_torch.core.async_engine import AsyncFederation, fedbuff_combine  # noqa: F401",
+    "from fedtpu_torch.core.solo import SoloTrainer, run_solo  # noqa: F401",
+    "from fedtpu_torch import AsyncFederation, SoloTrainer  # noqa: F401",
+], ids=["checkpoint", "sim", "async", "solo", "exports"])
 def test_checkpoint_and_sim_load_no_jax_no_fedtpu_and_no_grpc(imports):
     loaded = _loaded_by(imports)
     assert "fedtpu_torch" in loaded
