@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only sim      # the device and build phases, then phase 15's sim parts
     python3 chip_smoke.py --only disaster # the device and build phases, then phase 15's drills
     python3 chip_smoke.py --only async    # the device phase, then phase 16
+    python3 chip_smoke.py --only obs      # the device and build phases, then phase 17
 
 Phases, each of which raises on failure (exit code not 0, no result line):
 
@@ -108,9 +109,15 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    round's global is held against the CPU's combine of the replies it
    used (atol=1e-5, rtol=1e-4, all but 0.1% of coordinates),
    ``bytes_down`` against the payloads, and every client's installed model
-   against the primary's. Each round's split (collect, decode, h2d,
-   aggregate, post-barrier), bytes and wall time, the time to recover and
-   the peak memory are printed beside the card; K1-K3 are launched 0 times.
+   against the primary's. Each primary's registry and flight ring against
+   its records: the rounds counter its committed rounds,
+   ``fedtpu_rpc_bytes_up_total`` the sum of their ``bytes_up`` exactly, a
+   phase histogram count a round, a flight ``round`` event a round; the
+   backup's flight recorder (a temporary directory, its path logged) dumps
+   on the promotion with a ``failover:`` reason. Each round's split
+   (collect, decode, h2d, aggregate, post-barrier), bytes and wall time,
+   the time to recover and the peak memory are printed beside the card;
+   K1-K3 are launched 0 times.
    ``--only federation`` runs the device phase and this one alone.
 11. faults: the rest of the coordinator over localhost gRPC, 4 port
    MobileNet clients as in phase 10 (flat int8, stream). (a) chaos: a
@@ -238,6 +245,17 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    0.9, weight decay 5e-4): one epoch of 384 steps and a test epoch that
    writes the checkpoint, a fresh trainer resumed from it bit-equal:
    steps/s, examples/s, peak memory. No K1-K3 launch on these paths.
+17. obs: the observability plane on phase 6's MobileNet per-leaf topk
+   engine (64 clients, batch 128, 6 steps, bf16), run between phase 6's
+   timing and its options: an ObsServer on 127.0.0.1 serves its registry,
+   status snapshot and a flight recorder while a thread scrapes
+   ``/metrics``, ``/statusz``, ``/healthz`` and ``/flightz`` every 50 ms;
+   2 rounds under ``telemetry='basic'`` (K1 twice a round, counted from
+   0), then 2 with ``Telemetry("off")`` swapped in. Every scrape answers
+   200 and parses, the rounds counter equals the rounds stepped since the
+   engine was built, ``/statusz`` ends at that round, idle, all 64 alive.
+   Rounds/s under both modes and the ``/metrics`` scrape latency (p50,
+   max) are printed; no speed is asserted.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
@@ -245,8 +263,9 @@ Each kernel's ``launches`` there is the sum over the main paths, the
 smallcnn slice, the MobileNet round, the round options, the zoo and the
 zoo's second and last parts (``zoo2``, ``zoo3``), the sim engine
 (``sim``: K1 and K2), the engine drill (``disaster``: K1), the async
-engine with run_async (``async``: none) and the solo trainer (``solo``:
-none); ``launches_by_path`` has each.
+engine with run_async (``async``: none), the solo trainer (``solo``:
+none) and the observability plane (``obs``: K1); ``launches_by_path`` has
+each.
 """
 
 from __future__ import annotations
@@ -289,7 +308,7 @@ from fedtpu_torch.transport import aggregation as edge_aggregation  # noqa: E402
 from fedtpu_torch.transport import msgpack as _msgpack  # noqa: E402
 from fedtpu_torch.transport import sparse, wire  # noqa: E402
 from fedtpu_torch.transport.trainer import LocalTrainer  # noqa: E402
-from fedtpu_torch.utils.observe import process_rss_bytes  # noqa: E402
+from fedtpu_torch.obs import process_rss_bytes  # noqa: E402
 
 NUM_CLIENTS = 64
 BATCH = 128
@@ -2200,6 +2219,25 @@ def _fed_round(primary, agents, replies, label, card, stats, **check):
     return rec
 
 
+def _check_primary_obs(primary, label: str) -> dict:
+    """A primary's registry and flight ring against its round records: the
+    rounds counter its committed rounds, ``fedtpu_rpc_bytes_up_total`` the
+    sum of their ``bytes_up`` exactly, each phase histogram one count a
+    round, one flight ``round`` event a committed round."""
+    committed = [rec for rec in primary.history if not rec.get("aborted")]
+    reg = primary.telemetry.registry
+    phases = {e["labels"]["phase"]: e["count"] for e in reg.snapshot().get("fedtpu_round_phase_seconds", [])}
+    events = [e["round"] for e in primary.flight.snapshot() if e["kind"] == "round"]
+    out = {"rounds": _metric(reg, "fedtpu_rounds_completed_total"),
+           "bytes_up": _metric(reg, "fedtpu_rpc_bytes_up_total"), "phases": phases, "flight_rounds": events}
+    want = {"rounds": len(committed), "bytes_up": sum(rec["bytes_up"] for rec in committed),
+            "phases": dict.fromkeys(("aggregate", "collect", "decode", "h2d"), len(committed)),
+            "flight_rounds": [rec["round"] for rec in committed]}
+    if out != want:
+        raise RuntimeError(f"federation {label}: the registry and flight ring say {out}, the records {want}")
+    return out
+
+
 def federation_phase(data, card):
     """A federation over localhost gRPC on the card: a port PrimaryServer,
     a BackupServer and FED_CLIENTS serve_client MobileNet clients (HOST_STEPS
@@ -2209,10 +2247,17 @@ def federation_phase(data, card):
     codec), one round with a deadline that holds a client back, then the
     failover drill: the primary stops, the backup promotes and commits one
     round on the card, and a restarted primary demotes it and fetches its
-    state, the round counter continuous. No kernel of K1-K3 lies on this
-    path: the counts are set to 0 before and must read 0 after."""
+    state, the round counter continuous. Each primary's registry and flight
+    ring are held against its records (:func:`_check_primary_obs`), and the
+    backup's flight recorder, in a temporary directory, must dump on the
+    promotion. No kernel of K1-K3 lies on this path: the counts are set to
+    0 before and must read 0 after."""
+    import shutil
+    import tempfile
+
     # The phase runs over gRPC: its modules are imported here only.
     from fedtpu_torch.ft import Role
+    from fedtpu_torch.obs import FlightRecorder
     from fedtpu_torch.transport.federation import BackupServer, PrimaryServer, serve_client
 
     kernels.reset_launch_counts()
@@ -2221,7 +2266,9 @@ def federation_phase(data, card):
     n = FED_CLIENTS * HOST_STEPS * BATCH
     data, eval_data = (data[0][:n], data[1][:n]), (data[0][:FED_EVAL], data[1][:FED_EVAL])
     backup_addr = f"localhost:{_free_port()}"
-    backup = BackupServer(_fed_cfg(*FED_GROUPS[-1][:3]), [], watchdog_timeout=FED_WATCHDOG_S)
+    flight_dir = tempfile.mkdtemp(prefix="fedtpu_torch_flight_")
+    backup = BackupServer(_fed_cfg(*FED_GROUPS[-1][:3]), [], watchdog_timeout=FED_WATCHDOG_S,
+                          flight=FlightRecorder(role="backup", artifacts_dir=flight_dir))
     backup_server = backup.start(backup_addr)
     stats, replies = [], {}
     servers, agents, state = [], [], None
@@ -2249,6 +2296,7 @@ def federation_phase(data, card):
                     primary.admit_client(addr)
             for _ in range(rounds + (1 if gi == 0 else 0)):
                 _fed_round(primary, agents, replies, f"{layout} {codec}", card, stats)
+            _check_primary_obs(primary, f"{layout} {codec}")
             state = primary.replica_bytes()
         # A deadline round: the last client held back past it.
         held = agents[-1].trainer
@@ -2260,6 +2308,7 @@ def federation_phase(data, card):
         if rec["stragglers"] != 1 or rec["participants"] != FED_CLIENTS - 1 or not all(rec["alive"]):
             raise RuntimeError(f"federation: the held client is not a live straggler: {rec}")
         primary._inflight[held.identity].join(timeout=120)
+        obs = {"primary": _check_primary_obs(primary, "deadline")}
         held.train_round = train
         primary.round_deadline_s = None
         primary.sync_clients()  # the straggler's late round is resynced
@@ -2291,6 +2340,12 @@ def federation_phase(data, card):
                                f"{acting._coord_epoch}, expected round {last} at epoch 2")
         _check_fed_round(acting, committed["rec"], committed["rec"]["t_round_s"], before, agents,
                          replies, "acting", card, stats)
+        obs["acting"] = _check_primary_obs(acting, "acting")
+        dump = json.loads(Path(backup.flight.dump_path()).read_text())
+        if not dump["reason"].startswith("failover:") or dump["role"] != "backup":
+            raise RuntimeError(f"federation: the backup's flight dump says {dump['reason']} ({dump['role']})")
+        obs["backup_dump"] = {"path": backup.flight.dump_path(), "reason": dump["reason"],
+                              "events": dump["num_events"]}
         log(f"federation: primary stopped -> first acting round committed in {recover_s:.3f} s ({card})")
         # The primary restarts: its recovering ping demotes the backup, it
         # fetches the acting state and runs on.
@@ -2305,6 +2360,8 @@ def federation_phase(data, card):
             raise RuntimeError("federation: the restarted primary did not adopt the acting epoch")
         _check_fed_round(restarted, restarted.history[-1], wall, before, agents, replies,
                          "restarted", card, stats)
+        obs["restarted"] = _check_primary_obs(restarted, "restarted")
+        log("federation obs: " + json.dumps(obs))
         rounds = [s["round"] for s in stats]
         if rounds != list(range(len(rounds))):
             raise RuntimeError(f"federation: the round counter is not continuous: {rounds}")
@@ -2316,6 +2373,7 @@ def federation_phase(data, card):
         backup_server.stop(0)
         for s in servers:
             s.stop(0)
+        shutil.rmtree(flight_dir, ignore_errors=True)
     counts = _launch_counts()
     if any(counts.values()):
         raise RuntimeError(f"federation: K1-K3 launched on the coordinator's path: {counts}")
@@ -2454,11 +2512,11 @@ def faults_phase(data, card):
             if rec["round"] > 0:  # round 0's replies are dense: the clients were not synced
                 cosines.append(_check_attacker(attacker, seen, rec["round"], f"attacker round {rec['round']}"))
         errors, corrupts = chaos._fired[0], chaos._fired[1]
-        retried = primary.counters.value("fedtpu_rpc_retries_total", rpc="StartTrain")
+        retried = _metric(primary.telemetry.registry, "fedtpu_rpc_retries_total", rpc="StartTrain")
         if retried != errors + corrupts or chaos.injected_total() == 0:
             raise RuntimeError(f"faults chaos: {retried} StartTrain retries for {errors} errors "
                                f"and {corrupts} corruptions")
-        sent_retried = primary.counters.value("fedtpu_rpc_retries_total", rpc="SendModel")
+        sent_retried = _metric(primary.telemetry.registry, "fedtpu_rpc_retries_total", rpc="SendModel")
         if sent_retried != client_chaos.injected_total():
             raise RuntimeError(f"faults chaos: {sent_retried} SendModel retries for "
                                f"{client_chaos.injected_total()} client-side errors")
@@ -3065,9 +3123,9 @@ DISASTER_ROUNDS = 4  # the control's rounds; the resumed engine runs 3-4
 GRPC_CLIENTS = 4
 GRPC_CRASH_AFTER = 2  # the primary commits rounds 0-1, then stops (4 before phase 16)
 GRPC_ROUNDS = 3  # the control's rounds, and the recovered lineage's end (5 before phase 16)
-# The kernels each phase-15 path runs (every other path runs all three).
+# The kernels each path of phases 15-17 runs (every other path runs all three).
 PATH_KERNELS = {"sim": ("threshold_feedback", "quantdequant_int8"), "disaster": ("threshold_feedback",),
-                "async": (), "solo": ()}
+                "async": (), "solo": (), "obs": ("threshold_feedback",)}
 
 
 def _sim_cfg(codec, population=SIM_POPULATION) -> RoundConfig:
@@ -3884,6 +3942,148 @@ def solo_phase(data, card):
     return counts
 
 
+# -------------------------------------------------------------- 17. obs
+
+OBS_ROUNDS = 2  # rounds under each telemetry mode
+OBS_POLL_S = 0.05  # the scraper's pause between passes over the four routes
+OBS_ROUTES = ("/metrics", "/statusz", "/healthz", "/flightz")
+
+
+def _metric(registry, name: str, **labels) -> float:
+    """A counter's or gauge's value in ``registry`` (0 when it never
+    counted), read from a snapshot so that reading creates nothing."""
+    for entry in registry.snapshot().get(name, []):
+        if entry["labels"] == labels:
+            return entry["value"]
+    return 0.0
+
+
+class _Scraper:
+    """A thread that polls an ObsServer's four routes every OBS_POLL_S
+    seconds, parsing each answer, until stopped; ``/metrics`` latencies in
+    ms, and every failure, kept."""
+
+    def __init__(self, url: str):
+        self.url = url
+        self.metrics_ms = []
+        self.passes = 0
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def get(self, route: str):
+        import urllib.request
+
+        from fedtpu_torch.obs import parse_prometheus_text
+
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(self.url + route, timeout=10) as resp:
+            status, body = resp.status, resp.read().decode()
+        ms = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            raise RuntimeError(f"{route}: HTTP {status}")
+        if route == "/metrics":
+            return parse_prometheus_text(body), ms
+        if route == "/healthz":
+            if body != "ok\n":
+                raise RuntimeError(f"/healthz: {body!r}")
+            return body, ms
+        return json.loads(body), ms
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            for route in OBS_ROUTES:
+                try:
+                    _, ms = self.get(route)
+                except Exception as exc:  # kept, and raised by the phase
+                    self.errors.append(f"{route}: {exc!r}")
+                    continue
+                if route == "/metrics":
+                    self.metrics_ms.append(ms)
+            self.passes += 1
+            self._stop.wait(OBS_POLL_S)
+
+    def __enter__(self) -> "_Scraper":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def _timed_rounds(fed, rounds: int, flight) -> float:
+    """``rounds`` Federation.step rounds, each recorded in ``flight``;
+    rounds/s by the host clock around a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        m = fed.step()
+        flight.record("round", round=fed.state.round_idx - 1, loss=float(m.loss))
+    torch.cuda.synchronize()
+    return rounds / (time.perf_counter() - t0)
+
+
+def obs_phase(fed, card):
+    """Phase 17: the observability plane on a live MobileNet engine (phase
+    6's per-leaf topk Federation, or one built like it). An ObsServer on
+    127.0.0.1 serves the engine's registry, its status snapshot and a
+    flight recorder while a thread scrapes the four routes every
+    OBS_POLL_S; OBS_ROUNDS rounds under ``telemetry='basic'`` (K1's
+    launches counted from 0, 2 a round), then as many with
+    ``Telemetry("off")`` swapped in. Every scrape must answer 200 and
+    parse; the rounds counter must equal the rounds the engine stepped
+    since it was built and /statusz end at that round, idle, every client
+    alive. Rounds/s under each mode and the /metrics scrape latency are
+    logged; no speed is asserted. Returns the path's launch counts."""
+    import shutil
+    import tempfile
+
+    from fedtpu_torch.obs import FlightRecorder, ObsServer, Telemetry
+
+    n = fed.cfg.fed.num_clients
+    root = tempfile.mkdtemp(prefix="fedtpu_torch_obs_")
+    flight = FlightRecorder(role="engine", artifacts_dir=root)
+    server = ObsServer(port=0, registry=fed.telemetry.registry, status_fn=fed.status_snapshot,
+                       flight=flight).start()
+    try:
+        with _Scraper(server.url) as scraper:
+            kernels.reset_launch_counts()
+            basic = _timed_rounds(fed, OBS_ROUNDS, flight)
+            counts = _launch_counts()
+            stepped = fed.state.round_idx
+            done = _metric(fed.telemetry.registry, "fedtpu_rounds_completed_total")
+            status, _ = scraper.get("/statusz")
+            metrics, _ = scraper.get("/metrics")
+            fed.telemetry = Telemetry("off")
+            off = _timed_rounds(fed, OBS_ROUNDS, flight)
+        ring, _ = scraper.get("/flightz")
+        final, _ = scraper.get("/statusz")
+    finally:
+        server.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    if scraper.errors or not scraper.metrics_ms:
+        raise RuntimeError(f"obs: {len(scraper.errors)} failed scrapes of {scraper.passes} passes: "
+                           f"{scraper.errors[:3]}")
+    if done != stepped or metrics["fedtpu_rounds_completed_total"][""] != stepped:
+        raise RuntimeError(f"obs: {done} rounds counted, {stepped} stepped since the engine was built")
+    if (status["round"], status["phase"], status["alive"]) != (stepped, "idle", [True] * n):
+        raise RuntimeError(f"obs: /statusz {status['round']} {status['phase']} after {stepped} rounds")
+    if final["round"] != stepped + OBS_ROUNDS or final["role"] != "engine":
+        raise RuntimeError(f"obs: /statusz at {final['round']} after the off rounds")
+    if counts["threshold_feedback"] != 2 * OBS_ROUNDS or sum(counts.values()) != 2 * OBS_ROUNDS:
+        raise RuntimeError(f"obs: launches {counts}, expected K1 twice a round")
+    if [e["round"] for e in ring] != list(range(stepped - OBS_ROUNDS, stepped + OBS_ROUNDS)):
+        raise RuntimeError(f"obs: the flight ring holds {[e['round'] for e in ring]}")
+    lat = sorted(scraper.metrics_ms)
+    log("obs: " + json.dumps({
+        "rounds_per_s_basic": basic, "rounds_per_s_off": off, "basic_over_off": basic / off,
+        "scrape_passes": scraper.passes, "metrics_scrapes": len(lat),
+        "metrics_scrape_p50_ms": lat[len(lat) // 2], "metrics_scrape_max_ms": lat[-1],
+        "metric_names": len(metrics), "launches": counts, "card": card}))
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
@@ -3893,7 +4093,7 @@ def main(argv=None) -> int:
         "and flat rotq; write the tables to DIR",
     )
     ap.add_argument(
-        "--only", choices=["kernels", "federation", "faults", "zoo", "sim", "disaster", "async"],
+        "--only", choices=["kernels", "federation", "faults", "zoo", "sim", "disaster", "async", "obs"],
         help="run the device phase and this phase alone, and print no result line",
     )
     args = ap.parse_args(argv)
@@ -3914,6 +4114,14 @@ def main(argv=None) -> int:
         zoo2_phase(data, smi, profile_dir)
         zoo3_reference_phase()
         zoo3_phase(data, smi, profile_dir)
+        log(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.only == "obs":
+        build_phase()
+        data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
+        fed = Federation(bench_cfg("topk", "per_leaf", "mobilenet"), seed=0, data=data)
+        fed.step()  # warm, as phase 6's engine is: cuDNN picks its algorithms in the first round
+        obs_phase(fed, smi)
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.only == "async":
@@ -3986,10 +4194,13 @@ def main(argv=None) -> int:
         base, _ = profile_phase(mfeds[("topk", "per_leaf")], Path(args.profile), "mobilenet_per_leaf_topk", rounds=1)
         profile_diff(base, profile_phase(mfeds[("rotq", "flat")], Path(args.profile), "mobilenet_flat_rotq", rounds=1)[0],
                      "mobilenet_flat_rotq", "mobilenet_per_leaf_topk")
+    clock("phase 6 (a), the MobileNet slice")
+    paths["obs"] = obs_phase(mfeds[("topk", "per_leaf")], smi)
+    clock("phase 17, the observability plane on phase 6's per-leaf topk engine")
     del mfeds
     torch.cuda.empty_cache()
     mobilenet_options_phase(data, smi)
-    clock("phase 6, MobileNet")
+    clock("phase 6 (b), MobileNet's options")
     _, paths["options"] = options_phase(data, smi)
     remat_probe(data, smi)
     clock("phase 8, the options")

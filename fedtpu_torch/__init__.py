@@ -12,12 +12,25 @@ rotation of ``rotq``) are hand-written CUDA kernels here
 ``nvcc`` at first use.
 """
 
-from fedtpu_torch.config import DataConfig, FedConfig, OptimizerConfig, RoundConfig
-from fedtpu_torch.core.async_engine import AsyncFederation
-from fedtpu_torch.core.engine import Federation
-from fedtpu_torch.core.solo import SoloTrainer, run_solo
+import importlib
 
-__all__ = [
-    "AsyncFederation", "DataConfig", "FedConfig", "Federation", "OptimizerConfig", "RoundConfig",
-    "SoloTrainer", "run_solo",
-]
+# Resolved on first use, so that a host-only subpackage (``fedtpu_torch.obs``)
+# imports without loading torch.
+_EXPORTS = {
+    "AsyncFederation": "fedtpu_torch.core.async_engine",
+    "DataConfig": "fedtpu_torch.config",
+    "FedConfig": "fedtpu_torch.config",
+    "Federation": "fedtpu_torch.core.engine",
+    "OptimizerConfig": "fedtpu_torch.config",
+    "RoundConfig": "fedtpu_torch.config",
+    "SoloTrainer": "fedtpu_torch.core.solo",
+    "run_solo": "fedtpu_torch.core.solo",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -28,9 +28,9 @@ The durability rules are fedtpu's:
 
 The seeded disk faults of :mod:`fedtpu_torch.ft.chaos` (``ckpt_fail``,
 ``ckpt_torn``, ``ckpt_rot`` on the pseudo-RPC ``Disk``) are consulted by
-:meth:`Checkpointer.save` when a schedule is armed. fedtpu also counts
-saves, failures and fallbacks into its metrics registry and flight
-recorder, which the port has not yet (``metrics=`` and ``flight=`` raise).
+:meth:`Checkpointer.save` when a schedule is armed. Saves, failures and
+fallbacks count into a metrics registry under fedtpu's names and land in a
+flight recorder, when the caller hands them in.
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ import time
 import zlib
 from typing import Any, List, Optional
 
-from fedtpu_torch.config import not_ported
 from fedtpu_torch.transport import msgpack, wire
 
 Tree = Any
@@ -244,23 +243,30 @@ class Checkpointer:
 
     ``chaos`` (a :class:`fedtpu_torch.ft.chaos.FaultSchedule`) arms the
     seeded disk faults; ``strict=True`` makes a failed save raise.
-    ``metrics=`` and ``flight=`` raise until the port has a metrics
-    registry and a flight recorder."""
+    ``metrics`` (a :class:`fedtpu_torch.obs.MetricsRegistry`) counts saves,
+    failures and fallbacks, and ``flight`` (a :class:`fedtpu_torch.obs.
+    FlightRecorder`) records each failure and fallback."""
 
     def __init__(self, directory: str, keep: int = 3, backend: str = "auto",
                  metrics=None, flight=None, chaos=None, strict: bool = False):
-        if metrics is not None or flight is not None:
-            raise not_ported(
-                "Checkpointer(metrics=, flight=), the checkpoint counters and "
-                "flight-recorder events", "slice 8, part 5",
-            )
         self.directory = directory
         self.keep = keep
         self.backend = _backend(backend)
         self.strict = strict
+        self._metrics = metrics
+        self._flight = flight
         self._chaos = chaos
         # The last successful save: {round, bytes, wall_s}.
         self.last_save: Optional[dict] = None
+
+    # ------------------------------------------------------------- metrics
+    def _count(self, name: str, help_: str, amount: float = 1.0) -> None:
+        if self._metrics is not None:
+            self._metrics.counter(name, help_).inc(amount)
+
+    def _observe(self, name: str, help_: str, value: float) -> None:
+        if self._metrics is not None:
+            self._metrics.histogram(name, help_).observe(value)
 
     def save(self, round_idx: int, state: Tree) -> Optional[str]:
         """Write and verify one generation, then prune. An ``OSError`` or a
@@ -280,6 +286,13 @@ class Checkpointer:
                 "checkpoint save of round %d failed (%s); training continues "
                 "on the surviving generations", round_idx, exc,
             )
+            self._count(
+                "fedtpu_checkpoint_save_failures_total",
+                "checkpoint saves that failed (ENOSPC/EIO/verify) — "
+                "non-fatal, training continues",
+            )
+            if self._flight is not None:
+                self._flight.record("checkpoint", event="save_failed", round=round_idx, error=str(exc))
             if self.strict:
                 raise
             return None
@@ -290,6 +303,21 @@ class Checkpointer:
             nbytes = 0
         self._prune()
         self.last_save = {"round": int(round_idx), "bytes": int(nbytes), "wall_s": round(wall, 6)}
+        self._count(
+            "fedtpu_checkpoint_saves_total",
+            "checkpoint generations written, verified, and made durable",
+        )
+        self._observe(
+            "fedtpu_checkpoint_write_seconds",
+            "wall seconds per checkpoint save (encode + fsync'd write + "
+            "verify)",
+            wall,
+        )
+        if self._metrics is not None:
+            self._metrics.gauge(
+                "fedtpu_checkpoint_bytes",
+                "on-disk bytes of the most recent checkpoint generation",
+            ).set(nbytes)
         # Silent corruption after the write was acknowledged (a disk that
         # lost its tail or flipped bits): only a restore can notice.
         if rule is not None and rule.kind in ("ckpt_torn", "ckpt_rot"):
@@ -323,6 +351,13 @@ class Checkpointer:
                     "checkpoint generation %d is corrupt (%s); falling back "
                     "to the previous generation", r, exc,
                 )
+                self._count(
+                    "fedtpu_checkpoint_fallback_total",
+                    "restore-time fallbacks past a corrupt checkpoint "
+                    "generation (torn write / bit rot)",
+                )
+                if self._flight is not None:
+                    self._flight.record("checkpoint", event="fallback", round=r, error=str(exc))
         raise wire.WireError(
             f"all {len(rounds)} checkpoint generations in {self.directory} "
             "failed verification"

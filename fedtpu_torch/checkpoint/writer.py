@@ -63,7 +63,7 @@ class BackgroundCheckpointer:
         if telemetry is not None:
             raise not_ported(
                 "BackgroundCheckpointer(telemetry=), the writer's checkpoint spans",
-                "slice 8, part 5",
+                "slice 8, part 5b",
             )
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")

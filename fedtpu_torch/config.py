@@ -559,5 +559,5 @@ def validate_edge(cfg: RoundConfig) -> RoundConfig:
     if fed.telemetry not in ("off", "basic", "trace"):
         raise ValueError(f"unknown telemetry {fed.telemetry!r}; have off | basic | trace")
     if fed.telemetry == "trace":
-        raise not_ported("telemetry='trace' (spans and trace propagation)", "slice 8")
+        raise not_ported("telemetry='trace' (spans and trace propagation)", "slice 8, part 5b")
     return cfg

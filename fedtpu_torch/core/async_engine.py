@@ -314,6 +314,11 @@ class AsyncFederation:
         self._arrival_rng = np.random.default_rng(cfg.data.seed * 6151 + seed)
         self.alive = self._fed.alive  # shared with the delegate
         self._tick_host = 0
+        # One registry and one status board with the delegate, whichever
+        # loop drives; the board's role says which one does.
+        self.telemetry = self._fed.telemetry
+        self.status = self._fed.status
+        self.status.update(role="async_engine")
 
     # ------------------------------------------------------------- schedule
     def _arrive_mask(self) -> np.ndarray:
@@ -348,6 +353,7 @@ class AsyncFederation:
         """One server update: everyone who can trains, ``buffer_k``
         clients report. ``offset``/``keys``: the tick's presharded offset
         or gather keys instead of the engine's draw."""
+        self.status.update(round=self._tick_host, phase="async_tick")
         x, y = self._fed.window(self.state.version, offset, keys)
         arrive = torch.from_numpy(self._arrive_mask()).to(self.device)
         alive = torch.from_numpy(self.alive.copy()).to(self.device)
@@ -355,6 +361,11 @@ class AsyncFederation:
             self.state, x, y, self._fed._has_data, self._fed.weights, arrive, alive, self._fed._generator
         )
         self._tick_host += 1
+        self.status.update(round=self._tick_host, phase="idle")
+        self.telemetry.counter(
+            "fedtpu_async_updates_total",
+            "simulated FedBuff server updates dispatched",
+        ).inc()
         return m
 
     def run_on_device(self, num_ticks: int, offsets=None, keys=None) -> AsyncMetrics:
@@ -368,12 +379,18 @@ class AsyncFederation:
         arrive = np.stack([self._arrive_mask() for _ in range(num_ticks)])
         alive = np.broadcast_to(self.alive.copy(), (num_ticks, n)).copy()
         multi = make_multi_async_step(self.model, self.cfg, num_ticks, self.staleness_power, self.staleness_damping)
+        self.status.update(round=self._tick_host, phase="fused_ticks", fused_block=num_ticks)
         self.state, m = multi(
             self.state, self._window(offsets, keys), self._fed._has_data, self._fed.weights,
             torch.from_numpy(arrive).to(self.device), torch.from_numpy(alive).to(self.device),
             self._fed._generator,
         )
         self._tick_host += num_ticks
+        self.status.update(round=self._tick_host, phase="idle")
+        self.telemetry.counter(
+            "fedtpu_async_updates_total",
+            "simulated FedBuff server updates dispatched",
+        ).inc(num_ticks)
         return m
 
     # ----------------------------------------------------- checkpoint/resume
@@ -455,9 +472,11 @@ class AsyncFederation:
         return float(loss), float(acc)
 
     def status_snapshot(self) -> dict:
-        raise not_ported(
-            "AsyncFederation.status_snapshot (the engine's status board)", "slice 8, part 5"
-        )
+        """The ``/statusz`` feed, as :meth:`Federation.status_snapshot`
+        gives it for the synchronous loop."""
+        snap = self.status.snapshot()
+        snap["alive"] = self.alive.tolist()
+        return snap
 
     def set_alive(self, client: int, alive: bool) -> None:
         self.alive[client] = alive

@@ -13,7 +13,10 @@ a round's participants are a seeded draw, uniform or in proportion to the
 clients' last losses; seeded attackers take their seats at build time.
 :attr:`Federation.generation` is the engine's checkpoint, fedtpu's
 ``FederatedState`` layout on the host; assigning a restored one resumes
-the run where it stopped. The engine runs on CUDA unless the caller names
+the run where it stopped. Under ``FedConfig.telemetry='basic'`` it counts
+rounds into :attr:`Federation.telemetry`'s registry and keeps a
+:class:`~fedtpu_torch.obs.StatusBoard` for ``/statusz``, as fedtpu's
+engine does. The engine runs on CUDA unless the caller names
 another device: without a card and without ``device="cpu"`` it raises, it
 never falls back to the CPU.
 """
@@ -41,6 +44,7 @@ from fedtpu_torch.core.round import (
     make_round_step,
 )
 from fedtpu_torch.data import datasets, device as device_data, partition
+from fedtpu_torch.obs import StatusBoard, Telemetry
 from fedtpu_torch.ops.compression import Compressor, make_compressor
 from fedtpu_torch.sim import adversary
 from fedtpu_torch.sim.sampling import loss_weights
@@ -92,18 +96,24 @@ class Federation:
         self,
         cfg: RoundConfig,
         seed: int = 0,
-        data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-        device=None,
         compressor: Optional[Compressor] = None,
+        data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        mesh=None,
         assignment: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        device=None,
         draws: Optional[RoundDraws] = None,
     ):
-        """``data``: ``(images, labels)`` instead of loading
-        ``cfg.data.dataset``. ``compressor``: a codec instead of the one
-        ``cfg.fed.compression`` names. ``assignment``: the client→example
-        map ``(idx, mask)``, each ``[num_clients, shard_len]``, instead of
-        ``cfg.data.partition``'s. ``draws``: the round's seeded draws
-        replaced (:class:`fedtpu_torch.core.round.RoundDraws`)."""
+        """fedtpu's arguments in fedtpu's order, then the port's own.
+        ``compressor``: a codec instead of the one ``cfg.fed.compression``
+        names. ``data``: ``(images, labels)`` instead of loading
+        ``cfg.data.dataset``. ``mesh``: not ported (ROADMAP.md item 6).
+        ``assignment``: the client→example map ``(idx, mask)``, each
+        ``[num_clients, shard_len]``, instead of ``cfg.data.partition``'s.
+        ``device``: where the rounds run (CUDA unless the caller says
+        otherwise). ``draws``: the round's seeded draws replaced
+        (:class:`fedtpu_torch.core.round.RoundDraws`)."""
+        if mesh is not None:
+            raise not_ported("Federation(mesh=...), the rounds over a device mesh", "slice 8, part 6")
         validate(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -197,6 +207,11 @@ class Federation:
         self.alive = np.ones((n,), bool)
         self._alive_dev = None  # (mask bytes, device tensor)
         self.history = []
+        # Host-side telemetry; swappable after construction (the round
+        # programs never close over it).
+        self.telemetry = Telemetry(cfg.fed.telemetry, role="engine")
+        # The /statusz feed: one locked dict merge per update.
+        self.status = StatusBoard(role="engine", phase="init", round=0, num_clients=n)
 
     # ------------------------------------------------------------- data
     def _ensure_device_data(self):
@@ -437,6 +452,17 @@ class Federation:
     # ----------------------------------------------------------- rounds
     def step(self, batch: Optional[RoundBatch] = None) -> RoundMetrics:
         """One round, on ``batch`` or on the device-resident data."""
+        r = self._state.round_idx
+        self.status.update(round=r, phase="round")
+        metrics = self._step_impl(batch)
+        self.status.update(round=r + 1, phase="idle")
+        self.telemetry.counter(
+            "fedtpu_rounds_completed_total",
+            "simulated FedAvg rounds dispatched by this engine",
+        ).inc()
+        return metrics
+
+    def _step_impl(self, batch: Optional[RoundBatch] = None) -> RoundMetrics:
         if batch is None:
             batch = self.device_batch(self._state.round_idx)
         self._state, metrics = self._round_step(self._state, batch, self._generator)
@@ -450,9 +476,15 @@ class Federation:
         fedtpu's fused block does."""
         if num_rounds < 1:
             raise ValueError(f"num_rounds must be >= 1, got {num_rounds}")
-        losses = self._state.last_client_loss.cpu().numpy() if self._loss_sampled() else None
         r = self._state.round_idx
-        per_round = [self.step(self.device_batch(r + i, losses=losses)) for i in range(num_rounds)]
+        self.status.update(round=r, phase="fused_rounds", fused_block=num_rounds)
+        losses = self._state.last_client_loss.cpu().numpy() if self._loss_sampled() else None
+        per_round = [self._step_impl(self.device_batch(r + i, losses=losses)) for i in range(num_rounds)]
+        self.status.update(round=r + num_rounds, phase="idle")
+        self.telemetry.counter(
+            "fedtpu_rounds_completed_total",
+            "simulated FedAvg rounds dispatched by this engine",
+        ).inc(num_rounds)
         return RoundMetrics(*(torch.stack(f) for f in zip(*per_round)))
 
     def run(
@@ -489,14 +521,32 @@ class Federation:
             rec["round_s"] = time.perf_counter() - t0
             rec["dataset"] = self.cfg.data.dataset
             rec["data_source"] = self._data_source
+            self.telemetry.histogram(
+                "fedtpu_round_wall_seconds",
+                "per-round host wall time (dispatch + sync)",
+            ).observe(rec["round_s"])
             if screen_on:
                 rec["screened"] = int(metrics.screened.sum())
+                if rec["screened"]:
+                    self.telemetry.counter(
+                        "fedtpu_screening_rejected_total",
+                        "client rows rejected by the fused screening "
+                        "stage, by surface",
+                        labels={"surface": "engine"},
+                    ).inc(rec["screened"])
             if self._attack_plan is not None:
                 if self._attack_seats is not None:
                     fired = adversary.fires_this_round(self._attack_plan, self._attack_seats, ridx)
                     rec["attackers_fired"] = int(fired.sum())
                 else:  # label_flip: the poisoned shards train every round
                     rec["attackers_fired"] = int(self.attacker_clients.sum())
+                if rec["attackers_fired"]:
+                    self.telemetry.counter(
+                        "fedtpu_attack_injected_total",
+                        "model/data-level attacks executed by seeded "
+                        "adversarial clients, by kind",
+                        labels={"kind": self._attack_plan.kind},
+                    ).inc(rec["attackers_fired"])
             if eval_every and (r + 1) % eval_every == 0 and eval_data is not None:
                 rec["test_loss"], rec["test_acc"] = self.evaluate(*eval_data)
                 self.eval_history.append((r, rec["test_loss"], rec["test_acc"]))
@@ -518,9 +568,12 @@ class Federation:
         return float(loss), float(acc)
 
     def status_snapshot(self) -> dict:
-        raise not_ported(
-            "Federation.status_snapshot (the engine's status board)", "slice 8, part 5"
-        )
+        """The ``/statusz`` feed: the board's round and phase plus the alive
+        mask (fedtpu's ``trace_id``, ``perf`` and ``compile`` blocks come
+        with ROADMAP.md items 5b and 5c)."""
+        snap = self.status.snapshot()
+        snap["alive"] = self.alive.tolist()
+        return snap
 
     def set_alive(self, client: int, alive: bool) -> None:
         """Mark a simulated client dead or alive."""

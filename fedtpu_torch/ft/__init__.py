@@ -13,8 +13,10 @@
   (:func:`parse_chaos_spec`), its wire faults fired by gRPC interceptors
   and its attacks by the client's trainer.
 
-The metrics registry these classes could count into is not ported yet:
-each takes ``metrics=None`` only. Importing this package imports no grpc.
+Each takes ``metrics=`` (a :class:`fedtpu_torch.obs.MetricsRegistry`) and
+counts its transitions under fedtpu's names; the failover machine and the
+chaos schedule also take a flight recorder. Importing this package imports
+no grpc.
 """
 
 from fedtpu_torch.ft.chaos import FaultRule, FaultSchedule

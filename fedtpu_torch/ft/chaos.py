@@ -27,10 +27,10 @@ keeps its own counter, and its n-th draw fires iff
 until one of its draws passes. The decision depends only on the seed and
 on that stream's own calls, never on how threads interleave.
 
-fedtpu counts every injection into its metrics registry and flight
-recorder; the port has neither yet (slice 8), so :meth:`FaultSchedule.
-attach` takes ``None`` only, and :meth:`FaultSchedule.injected_total` and
-:meth:`FaultSchedule.describe` report without them. Importing this module
+:meth:`FaultSchedule.attach` hooks a metrics registry and a flight
+recorder: every injection counts into ``fedtpu_chaos_injected_total{kind,
+rpc}`` (wire and disk faults) or ``fedtpu_attack_injected_total{kind}``
+(attacks) and records a ``chaos`` or ``attack`` event. Importing this module
 imports no grpc: the interceptors and the injected errors build their grpc
 classes when first asked for.
 """
@@ -165,18 +165,17 @@ class FaultSchedule:
         # Origin of the window= axis.
         self._t0 = time.monotonic()
         self._lock = threading.Lock()
+        self._metrics = None
+        self._flight = None
 
     # ------------------------------------------------------------ wiring
     def attach(self, metrics=None, flight=None) -> "FaultSchedule":
-        """fedtpu hooks a metrics registry and a flight recorder here; the
-        port has neither yet, so only ``None`` is taken."""
-        if metrics is not None or flight is not None:
-            from fedtpu_torch.config import not_ported
-
-            raise not_ported(
-                "FaultSchedule.attach(metrics=, flight=), the metrics registry "
-                "and the flight recorder", "slice 8",
-            )
+        """Hook the owning component's metrics registry and flight recorder
+        (a later call with None keeps an earlier hook)."""
+        if metrics is not None:
+            self._metrics = metrics
+        if flight is not None:
+            self._flight = flight
         return self
 
     def set_round(self, round_idx: int) -> None:
@@ -234,11 +233,33 @@ class FaultSchedule:
                     # Only a drawn pass re-arms a capped stream.
                     self._streak[key] = 0
         if fired is not None:
-            log.warning(
-                "chaos: injecting %s on %s%s (round=%s)",
-                fired.kind, rpc, f" -> {peer}" if peer != "*" else "", self._round,
-            )
+            self._record(fired, rpc, peer)
         return fired
+
+    def _record(self, rule: FaultRule, rpc: str, peer: str) -> None:
+        log.warning(
+            "chaos: injecting %s on %s%s (round=%s)",
+            rule.kind, rpc, f" -> {peer}" if peer != "*" else "", self._round,
+        )
+        if self._metrics is not None:
+            if rule.is_attack:
+                self._metrics.counter(
+                    "fedtpu_attack_injected_total",
+                    "model/data-level attacks executed by seeded "
+                    "adversarial clients, by kind",
+                    labels={"kind": rule.kind},
+                ).inc()
+            else:
+                self._metrics.counter(
+                    "fedtpu_chaos_injected_total",
+                    "faults injected by the chaos schedule, by kind and rpc",
+                    labels={"kind": rule.kind, "rpc": rpc},
+                ).inc()
+        if self._flight is not None:
+            self._flight.record(
+                "attack" if rule.is_attack else "chaos",
+                fault=rule.kind, rpc=rpc, peer=peer, round=self._round,
+            )
 
     def injected_total(self) -> int:
         with self._lock:
@@ -273,6 +294,12 @@ class FaultSchedule:
     # ------------------------------------------------------- application
     def _kill(self, rpc: str) -> None:
         log.warning("chaos: SIGKILL of pid %d (rule on %s)", os.getpid(), rpc)
+        if self._flight is not None:
+            # SIGKILL leaves no exit path: the dump is the drill's record.
+            try:
+                self._flight.dump(reason="chaos:kill")
+            except Exception:
+                pass
         os.kill(os.getpid(), signal.SIGKILL)
 
     def apply_precall(self, rule: FaultRule, rpc: str) -> None:

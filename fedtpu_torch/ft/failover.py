@@ -9,9 +9,11 @@ protocol as a pure, event-driven machine: ``on_ping`` and
 ``check_watchdog`` transitions over an injected clock, promotion and
 demotion as callbacks, so it runs under a fake clock in tests.
 :class:`PrimaryPinger` and :class:`WatchdogRunner` are its two threads.
-Transitions are logged; fedtpu also counts them into a metrics registry and
-a flight recorder, which the port does not have yet (``metrics=None`` and
-``flight=None`` only).
+Transitions are logged, counted into ``metrics=``
+(``fedtpu_ft_failover_transitions_total{to}``) and recorded into
+``flight=`` (a :class:`~fedtpu_torch.obs.FlightRecorder`), which dumps on
+every transition: the seconds before a role flip are what the lost primary
+took with it.
 """
 
 from __future__ import annotations
@@ -21,8 +23,6 @@ import logging
 import threading
 import time
 from typing import Callable, Optional
-
-from fedtpu_torch.ft.membership import refuse_metrics
 
 log = logging.getLogger("fedtpu_torch.ft")
 
@@ -53,21 +53,27 @@ class FailoverStateMachine:
         metrics: Optional[object] = None,
         flight: Optional[object] = None,
     ):
-        refuse_metrics(metrics)
-        if flight is not None:
-            from fedtpu_torch.config import not_ported
-
-            raise not_ported("a flight recorder (flight=)", "slice 8")
         self.timeout = timeout
         self.on_promote = on_promote
         self.on_demote = on_demote
         self.clock = clock
+        self._metrics = metrics
+        self._flight = flight
         self.role = Role.BACKUP
         self._last_ping: Optional[float] = clock() if arm_without_ping else None
         self._lock = threading.Lock()
 
     def _transition_event(self, src: Role, dst: Role, why: str) -> None:
         log.warning("failover: %s -> %s (%s)", src.value, dst.value, why)
+        if self._metrics is not None:
+            self._metrics.counter(
+                "fedtpu_ft_failover_transitions_total",
+                "role transitions by destination role",
+                labels={"to": dst.value},
+            ).inc()
+        if self._flight is not None:
+            self._flight.record("failover", src=src.value, dst=dst.value, why=why)
+            self._flight.dump(reason=f"failover:{dst.value}")
 
     def on_ping(self, recovering: bool) -> int:
         """One CheckIfPrimaryUp; returns the PingResponse value (1: "I was
@@ -143,7 +149,8 @@ class _Periodic:
 class PrimaryPinger(_Periodic):
     """The primary's pinger: ``recovering`` on the first ping after a
     (re)start, cleared once one is delivered. ``send(recovering) ->
-    Optional[int]`` is injected (None: the backup is unreachable)."""
+    Optional[int]`` is injected (None: the backup is unreachable). With
+    ``metrics=`` each ping is timed into ``fedtpu_ft_rpc_seconds``."""
 
     def __init__(
         self,
@@ -152,14 +159,21 @@ class PrimaryPinger(_Periodic):
         recovering: bool = True,
         metrics: Optional[object] = None,
     ):
-        refuse_metrics(metrics)
         self.send = send
         self.period = period
         self.recovering = recovering
+        self._metrics = metrics
         self._init_thread()
 
     def tick(self) -> Optional[int]:
+        t0 = time.perf_counter()
         result = self.send(self.recovering)
+        if self._metrics is not None:
+            self._metrics.histogram(
+                "fedtpu_ft_rpc_seconds",
+                "FT control-plane RPC round-trip seconds by rpc",
+                labels={"rpc": "CheckIfPrimaryUp"},
+            ).observe(time.perf_counter() - t0)
         if result is not None:
             self.recovering = False
         return result

@@ -6,8 +6,9 @@ Any RpcError of StartTrain or SendModel marks a client dead; a
 answers, pushes the current global model to the client before marking it
 alive, so a revived client never gets a StartTrain ahead of the model.
 The probe and the resync are injected, and :meth:`HeartbeatMonitor.tick`
-runs one pass by hand, so the loop is testable without sleeps.
-:class:`ClientRegistry` is fedtpu's fixed-roster name for
+runs one pass by hand, so the loop is testable without sleeps. With
+``metrics=`` it counts misses and failed resyncs and times each probe under
+fedtpu's names. :class:`ClientRegistry` is fedtpu's fixed-roster name for
 :class:`~fedtpu_torch.ft.membership.MembershipTable`.
 """
 
@@ -18,7 +19,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
-from fedtpu_torch.ft.membership import MembershipTable, refuse_metrics
+from fedtpu_torch.ft.membership import MembershipTable
 
 log = logging.getLogger("fedtpu_torch.ft")
 
@@ -46,23 +47,44 @@ class HeartbeatMonitor:
         metrics: Optional[object] = None,
         probe_deadline_s: Optional[float] = None,
     ):
-        refuse_metrics(metrics)
         self.registry = registry
         self.probe = probe
         self.resync = resync
         self.period = period
         self.probe_deadline_s = probe_deadline_s
+        self._metrics = metrics
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
+    def _count(self, name: str, help: str) -> None:
+        if self._metrics is not None:
+            self._metrics.counter(name, help).inc()
+
     def _probe_one(self, client: str, recovered: List[str], lock: threading.Lock) -> None:
-        """One probe, and on an answer the resync, then the revive."""
-        if not self.probe(client):
+        """One timed probe, and on an answer the resync, then the revive."""
+        t0 = time.perf_counter()
+        up = self.probe(client)
+        if self._metrics is not None:
+            self._metrics.histogram(
+                "fedtpu_ft_rpc_seconds",
+                "FT control-plane RPC round-trip seconds by rpc",
+                labels={"rpc": "HeartBeat"},
+            ).observe(time.perf_counter() - t0)
+        if not up:
+            self._count(
+                "fedtpu_ft_heartbeat_misses_total",
+                "heartbeat probes of dead clients that stayed dead",
+            )
             return
         try:
             self.resync(client)
         except Exception:
-            return  # still unreachable (or a stale send in flight): next pass
+            # Still unreachable (or a stale send in flight): next pass.
+            self._count(
+                "fedtpu_ft_resync_failures_total",
+                "heartbeat succeeded but the resync push failed",
+            )
+            return
         self.registry.mark_alive(client)
         with lock:
             recovered.append(client)

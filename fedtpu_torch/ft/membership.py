@@ -18,8 +18,11 @@
 
 :meth:`snapshot` is fedtpu's to the key order and the float: its
 ``json.dumps`` is the ``membership`` leaf of the replica, byte for byte.
-fedtpu counts transitions into a metrics registry; the port logs them and
-takes ``metrics=None`` only.
+Transitions are logged and, with ``metrics=`` (a
+:class:`~fedtpu_torch.obs.MetricsRegistry` or a ``Telemetry``), counted
+under fedtpu's names: ``fedtpu_membership_joins_total``,
+``fedtpu_membership_evictions_total{reason}``, the death and recovery
+counters and the size, version and quarantine gauges.
 """
 
 from __future__ import annotations
@@ -34,14 +37,6 @@ import numpy as np
 log = logging.getLogger("fedtpu_torch.ft")
 
 
-def refuse_metrics(metrics) -> None:
-    """The ft classes take no metrics registry yet."""
-    if metrics is not None:
-        from fedtpu_torch.config import not_ported
-
-        raise not_ported("a metrics registry (metrics=)", "slice 8")
-
-
 class MembershipTable:
     """Thread-safe, versioned, seat-stable membership roster.
 
@@ -51,13 +46,13 @@ class MembershipTable:
     before it may receive a StartTrain."""
 
     def __init__(self, clients: Iterable[str] = (), metrics: Optional[object] = None):
-        refuse_metrics(metrics)
         self._seat: Dict[str, int] = {}
         self._alive: Dict[str, bool] = {}
         self._free: List[int] = []  # freed seats, a min-heap
         self._capacity = 0
         self._version = 0
         self._lock = threading.Lock()
+        self._metrics = metrics
         # Suspicion EWMA per member, and the quarantined members' counts of
         # consecutive quarantined rounds (absent: not quarantined).
         self._suspicion: Dict[str, float] = {}
@@ -69,8 +64,39 @@ class MembershipTable:
             self._alive[c] = True
             self._capacity += 1
 
+    # ------------------------------------------------------------ metrics
+    def _count(self, name: str, help: str, labels=None) -> None:
+        if self._metrics is not None:
+            self._metrics.counter(name, help, labels=labels).inc()
+
+    def _gauges(self) -> None:
+        """Refresh the size, version and quarantine gauges (outside the
+        lock)."""
+        if self._metrics is None:
+            return
+        self._metrics.gauge(
+            "fedtpu_membership_size",
+            "current federation members (alive + dead, evicted excluded)",
+        ).set(self.size)
+        self._metrics.gauge(
+            "fedtpu_membership_version",
+            "membership epoch: bumped by every admit/evict transition",
+        ).set(self.version)
+        with self._lock:
+            n_quarantined = len(self._quarantined)
+        self._metrics.gauge(
+            "fedtpu_membership_quarantined",
+            "members currently quarantined (served but updates ignored)",
+        ).set(n_quarantined)
+
     def _unknown(self, op: str, client: str) -> None:
         log.info("membership: %s for non-member %s ignored", op, client)
+        self._count(
+            "fedtpu_membership_unknown_total",
+            "registry operations for non-members, ignored (late RPCs from "
+            "evicted clients)",
+            labels={"op": op},
+        )
 
     # ------------------------------------------------------ introspection
     @property
@@ -142,6 +168,12 @@ class MembershipTable:
             self._version += 1
             version = self._version
         log.info("membership v%d: admitted %s at seat %d (unsynced)", version, client, seat)
+        self._count(
+            "fedtpu_membership_joins_total",
+            "members admitted into the federation (join RPCs + rejoins "
+            "after eviction; the startup roster is not counted)",
+        )
+        self._gauges()
         return seat
 
     def evict(self, client: str, reason: str = "leave") -> bool:
@@ -159,6 +191,12 @@ class MembershipTable:
             self._unknown("evict", client)
             return False
         log.info("membership v%d: evicted %s from seat %d (%s)", version, client, seat, reason)
+        self._count(
+            "fedtpu_membership_evictions_total",
+            "members removed from the federation, by reason",
+            labels={"reason": reason},
+        )
+        self._gauges()
         return True
 
     def mark_failed(self, client: str) -> None:
@@ -170,6 +208,7 @@ class MembershipTable:
             self._unknown("mark_failed", client)
         elif was_alive:
             log.warning("client %s marked dead", client)
+            self._count("fedtpu_ft_client_deaths_total", "alive -> dead client transitions")
 
     def mark_alive(self, client: str) -> None:
         with self._lock:
@@ -180,6 +219,7 @@ class MembershipTable:
             self._unknown("mark_alive", client)
         elif not was_alive:
             log.info("client %s recovered", client)
+            self._count("fedtpu_ft_client_recoveries_total", "dead -> alive client transitions")
 
     def is_alive(self, client: str) -> bool:
         """False for non-members."""
@@ -224,6 +264,12 @@ class MembershipTable:
         log.warning(
             "membership: client %s QUARANTINED (suspicion %.3f)", client, self.suspicion(client)
         )
+        self._count(
+            "fedtpu_membership_quarantine_total",
+            "members placed in quarantine by the screening reputation "
+            "escalation (dedicated counter — not a transient failure)",
+        )
+        self._gauges()
         return True
 
     def release(self, client: str) -> bool:
@@ -235,6 +281,7 @@ class MembershipTable:
                 "membership: client %s released from quarantine (suspicion %.3f)",
                 client, self.suspicion(client),
             )
+            self._gauges()
         return present
 
     def is_quarantined(self, client: str) -> bool:
@@ -303,6 +350,7 @@ class MembershipTable:
             "membership v%d: restored roster (%d members, capacity %d)",
             version, len(members), capacity,
         )
+        self._gauges()
 
     def status(self) -> dict:
         """The roster as a status block: version, size, capacity, who is

@@ -1,0 +1,68 @@
+"""fedtpu_torch.obs: the metrics registry, its exporters, the flight recorder
+and the status plane, the port of fedtpu's ``fedtpu/obs`` (``off`` and
+``basic`` telemetry).
+
+- :mod:`~fedtpu_torch.obs.registry`: thread-safe counters, gauges and
+  histograms;
+- :mod:`~fedtpu_torch.obs.exporters`: schema-versioned JSONL round records
+  and Prometheus text;
+- :mod:`~fedtpu_torch.obs.telemetry`: :class:`Telemetry`, the registry
+  gated on ``FedConfig.telemetry`` (``off | basic``);
+- :mod:`~fedtpu_torch.obs.flight`: the crash flight recorder;
+- :mod:`~fedtpu_torch.obs.http`: ``/metrics`` ``/healthz`` ``/statusz``
+  ``/flightz`` and the :class:`StatusBoard` behind ``/statusz``;
+- :mod:`~fedtpu_torch.obs.proc`: the process's resident set and open
+  descriptors.
+
+The metric names, help strings, labels and buckets are fedtpu's
+(``docs/OBSERVABILITY.md`` lists them). Nothing here imports torch or
+grpc, so config-only and ft users pay for no backend.
+"""
+
+from fedtpu_torch.obs.exporters import (
+    SCHEMA_VERSION,
+    RoundRecordWriter,
+    parse_prometheus_text,
+    prometheus_text,
+    read_round_records,
+    write_prometheus,
+)
+from fedtpu_torch.obs.flight import FlightRecorder
+from fedtpu_torch.obs.http import ObsServer, StatusBoard
+from fedtpu_torch.obs.proc import process_fd_count, process_rss_bytes
+from fedtpu_torch.obs.registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    get_global_registry,
+)
+from fedtpu_torch.obs.telemetry import (
+    NULL_TELEMETRY,
+    TELEMETRY_MODES,
+    Telemetry,
+    validate_telemetry_mode,
+)
+
+__all__ = [
+    "FlightRecorder",
+    "ObsServer",
+    "StatusBoard",
+    "process_fd_count",
+    "process_rss_bytes",
+    "SCHEMA_VERSION",
+    "RoundRecordWriter",
+    "parse_prometheus_text",
+    "prometheus_text",
+    "read_round_records",
+    "write_prometheus",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "get_global_registry",
+    "NULL_TELEMETRY",
+    "TELEMETRY_MODES",
+    "Telemetry",
+    "validate_telemetry_mode",
+]

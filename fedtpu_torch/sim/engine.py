@@ -23,10 +23,9 @@ map is the identity every round, no seat is reset, and the sim engine is
 the resident :class:`Federation` bit for bit.
 
 A block of :meth:`run_on_device` rounds draws one cohort, as fedtpu's
-fused block does. fedtpu's ``status_snapshot`` and its ``fedtpu_sim_*``
-gauges build on the engine's status board and the metrics registry, which
-the port has not yet: :meth:`SimFederation.status_snapshot` raises, and no
-gauge is kept.
+fused block does. Each install sets fedtpu's five ``fedtpu_sim_*`` gauges
+in the engine's registry, and :meth:`SimFederation.status_snapshot` adds
+the population's block to the engine's board.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from fedtpu_torch.config import RoundConfig, not_ported, validate_sim_config
+from fedtpu_torch.config import RoundConfig, validate_sim_config
 from fedtpu_torch.core.engine import Federation
 from fedtpu_torch.core.round import RoundDraws
 from fedtpu_torch.data import datasets
@@ -62,11 +61,13 @@ class SimFederation(Federation):
         self,
         cfg: RoundConfig,
         seed: int = 0,
+        compressor=None,
         data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         device=None,
-        compressor=None,
         draws: Optional[RoundDraws] = None,
     ):
+        """fedtpu's arguments in fedtpu's order, then the port's
+        ``device`` and ``draws`` (as :class:`Federation` takes them)."""
         validate_sim_config(cfg.fed)
         sim = cfg.fed.sim
         if sim.population <= 0:
@@ -127,6 +128,7 @@ class SimFederation(Federation):
         self.population.mark_sampled(ids0[alive0], 0)
         self._refresh_attack_seats(ids0, alive0)
         self.heterogeneity = self.population.heterogeneity_index(labels)
+        self._set_sim_gauges()
 
     # ------------------------------------------------------------ installs
     def _cohort_assignment(self, ids: np.ndarray, alive: np.ndarray):
@@ -145,6 +147,31 @@ class SimFederation(Federation):
             return
         self._attack_seats = seated.astype(np.float32)
         self._attack_seats_dev = torch.tensor(self._attack_seats, device=self.device)
+
+    def _set_sim_gauges(self) -> None:
+        tel = self.telemetry
+        if self._pop_attackers is not None:
+            tel.gauge(
+                "fedtpu_sim_malicious_in_cohort",
+                "seeded malicious clients live in the current cohort",
+            ).set(int((self._pop_attackers[self._cohort_ids] & self.alive).sum()))
+        tel.gauge(
+            "fedtpu_sim_population",
+            "simulated population size (host-resident clients)",
+        ).set(self.population.size)
+        tel.gauge(
+            "fedtpu_sim_cohort_size",
+            "live clients in the current cohort (dead-padded seats excluded)",
+        ).set(int(self.alive.sum()))
+        tel.gauge(
+            "fedtpu_sim_heterogeneity_index",
+            "mean total-variation distance of client label distributions "
+            "from the population's (0 = IID)",
+        ).set(self.heterogeneity)
+        tel.gauge(
+            "fedtpu_sim_never_sampled",
+            "population clients never yet drawn into a cohort",
+        ).set(self.population.never_sampled())
 
     def _refresh(self, fresh: np.ndarray, ids: np.ndarray) -> None:
         """Reset the momentum and codec residuals of the reassigned seats
@@ -190,6 +217,7 @@ class SimFederation(Federation):
             self._slot_ids = slot_ids
         # else the same cohort in the same seats: state, assignment and
         # weights are already this cohort's, and stay untouched.
+        self._set_sim_gauges()
 
     def _observe_back(self) -> None:
         """The block's loss observations into the population's table
@@ -237,7 +265,13 @@ class SimFederation(Federation):
         return self.evaluate(np.asarray(images)[sel], np.asarray(labels)[sel])
 
     def status_snapshot(self) -> dict:
-        raise not_ported(
-            "SimFederation.status_snapshot and the fedtpu_sim_* gauges (the "
-            "engine's status board and the metrics registry)", "slice 8, part 5",
+        """The engine's snapshot with the population's ``sim`` block."""
+        snap = super().status_snapshot()
+        snap["sim"] = dict(
+            self.population.stats(),
+            cohort_round=self._cohort_round,
+            cohort_live=int(self.alive.sum()),
+            scenario=self.scenario_spec,
+            heterogeneity_index=round(self.heterogeneity, 4),
         )
+        return snap

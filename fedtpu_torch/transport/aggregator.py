@@ -60,7 +60,7 @@ from fedtpu_torch.transport.service import (
     create_server,
     probe,
 )
-from fedtpu_torch.utils.observe import CounterTable, process_rss_bytes
+from fedtpu_torch.obs import Telemetry, process_rss_bytes
 
 __all__ = ["AggregatorServer", "CohortSource", "serve_aggregator"]
 
@@ -108,7 +108,7 @@ class AggregatorServer(TrainerServicer):
         self._deadlines = {"StartTrain": rp.start_train_timeout_s, "SendModel": rp.send_model_timeout_s}
         self.chaos = chaos
         self._compress = compress
-        self.counters = CounterTable()
+        self.telemetry = Telemetry(cfg.fed.telemetry, role=f"aggregator:{identity}")
         # The decode template of dense replies and of SendModel; the row's
         # sizes come from it, so root, tier and clients agree on P.
         self._template = _model_template(cfg) if template is None else template
@@ -127,7 +127,8 @@ class AggregatorServer(TrainerServicer):
         self._round_seen = -1
         self._last_partial: dict = {}
         self.cohort_source = cohort_source
-        self.registry = MembershipTable(clients)
+        metrics = self.telemetry.registry if self.telemetry.enabled else None
+        self.registry = MembershipTable(clients, metrics=metrics)
         self._member_lock = threading.Lock()
         self._stubs: Dict[str, TrainerStub] = {c: self._make_stub(c) for c in clients}
         self.monitor = HeartbeatMonitor(
@@ -135,6 +136,7 @@ class AggregatorServer(TrainerServicer):
             probe=self._probe_member,
             resync=self._resync,
             period=cfg.fed.ft_heartbeat_period_s,
+            metrics=metrics,
             probe_deadline_s=rp.max_attempts * (rp.probe_timeout_s + rp.backoff_max_s) + 1.0,
         )
         self._server: Optional[grpc.Server] = None
@@ -155,7 +157,7 @@ class AggregatorServer(TrainerServicer):
         if stub is None:
             return False
         return probe(stub, timeout=self.retry_policy.probe_timeout_s, policy=self.retry_policy,
-                     telemetry=self.counters) is not None
+                     telemetry=self.telemetry) is not None
 
     def _resync(self, client: str) -> bool:
         """The current global to a revived cohort member; False when there
@@ -174,7 +176,7 @@ class AggregatorServer(TrainerServicer):
                     proto.SendModelRequest(model=payload, epoch=self._max_epoch),
                     timeout=self._deadlines["SendModel"],
                 ),
-                peer=client, telemetry=self.counters,
+                peer=client, telemetry=self.telemetry,
             )
             return True
         except grpc.RpcError:
@@ -191,6 +193,11 @@ class AggregatorServer(TrainerServicer):
                 return
             newest = self._max_epoch
         log.warning("%s from stale coordinator epoch %d rejected (newest seen %d)", rpc, epoch, newest)
+        self.telemetry.counter(
+            "fedtpu_ft_stale_rejected_total",
+            "coordinator RPCs rejected for a stale fencing epoch, by rpc",
+            labels={"rpc": rpc},
+        ).inc()
         context.abort(grpc.StatusCode.FAILED_PRECONDITION, f"STALE_COORDINATOR: epoch {epoch} < {newest}")
 
     # ----------------------------------------------------- inbound surface
@@ -202,6 +209,10 @@ class AggregatorServer(TrainerServicer):
         with self._global_lock:
             self._global_bytes = request.model
             self._global_host = {k: tree[k] for k in ("params", "batch_stats")}
+        self.telemetry.counter(
+            "fedtpu_rpc_bytes_down_total",
+            "payload bytes shipped/received on the downstream face",
+        ).inc(len(request.model))
         failed = self._relay_model(request.model, request.epoch)
         return proto.SendModelReply(reply=f"relayed:{self.cohort_size - failed}/{self.cohort_size}".encode())
 
@@ -223,10 +234,14 @@ class AggregatorServer(TrainerServicer):
                         proto.SendModelRequest(model=payload, epoch=epoch),
                         timeout=self._deadlines["SendModel"],
                     ),
-                    peer=client, telemetry=self.counters,
+                    peer=client, telemetry=self.telemetry,
                 )
             except grpc.RpcError:
                 failures.append(client)
+                self.telemetry.counter(
+                    "fedtpu_rpc_failures_total", "RpcErrors by failing RPC",
+                    labels={"rpc": "SendModel"},
+                ).inc()
                 self.registry.mark_failed(client)
 
         threads = [threading.Thread(target=send_one, args=(c,), daemon=True)
@@ -246,6 +261,17 @@ class AggregatorServer(TrainerServicer):
         sum, answered as one ``partial_flat`` record."""
         self._fence_check(request.epoch, "SubmitPartial", context)
         self._round_seen = request.round
+        t_start = time.monotonic()
+        reply = self._submit_partial_impl(request, context)
+        self.telemetry.histogram(
+            "fedtpu_round_phase_seconds",
+            "per-round phase durations by phase",
+            labels={"phase": "submit_partial"},
+        ).observe(time.monotonic() - t_start)
+        return reply
+
+    def _submit_partial_impl(self, request: proto.SubmitPartialRequest, context) -> proto.SubmitPartialReply:
+        tel = self.telemetry
         cfg = self.cfg
         if self.cohort_source is not None:
             payloads = self.cohort_source(request.round, request.rank_base, request.world)
@@ -269,6 +295,16 @@ class AggregatorServer(TrainerServicer):
 
         buf = torch.zeros((len(launch), self._padded), dtype=torch.float32, device=self.device)
         row_of = {c: i for i, c in enumerate(launch)}
+        tel.gauge(
+            "fedtpu_buffer_bytes",
+            "host+device bytes of the round's flat delta buffers, by tier",
+            labels={"tier": "leaf"},
+        ).set(buf.numel() * buf.element_size())
+        tel.gauge(
+            "fedtpu_partial_rows_buffered",
+            "cohort rows currently buffered toward this tier's partial "
+            "reduce",
+        ).set(len(launch))
         results: Dict[str, float] = {}
         stale: List[str] = []
         lock = threading.Lock()
@@ -283,6 +319,10 @@ class AggregatorServer(TrainerServicer):
                 with self._global_lock:
                     base = self._global_host
                 extra = wire.decode_into_row(data, self._payload_template, base, row)
+            tel.counter(
+                "fedtpu_rpc_bytes_up_total",
+                "payload bytes received on the upstream-bound face",
+            ).inc(len(data))
             return float(extra["num_examples"])
 
         def train_one(client: str) -> None:
@@ -295,8 +335,7 @@ class AggregatorServer(TrainerServicer):
                 return decode_one(client, reply.message)
 
             try:
-                n = call_with_retry(self.retry_policy, "StartTrain", attempt, peer=client,
-                                    telemetry=self.counters)
+                n = call_with_retry(self.retry_policy, "StartTrain", attempt, peer=client, telemetry=tel)
                 with lock:
                     results[client] = n
             except (grpc.RpcError, wire.WireError) as e:
@@ -307,6 +346,10 @@ class AggregatorServer(TrainerServicer):
                         stale.append(e.details() or "STALE_COORDINATOR")
                     return
                 log.warning("cohort member %s failed StartTrain: %s", client, e)
+                tel.counter(
+                    "fedtpu_rpc_failures_total", "RpcErrors by failing RPC",
+                    labels={"rpc": "StartTrain"},
+                ).inc()
                 self.registry.mark_failed(client)
 
         t0 = time.monotonic()
@@ -323,12 +366,18 @@ class AggregatorServer(TrainerServicer):
             for t in threads:
                 t.join()
         t_collect = time.monotonic() - t0
+        tel.gauge("fedtpu_partial_rows_buffered", "").set(0)
 
         if stale:
             context.abort(grpc.StatusCode.FAILED_PRECONDITION, stale[0])
         quorum = cfg.fed.round_quorum
         needed = max(1, int(np.ceil(quorum * members_now))) if quorum > 0 else 0
         if len(results) < needed:
+            tel.counter(
+                "fedtpu_round_aborts_total",
+                "rounds aborted below quorum, by surface",
+                labels={"surface": "aggregator"},
+            ).inc()
             context.abort(
                 grpc.StatusCode.FAILED_PRECONDITION,
                 f"SUB_QUORUM: {len(results)}/{members_now} cohort replies < quorum {quorum}",
@@ -353,6 +402,10 @@ class AggregatorServer(TrainerServicer):
         sum_row = sum_row[: self._total].cpu().numpy()
         weight_sum = float(weight_sum)
         reduce_ms = start.elapsed_time(end) if cuda else (time.perf_counter() - t1) * 1e3
+        tel.histogram(
+            "fedtpu_round_phase_seconds", "",
+            labels={"phase": "partial_reduce"},
+        ).observe(time.perf_counter() - t1)
         record = sparse.encode_partial_flat(
             sum_row, self._sizes,
             extra={
@@ -371,6 +424,8 @@ class AggregatorServer(TrainerServicer):
             "buffer_bytes": int(buf.numel() * buf.element_size()),
             "record_bytes": len(record),
         }
+        tel.counter("fedtpu_rounds_completed_total",
+                    "partial reduces completed by this tier").inc()
         return proto.SubmitPartialReply(record=record, clients=len(order))
 
     # ---------------------------------------------------------- lifecycle
@@ -398,6 +453,10 @@ class AggregatorServer(TrainerServicer):
             "mem": {
                 "rss_bytes": process_rss_bytes(),
                 "buffer_bytes": int(self._last_partial.get("buffer_bytes", 0)),
+                "partial_rows_buffered": (
+                    int(self.telemetry.registry.gauge("fedtpu_partial_rows_buffered", "").value)
+                    if self.telemetry.enabled else 0
+                ),
                 "tier": "leaf",
             },
             "last_partial": dict(self._last_partial),

@@ -56,12 +56,13 @@ attack rules make a client an attacker.
 loop: a worker thread per seat, no barrier, an update every ``buffer_k``
 replies (:func:`~fedtpu_torch.transport.aggregation.fedbuff_apply`).
 
-The round record is API whatever ``telemetry`` says (``off`` or
-``basic``); the port exports no metrics registry, spans or flight
-recorder (``counters`` holds fedtpu's counters, no histogram). Not ported
-yet, and raising ``NotImplementedError``: ``flight=`` and
-``telemetry="trace"`` (slice 8, part 5). The trace context a coordinator
-may attach as metadata is not read.
+The round record is API whatever ``telemetry`` says. Under ``basic`` each
+component counts into its own :class:`~fedtpu_torch.obs.Telemetry`
+registry under fedtpu's metric names, and the primary and the backup each
+own a :class:`~fedtpu_torch.obs.FlightRecorder` (rounds, fences,
+membership, failover) and a :class:`~fedtpu_torch.obs.StatusBoard`.
+``telemetry="trace"`` raises ``NotImplementedError`` (ROADMAP.md item 5b),
+and the trace context a coordinator may attach as metadata is not read.
 """
 
 from __future__ import annotations
@@ -82,7 +83,6 @@ import torch
 from fedtpu_torch import models
 from fedtpu_torch.config import (
     RoundConfig,
-    not_ported,
     resolve_server_pipeline,
     screening_enabled,
     validate_coordinator,
@@ -101,6 +101,7 @@ from fedtpu_torch.ft import (
     Role,
     WatchdogRunner,
 )
+from fedtpu_torch.obs import Counter, FlightRecorder, StatusBoard, Telemetry, process_rss_bytes
 from fedtpu_torch.ops import flat as flat_ops
 from fedtpu_torch.transport import aggregation, msgpack, proto, sparse, wire
 from fedtpu_torch.transport.codec_policy import AdaptiveCodecPolicy
@@ -113,7 +114,7 @@ from fedtpu_torch.transport.service import (
     probe,
 )
 from fedtpu_torch.transport.trainer import LocalTrainer
-from fedtpu_torch.utils.observe import Counter, CounterTable, latency_summary, process_rss_bytes
+from fedtpu_torch.utils.observe import latency_summary
 
 __all__ = ["BackupServer", "ClientAgent", "LocalTrainer", "PrimaryServer", "serve_client"]
 
@@ -189,9 +190,8 @@ class PrimaryServer:
         from ``seed`` by torch. ``device``: where the coordinator's tensors
         live, CUDA unless named. ``chaos``: a :class:`fedtpu_torch.ft.chaos.
         FaultSchedule` whose interceptor every channel this server dials
-        carries."""
-        if flight is not None:
-            raise not_ported("PrimaryServer(flight=...), the flight recorder", "slice 8")
+        carries. ``flight``: the :class:`fedtpu_torch.obs.FlightRecorder`
+        the round loop records into (one of its own when None)."""
         validate_coordinator(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -221,8 +221,15 @@ class PrimaryServer:
         # Under chaos the retries' jitter draws from a stream seeded by the
         # schedule, so a run's retry timing replays with its seed.
         self._retry_rand = random.Random(chaos.seed ^ 0xFE17CE).random if chaos is not None else None
-        # fedtpu_rpc_retries_total{rpc}, counted by the retry helper.
-        self.counters = CounterTable()
+        self.telemetry = Telemetry(cfg.fed.telemetry, role="primary")
+        # The black box of recent rounds, fences and warning+ events,
+        # dumpable at any moment and read over /flightz.
+        self.flight = flight if flight is not None else FlightRecorder(role="primary")
+        # The /statusz feed: the round loop updates round and phase.
+        self.status = StatusBoard(role="primary", phase="init", round=0)
+        metrics = self.telemetry.registry if self.telemetry.enabled else None
+        if chaos is not None:
+            chaos.attach(metrics=metrics, flight=self.flight)
         shape, _ = datasets.dataset_info(cfg.data.dataset)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -265,8 +272,8 @@ class PrimaryServer:
         self._epoch_seen = -1
         self._fence_lock = threading.Lock()
         self._fence_retry_s = 0.5
-        self._coord_epoch = 1
-        self.registry = MembershipTable(clients)
+        self._set_epoch(1)
+        self.registry = MembershipTable(clients, metrics=metrics)
         self._member_lock = threading.Lock()
         self._stubs: Dict[str, TrainerStub] = {c: self._make_stub(c) for c in clients}
         self._gate_server = None
@@ -279,9 +286,10 @@ class PrimaryServer:
             probe=self._probe_member,
             resync=self._resync,
             period=cfg.fed.ft_heartbeat_period_s,
+            metrics=metrics,
             probe_deadline_s=rp.max_attempts * (rp.probe_timeout_s + rp.backoff_max_s) + 1.0,
         )
-        self.pinger = PrimaryPinger(self._ping_backup) if self.backup_stub else None
+        self.pinger = PrimaryPinger(self._ping_backup, metrics=metrics) if self.backup_stub else None
         self.server_pipeline = resolve_server_pipeline(cfg.fed)
         # The root of two tiers: the roster holds aggregators, aggregator
         # seat j relays the data ranks [j * fanout, (j + 1) * fanout), and
@@ -331,7 +339,14 @@ class PrimaryServer:
         return wire.encode(self._host_model(), compress=self.compress)
 
     def _set_epoch(self, epoch: int) -> None:
+        """Adopt a coordinator epoch and mirror it on its gauge, one path
+        for mint and restore."""
         self._coord_epoch = int(epoch)
+        self.telemetry.gauge(
+            "fedtpu_ft_coordinator_epoch",
+            "this coordinator's fencing epoch (minted on promotion or "
+            "post-fence re-base)",
+        ).set(float(self._coord_epoch))
 
     def _membership_bytes(self) -> np.ndarray:
         """The roster snapshot as a uint8 JSON leaf of the replica."""
@@ -449,7 +464,7 @@ class PrimaryServer:
                 proto.SendModelRequest(model=payload, epoch=self._coord_epoch, role=self._role),
                 timeout=self._deadlines["SendModel"],
             ),
-            peer=peer, telemetry=self.counters, rand=self._retry_rand,
+            peer=peer, telemetry=self.telemetry, rand=self._retry_rand,
         )
 
     def _resync(self, client: str) -> None:
@@ -487,6 +502,11 @@ class PrimaryServer:
                     self._handle_stale("SendModel", client, e)
                     continue
                 log.warning("client %s failed during initial sync", client)
+                self.telemetry.counter(
+                    "fedtpu_rpc_failures_total",
+                    "RpcErrors by failing RPC",
+                    labels={"rpc": "SendModel"},
+                ).inc()
                 self.registry.mark_failed(client)
         self._did_initial_sync = True
 
@@ -501,7 +521,7 @@ class PrimaryServer:
                     proto.PingRequest(req=b"1" if recovering else b"0", epoch=self._coord_epoch),
                     timeout=self._deadlines["CheckIfPrimaryUp"],
                 ),
-                telemetry=self.counters, rand=self._retry_rand,
+                telemetry=self.telemetry, rand=self._retry_rand,
             )
         except grpc.RpcError as e:
             if is_stale_coordinator(e):
@@ -518,7 +538,7 @@ class PrimaryServer:
                         log.info("recovered newer global model from backup")
 
                 call_with_retry(self.retry_policy, "FetchModel", fetch,
-                                telemetry=self.counters, rand=self._retry_rand)
+                                telemetry=self.telemetry, rand=self._retry_rand)
             except grpc.RpcError:
                 log.warning("backup demoted but FetchModel failed")
             except wire.WireError:
@@ -542,12 +562,20 @@ class PrimaryServer:
         with self._fence_lock:
             first = not self._fenced
             self._fenced = True
-        if first:
-            log.warning(
-                "FENCED by %s via %s: our epoch %d is stale (newest seen %d); "
-                "voiding the in-flight round and re-basing",
-                peer, rpc, self._coord_epoch, self._epoch_seen,
-            )
+        if not first:
+            return
+        log.warning(
+            "FENCED by %s via %s: our epoch %d is stale (newest seen %d); "
+            "voiding the in-flight round and re-basing",
+            peer, rpc, self._coord_epoch, self._epoch_seen,
+        )
+        self.telemetry.counter(
+            "fedtpu_ft_fenced_total",
+            "times this coordinator was fenced by a STALE_COORDINATOR "
+            "rejection (superseded by a higher epoch)",
+        ).inc()
+        self.flight.record("fence", rpc=rpc, peer=peer, epoch=self._coord_epoch, epoch_seen=self._epoch_seen)
+        self.flight.dump(reason="fence")
 
     def handle_fence(self) -> None:
         """Re-base after a fence: demote the acting backup through the
@@ -570,6 +598,7 @@ class PrimaryServer:
         self._did_initial_sync = False
         with self._fence_lock:
             self._fenced = False
+        self.flight.record("fence", event="rebased", epoch=self._coord_epoch)
         log.info("re-based: continuing as epoch %d", self._coord_epoch)
 
     def health(self) -> Tuple[bool, str]:
@@ -595,13 +624,14 @@ class PrimaryServer:
         if stub is None:
             return False
         return probe(stub, timeout=self._deadlines["HeartBeat"], policy=self.retry_policy,
-                     telemetry=self.counters) is not None
+                     telemetry=self.telemetry) is not None
 
     def admit_client(self, address: str) -> dict:
         """Admit (or re-admit) a member: it joins dead and is resynced with
         the current global model before it is marked alive; when the
         resync fails it stays dead and the heartbeat finishes the revival."""
         with self._member_lock:
+            rejoin = self.registry.is_member(address)
             seat = self.registry.admit(address)
             if address not in self._stubs:
                 self._stubs[address] = self._make_stub(address)
@@ -615,6 +645,10 @@ class PrimaryServer:
                 "join: %s admitted at seat %d but resync failed (%s); "
                 "heartbeat monitor will revive it", address, seat, exc,
             )
+        self.flight.record(
+            "membership", event="join", client=address, seat=seat,
+            version=self.registry.version, rejoin=rejoin,
+        )
         return {
             "admitted": True,
             "seat": seat,
@@ -630,6 +664,11 @@ class PrimaryServer:
             stub = self._stubs.pop(address, None)
         if stub is not None:
             stub._channel.close()
+        if left:
+            self.flight.record(
+                "membership", event="leave", client=address,
+                version=self.registry.version, reason=reason,
+            )
         return {"left": left, "version": self.registry.version}
 
     def _update_reputation(self, order: List[str], flagged: set, quarantined_now: set) -> None:
@@ -643,7 +682,8 @@ class PrimaryServer:
             if c in quarantined_now:
                 rounds_q = self.registry.tick_quarantine(c)
                 if s < sc.release_at:
-                    self.registry.release(c)
+                    if self.registry.release(c):
+                        self.flight.record("membership", event="release", client=c, suspicion=round(s, 4))
                 elif sc.evict_after and rounds_q >= sc.evict_after:
                     log.warning(
                         "client %s evicted after %d quarantined rounds (suspicion %.3f)",
@@ -651,7 +691,8 @@ class PrimaryServer:
                     )
                     self.remove_client(c, reason="quarantine")
             elif s >= sc.quarantine_at:
-                self.registry.quarantine(c)
+                if self.registry.quarantine(c):
+                    self.flight.record("membership", event="quarantine", client=c, suspicion=round(s, 4))
 
     def start_gate(self, address: str):
         """Serve the membership gate (Join and Leave) on ``address``, this
@@ -668,26 +709,40 @@ class PrimaryServer:
             self._gate_server = None
 
     def status_snapshot(self) -> dict:
-        """fedtpu's ``/statusz`` feed, the parts the port keeps: liveness,
-        the membership block, the last round's split, fencing, the
-        per-codec byte table and, under the adaptive policy, its costs."""
+        """fedtpu's ``/statusz`` feed: the board's round and phase, liveness,
+        the membership block, the memory axes, the stragglers still in
+        flight, fencing, the heartbeat misses, the last round's split, the
+        per-codec byte table and, under the adaptive policy, its costs
+        (fedtpu's ``trace_id`` and ``compile`` blocks come with ROADMAP.md
+        items 5b and 5c)."""
+        snap = self.status.snapshot()
         reg = self.registry
-        snap = {
-            "role": "acting" if self._role == 2 else "primary",
-            "pid": os.getpid(),
-            "round": self._round_counter,
-            "clients": {"alive": reg.active_clients(), "dead": reg.dead_clients()},
-            "membership": reg.status(),
-            "mem": {
+        tel = self.telemetry
+        snap.update(
+            pid=os.getpid(),
+            clients={"alive": reg.active_clients(), "dead": reg.dead_clients()},
+            membership=reg.status(),
+            mem={
                 "rss_bytes": process_rss_bytes(),
                 "buffer_bytes": int(self.history[-1].get("buffer_bytes", 0)) if self.history else 0,
                 "tier": "root" if self.tier_fanout else "flat",
+                # The partial rows held toward an in-flight root combine.
+                "partial_rows_buffered": (
+                    int(tel.registry.gauge("fedtpu_partial_rows_buffered", "").value)
+                    if self.tier_fanout and tel.enabled else 0
+                ),
             },
-            "rounds_completed": sum(1 for rec in self.history if not rec.get("aborted")),
-            "rounds_aborted": sum(1 for rec in self.history if rec.get("aborted")),
-            "fencing": {"epoch": self._coord_epoch, "role": "acting" if self._role == 2 else "primary",
-                        "fenced": self._fenced},
-        }
+            stragglers_in_flight=sorted(c for c, t in self._inflight.items() if t.is_alive()),
+            rounds_completed=sum(1 for rec in self.history if not rec.get("aborted")),
+            rounds_aborted=sum(1 for rec in self.history if rec.get("aborted")),
+            fencing={"epoch": self._coord_epoch, "role": "acting" if self._role == 2 else "primary",
+                     "fenced": self._fenced},
+        )
+        if tel.enabled:
+            snap["heartbeat_misses"] = tel.registry.counter(
+                "fedtpu_ft_heartbeat_misses_total",
+                "heartbeat probes of dead clients that stayed dead",
+            ).value
         if self.history:
             last = self.history[-1]
             snap["last_round"] = {
@@ -730,16 +785,13 @@ class PrimaryServer:
         mean aggregator and a server optimizer only: compression, robust
         aggregators, DP and screening are refused, with fedtpu's messages.
         Runs until ``num_updates`` updates or ``stop()``; returns the
-        records.
-
-        The updates are counted in ``counters`` (``fedtpu_async_updates_total``
-        unless ``telemetry='off'``, beside the RPC byte and failure
-        counters); the staleness histogram and the flight recorder's
-        events stay with the observability slice."""
+        records. Each update counts into ``fedtpu_async_updates_total``,
+        its deltas' staleness into the ``fedtpu_async_staleness``
+        histogram, and lands in the flight recorder as ``async_update``."""
         import queue
 
         fed = self.cfg.fed
-        tel = self.counters
+        tel = self.telemetry
         if fed.compression != "none":
             raise ValueError(
                 "run_async requires compression='none': sparse deltas "
@@ -792,7 +844,10 @@ class PrimaryServer:
                     with version_lock:
                         base_version, payload, base = current[0]
                     self._send_model(stub, payload, client)
-                    tel.counter("fedtpu_rpc_bytes_down_total").inc(len(payload))
+                    tel.counter(
+                        "fedtpu_rpc_bytes_down_total",
+                        "server -> client/backup broadcast bytes (successful)",
+                    ).inc(len(payload))
 
                     def train_attempt():
                         # RPC and decode as one retryable unit: a corrupt
@@ -810,7 +865,10 @@ class PrimaryServer:
                         self.retry_policy, "StartTrain", train_attempt, peer=client,
                         telemetry=tel, rand=self._retry_rand,
                     )
-                    tel.counter("fedtpu_rpc_bytes_up_total").inc(len(reply.message))
+                    tel.counter(
+                        "fedtpu_rpc_bytes_up_total",
+                        "client -> server StartTrain reply bytes (successful)",
+                    ).inc(len(reply.message))
                     replies.put((client, row, float(extra["num_examples"]), base_version))
                 except (grpc.RpcError, wire.WireError) as e:
                     if is_stale_coordinator(e):
@@ -822,7 +880,11 @@ class PrimaryServer:
                         log.warning("async client %s failed: %s %s", client, e.code(), e.details())
                     else:
                         log.warning("async client %s reply still corrupt after retries: %s", client, e)
-                    tel.counter("fedtpu_rpc_failures_total", labels={"rpc": "AsyncWorker"}).inc()
+                    tel.counter(
+                        "fedtpu_rpc_failures_total",
+                        "RpcErrors by failing RPC",
+                        labels={"rpc": "AsyncWorker"},
+                    ).inc()
                     self.registry.mark_failed(client)
 
         self.monitor.start()
@@ -872,7 +934,10 @@ class PrimaryServer:
                         "async update held: %d alive < quorum %d; waiting for recovery",
                         len(self.registry.active_clients()), quorum_n,
                     )
-                    tel.counter("fedtpu_round_aborts_total").inc()
+                    tel.counter(
+                        "fedtpu_round_aborts_total",
+                        "rounds aborted below quorum (global model untouched)",
+                    ).inc()
                     while (len(self.registry.active_clients()) < quorum_n and not hopeless()
                            and not (stop is not None and stop())):
                         time.sleep(poll_s)
@@ -911,8 +976,21 @@ class PrimaryServer:
                     "alive": self.registry.alive_mask().tolist(),
                 }
                 self.history.append(rec)
-                if fed.telemetry != "off":
-                    tel.counter("fedtpu_async_updates_total").inc()
+                self.status.update(round=self._round_counter, phase="async", async_update=self._async_version)
+                self.flight.record("async_update", update=self._async_version, contributors=len(buf))
+                if tel.enabled:
+                    tel.counter(
+                        "fedtpu_async_updates_total",
+                        "FedBuff server updates applied",
+                    ).inc()
+                    stale_hist = tel.histogram(
+                        "fedtpu_async_staleness",
+                        "staleness (server updates) of buffered deltas at "
+                        "apply time",
+                        buckets=(0, 1, 2, 4, 8, 16, 32, 64),
+                    )
+                    for st in stalenesses:
+                        stale_hist.observe(st)
                 log.info("async update %s", rec)
                 if on_update is not None:
                     on_update(self._async_version, rec)
@@ -979,6 +1057,7 @@ class PrimaryServer:
             r, getattr(ckpt, "directory", "?"), self._round_counter,
             self.registry.size, self.registry.version,
         )
+        self.flight.record("checkpoint", event="restore", round=r, members=self.registry.size)
         return r + 1
 
     # ---------------------------------------------------------- the round
@@ -986,8 +1065,14 @@ class PrimaryServer:
                       membership_version, bytes_up, t_launch, t_barrier, decode_s, h2d_s) -> dict:
         """A voided round's record (fenced, or below quorum): the global
         model, the server optimizer and the counter are untouched, and the
-        next round resyncs every client first."""
+        next round resyncs every client first. Counted and recorded in the
+        flight recorder with its reason."""
         self._did_initial_sync = False
+        self.telemetry.counter(
+            "fedtpu_round_aborts_total",
+            "rounds aborted below quorum (global model untouched)",
+        ).inc()
+        self.flight.record("round_abort", round=self._round_counter, participants=len(completed), **reason)
         rec = {
             "round": self._round_counter,
             "epoch": self._coord_epoch,
@@ -1011,12 +1096,90 @@ class PrimaryServer:
         return rec
 
     def round(self) -> dict:
-        """One synchronous FedAvg round; returns the round record."""
+        """One synchronous FedAvg round; returns the round record. The
+        registry (bytes, phase histograms, stragglers) and the flight
+        recorder are fed after the record is built."""
+        tel = self.telemetry
+        rec = self._round_body()
+        self.status.update(phase="idle")
+        if tel.enabled:
+            # Leak axes, sampled once a round.
+            tel.gauge(
+                "fedtpu_process_rss_bytes",
+                "current resident set size of this process",
+            ).set(process_rss_bytes())
+            tel.gauge(
+                "fedtpu_buffer_bytes",
+                "flat collect-buffer bytes held by the last round "
+                "(host rows + device twin; 0 on the barrier path), by "
+                "tier: 'flat' = one-tier federation, 'root' = the tiered "
+                "root's [aggregators, P] surface, 'leaf' = a sub-"
+                "aggregator's [cohort, P] buffer",
+                labels={"tier": "root" if self.tier_fanout else "flat"},
+            ).set(rec.get("buffer_bytes", 0))
+            if self.tier_fanout:
+                # The round's partial rows are combined and released.
+                tel.gauge(
+                    "fedtpu_partial_rows_buffered",
+                    "partial-sum rows (one per sub-aggregator) buffered "
+                    "toward this round's root combine",
+                ).set(0)
+        if rec.get("aborted"):
+            # Counted and recorded where it aborted; not a completed round.
+            return rec
+        self.flight.record(
+            "round",
+            round=self._round_counter - 1,
+            participants=rec["participants"],
+            stragglers=rec["stragglers"],
+            t_collect_s=rec["t_collect_s"],
+            t_aggregate_s=rec["t_aggregate_s"],
+        )
+        if tel.enabled:
+            tel.counter(
+                "fedtpu_rounds_completed_total",
+                "synchronous FedAvg rounds completed by this server",
+            ).inc()
+            tel.counter(
+                "fedtpu_rpc_bytes_up_total",
+                "client -> server StartTrain reply bytes (successful)",
+            ).inc(rec["bytes_up"])
+            tel.counter(
+                "fedtpu_rpc_bytes_down_total",
+                "server -> client/backup broadcast bytes (successful)",
+            ).inc(rec["bytes_down"])
+            # Per-codec twins of the unlabeled total.
+            for codec_name, nb in rec.get("bytes_up_by_codec", {}).items():
+                tel.counter(
+                    "fedtpu_rpc_bytes_up_total",
+                    "client -> server StartTrain reply bytes (successful)",
+                    labels={"codec": codec_name},
+                ).inc(nb)
+            tel.counter(
+                "fedtpu_stragglers_total",
+                "client-rounds lost to stragglers (deadline, in-flight)",
+            ).inc(rec["stragglers"])
+            for ph in ("collect", "decode", "h2d", "aggregate"):
+                tel.histogram(
+                    "fedtpu_round_phase_seconds",
+                    "per-round phase wall time by phase label",
+                    labels={"phase": ph},
+                ).observe(rec[f"t_{ph}_s"])
+            if "t_round_s" in rec:
+                tel.gauge(
+                    "fedtpu_step_time_seconds",
+                    "wall time of the last round dispatch, per round",
+                ).set(rec["t_round_s"])
+        return rec
+
+    def _round_body(self) -> dict:
         cfg = self.cfg
         lay = self.layout
+        tel = self.telemetry
         # One lineage round for every StartTrain of this round, a late
         # retry's included: the client's replay detection reads it.
         lineage_round = self._round_counter
+        self.status.update(round=self._round_counter, phase="collect")
         if self.chaos is not None:
             # rounds= windows key on the lineage round.
             self.chaos.set_round(self._round_counter)
@@ -1143,9 +1306,14 @@ class PrimaryServer:
                 t_rpc = time.monotonic()
                 results[client] = call_with_retry(
                     self.retry_policy, rpc_name, attempt, peer=client,
-                    telemetry=self.counters, rand=self._retry_rand,
+                    telemetry=self.telemetry, rand=self._retry_rand,
                 )
                 latencies[client] = time.monotonic() - t_rpc
+                tel.histogram(
+                    "fedtpu_client_rpc_seconds",
+                    "per-client StartTrain wall time (RPC + decode, "
+                    "retries included; successful rounds only)",
+                ).observe(latencies[client])
                 if self._codec_policy is not None and client in codec_of:
                     # Taught with the codec the reply used.
                     used, nbytes = codec_of[client]
@@ -1164,6 +1332,11 @@ class PrimaryServer:
                     log.warning("%s %s failed during %s: %s %s", kind_of, client, rpc_name, e.code(), e.details())
                 else:
                     log.warning("%s %s %s reply still corrupt after retries: %s", kind_of, client, rpc_name, e)
+                tel.counter(
+                    "fedtpu_rpc_failures_total",
+                    "RpcErrors by failing RPC",
+                    labels={"rpc": rpc_name},
+                ).inc()
                 self.registry.mark_failed(client)
 
         # A straggler whose earlier StartTrain is still running sits out.
@@ -1194,6 +1367,12 @@ class PrimaryServer:
             host_buf.append(torch.zeros((len(launch), lay.padded), dtype=torch.float32, pin_memory=cuda))
             if stream:
                 dev_buf.append(torch.zeros((len(launch), lay.padded), dtype=torch.float32, device=self.device))
+            if tiered and tel.enabled:
+                tel.gauge(
+                    "fedtpu_partial_rows_buffered",
+                    "partial-sum rows (one per sub-aggregator) buffered "
+                    "toward this round's root combine",
+                ).set(len(launch))
         t_launch = time.monotonic()
         threads = {
             client: threading.Thread(target=train_one, args=(rank_of[client], client, stub_of[client]))
@@ -1247,6 +1426,7 @@ class PrimaryServer:
             )
             return self._abort_record({"quorum_needed": needed}, *abort_args)
 
+        self.status.update(phase="aggregate")
         order = [c for c in active if c in completed]
         rows = None
         if order:
@@ -1274,6 +1454,12 @@ class PrimaryServer:
             self._update_reputation(order, set(screened_names), quarantined_now)
             if screened_names:
                 log.warning("round %d: screening rejected %s", self._round_counter, screened_names)
+                tel.counter(
+                    "fedtpu_screening_rejected_total",
+                    "client rows rejected by the fused screening stage, "
+                    "by surface",
+                    labels={"surface": "server"},
+                ).inc(len(screened_names))
         dropped = set(screened_names) | (quarantined_now & set(completed))
         if dropped:
             keep_idx = [i for i, c in enumerate(order) if c not in dropped]
@@ -1313,6 +1499,7 @@ class PrimaryServer:
         # The counter advances before replication: the replica carries the
         # next round's index.
         self._round_counter += 1
+        self.status.update(phase="broadcast")
         payload = self.model_bytes()
         # The backup first, then the clients.
         if self.backup_stub is not None:
@@ -1325,6 +1512,11 @@ class PrimaryServer:
                     self._handle_stale("Replicate", "backup", e)
                 else:
                     log.warning("backup unreachable during replication")
+                    tel.counter(
+                        "fedtpu_rpc_failures_total",
+                        "RpcErrors by failing RPC",
+                        labels={"rpc": "Replicate"},
+                    ).inc()
 
         def send_one(client: str) -> None:
             stub = self._stub(client)
@@ -1338,6 +1530,11 @@ class PrimaryServer:
                     self._handle_stale("SendModel", client, e)
                     return
                 log.warning("client %s failed during SendModel: %s %s", client, e.code(), e.details())
+                tel.counter(
+                    "fedtpu_rpc_failures_total",
+                    "RpcErrors by failing RPC",
+                    labels={"rpc": "SendModel"},
+                ).inc()
                 self.registry.mark_failed(client)
 
         # A client whose earlier broadcast is still in flight sits this one
@@ -1515,9 +1712,10 @@ class BackupServer(TrainerServicer):
         """``on_acting_round(r, record)``: passed to the acting primary's
         round loop. ``device``: where an acting primary's tensors live,
         CUDA unless named. ``chaos`` arms the backup's server and, after a
-        promotion, the acting primary's channels."""
-        if flight is not None:
-            raise not_ported("BackupServer(flight=...), the flight recorder", "slice 8")
+        promotion, the acting primary's channels. ``flight``: the
+        :class:`fedtpu_torch.obs.FlightRecorder` that every promote and
+        demote dumps (one of its own when None); an acting primary records
+        into it too."""
         validate_coordinator(cfg)
         self.cfg = cfg
         self.clients = clients
@@ -1532,8 +1730,14 @@ class BackupServer(TrainerServicer):
                  chaos.describe() if chaos is not None else "off")
         self.latest_model: Optional[bytes] = None
         self.acting: Optional[PrimaryServer] = None
+        self.telemetry = Telemetry(cfg.fed.telemetry, role="backup")
+        # Dumped on every promote and demote: the run-up to a role flip
+        # survives even if the promoted process dies seconds later.
+        self.flight = flight if flight is not None else FlightRecorder(role="backup")
         self.machine = FailoverStateMachine(
-            timeout=watchdog_timeout, on_promote=self._promote, on_demote=self._demote
+            timeout=watchdog_timeout, on_promote=self._promote, on_demote=self._demote,
+            metrics=self.telemetry.registry if self.telemetry.enabled else None,
+            flight=self.flight,
         )
         self.watchdog = WatchdogRunner(self.machine)
         # A fresh stop event and thread per promotion: a flapping primary
@@ -1556,6 +1760,11 @@ class BackupServer(TrainerServicer):
             "%s from stale coordinator epoch %d rejected (newest seen %d)",
             rpc, epoch, self._epoch_seen,
         )
+        self.telemetry.counter(
+            "fedtpu_ft_stale_rejected_total",
+            "coordinator RPCs rejected for a stale fencing epoch, by rpc",
+            labels={"rpc": rpc},
+        ).inc()
         context.abort(
             grpc.StatusCode.FAILED_PRECONDITION,
             f"STALE_COORDINATOR: epoch {epoch} < {self._epoch_seen}",
@@ -1619,8 +1828,8 @@ class BackupServer(TrainerServicer):
         self._stop_acting()
         stop_event = threading.Event()
         self._acting_stop = stop_event
-        kw = dict(compress=self.compress, round_deadline_s=self.round_deadline_s, chaos=self.chaos,
-                  device=self.device)
+        kw = dict(compress=self.compress, round_deadline_s=self.round_deadline_s, flight=self.flight,
+                  chaos=self.chaos, device=self.device)
         try:
             acting = PrimaryServer(self.cfg, self.clients, initial_model=self.latest_model, **kw)
         except wire.WireError:
@@ -1713,6 +1922,11 @@ class ClientAgent(TrainerServicer):
             "%s from stale coordinator epoch %d rejected (newest seen %d)",
             rpc, epoch, newest,
         )
+        self.trainer.telemetry.counter(
+            "fedtpu_ft_stale_rejected_total",
+            "coordinator RPCs rejected for a stale fencing epoch, by rpc",
+            labels={"rpc": rpc},
+        ).inc()
         context.abort(
             grpc.StatusCode.FAILED_PRECONDITION,
             f"STALE_COORDINATOR: epoch {epoch} < {newest}",
@@ -1741,7 +1955,7 @@ class ClientAgent(TrainerServicer):
     def status_snapshot(self) -> dict:
         t = self.trainer
         return {
-            "role": f"client:{t.identity}",
+            "role": t.telemetry.role or "client",
             "pid": os.getpid(),
             "round": t.round_idx,
             "synced": t.synced,
@@ -1772,7 +1986,12 @@ def serve_client(
     agent = ClientAgent(
         cfg, seed=seed, state_dir=state_dir, device=device, data=data, eval_data=eval_data
     )
+    # The bind address is the client's flight identity and attack key.
+    agent.trainer.telemetry.role = f"client:{address}"
     agent.trainer.identity = address
+    if chaos is not None:
+        tel = agent.trainer.telemetry
+        chaos.attach(metrics=tel.registry if tel.enabled else None)
     agent.trainer.chaos = chaos
     server = create_server(address, agent, compress=compress, chaos=chaos)
     server.start()

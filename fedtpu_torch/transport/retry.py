@@ -99,7 +99,7 @@ def call_with_retry(
     """Run ``attempt_fn`` (one full RPC attempt, including reply decode) up
     to ``policy.max_attempts`` times. Transient failures back off and
     retry, incrementing ``fedtpu_rpc_retries_total{rpc}`` on ``telemetry``
-    (an object with fedtpu's ``Telemetry.counter``, or None); the final (or first fatal)
+    (a :class:`fedtpu_torch.obs.Telemetry`, or None); the final (or first fatal)
     exception propagates unchanged so callers keep their existing
     ``except grpc.RpcError`` / ``except WireError`` handling. ``rand``
     (a 0..1 draw, e.g. a seeded ``random.Random(...).random``) replaces

@@ -147,7 +147,7 @@ def create_channel(address: str, compress: bool = False,
     fault-injection interceptor keyed to this peer. ``trace_source``
     (trace propagation) is not ported yet and raises."""
     if trace_source is not None:
-        raise not_ported("trace propagation over gRPC (trace_source=)", "slice 8")
+        raise not_ported("trace propagation over gRPC (trace_source=)", "slice 8, part 5b")
     kwargs = {}
     if compress:
         kwargs["compression"] = grpc.Compression.Gzip

@@ -58,6 +58,7 @@ from fedtpu_torch.core import optim
 from fedtpu_torch.core.client import make_eval_fn, make_local_update
 from fedtpu_torch.core.engine import resolve_device
 from fedtpu_torch.data import datasets, partition
+from fedtpu_torch.obs import Telemetry
 from fedtpu_torch.ops import flat as flat_ops
 from fedtpu_torch.transport import sparse, wire
 
@@ -137,12 +138,9 @@ class LocalTrainer:
             t.numel() * t.element_size() for t in (*self.params.values(), *self.batch_stats.values())
         )
         self._snapshots: Dict[int, dict] = {}
-        # fedtpu's basic telemetry of a client: bytes out and in, and the
-        # last reply's size against a dense payload.
-        self._count = cfg.fed.telemetry == "basic"
-        self.tx_bytes = 0
-        self.rx_bytes = 0
-        self.compression_ratio = 0.0
+        # A client's telemetry: bytes out and in, and the last reply's
+        # size against a dense payload.
+        self.telemetry = Telemetry(cfg.fed.telemetry, role="client")
         # Seconds of the last round: local update, copy to the host, encode.
         self.last_times: Dict[str, float] = {}
         # The local state a cold restart needs to resume, not diverge: a
@@ -152,7 +150,10 @@ class LocalTrainer:
         if state_dir:
             from fedtpu_torch.checkpoint import Checkpointer
 
-            self._state_ckpt = Checkpointer(state_dir, keep=3, backend="wire")
+            self._state_ckpt = Checkpointer(
+                state_dir, keep=3, backend="wire",
+                metrics=self.telemetry.registry if self.telemetry.enabled else None,
+            )
             self._restore_client_state()
 
     # ------------------------------------------------------------ layout
@@ -286,9 +287,14 @@ class LocalTrainer:
         coordinator's codec for this round, else the configured one."""
         payload = self._train_round_impl(rank, world, coord_round, codec_override)
         self._persist_client_state()
-        if self._count:
-            self.tx_bytes += len(payload)
-            self.compression_ratio = len(payload) / max(self._dense_bytes, 1)
+        self.telemetry.counter(
+            "fedtpu_client_tx_bytes_total",
+            "StartTrain reply payload bytes shipped by this client",
+        ).inc(len(payload))
+        self.telemetry.gauge(
+            "fedtpu_client_compression_ratio",
+            "last reply's wire bytes / dense model payload bytes",
+        ).set(len(payload) / max(self._dense_bytes, 1))
         return payload
 
     def _sync(self) -> None:
@@ -415,8 +421,10 @@ class LocalTrainer:
         tree_t = flat_ops.unpack_tree(self.layout, torch.from_numpy(row).to(self.device))
         self.params, self.batch_stats = tree_t["params"], tree_t["batch_stats"]
         self.synced = True
-        if self._count:
-            self.rx_bytes += len(data)
+        self.telemetry.counter(
+            "fedtpu_client_rx_bytes_total",
+            "global-model broadcast bytes received by this client",
+        ).inc(len(data))
 
     def evaluate(self) -> Tuple[float, float]:
         """Loss and accuracy of the installed model on the eval split, in

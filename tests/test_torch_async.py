@@ -420,5 +420,9 @@ def test_unsound_compositions_raise_fedtpus_messages():
 def test_options_the_port_does_not_run_raise_naming_their_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8, part 6"):
         port(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8, part 5"):
-        port().status_snapshot()
+    # The status board runs since slice 8 part 5a, shared with the delegate
+    # engine and stamped with the async loop's role.
+    eng = port()
+    snap = eng.status_snapshot()
+    assert (snap["role"], snap["phase"], snap["round"]) == ("async_engine", "init", 0)
+    assert snap["alive"] == [True] * eng.cfg.fed.num_clients and eng.status is eng._fed.status

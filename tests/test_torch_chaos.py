@@ -32,6 +32,7 @@ import torch
 from fedtpu.ft import chaos as jchaos
 from fedtpu_torch.data import datasets as tdatasets
 from fedtpu_torch.ft import chaos as tchaos
+from fedtpu_torch.obs import FlightRecorder, MetricsRegistry
 from fedtpu_torch.transport import federation as tfederation
 from fedtpu_torch.transport import wire as twire
 from test_federation import free_port
@@ -200,9 +201,14 @@ def test_injected_errors_are_rpc_errors_and_kill_signals_the_process(monkeypatch
     sched.tick_round(1)
     assert killed == [(os.getpid(), tchaos.signal.SIGKILL)]
     assert sched.injected_total() == 1
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        sched.attach(metrics=object())
+    # attach() hooks a registry and a flight recorder: the next injection
+    # is counted and recorded, and a later attach() with None keeps both.
+    reg, flight = MetricsRegistry(), FlightRecorder(role="chaos")
+    assert sched.attach(metrics=reg, flight=flight) is sched
     assert sched.attach() is sched
+    assert sched.decide("StartTrain", "a").kind == "error"
+    assert reg.counter("fedtpu_chaos_injected_total", labels={"kind": "error", "rpc": "StartTrain"}).value == 1
+    assert [(e["kind"], e["fault"], e["rpc"]) for e in flight.snapshot()] == [("chaos", "error", "StartTrain")]
 
 
 def test_corrupt_picks_the_largest_bytes_field():
@@ -354,7 +360,8 @@ def test_chaos_round_matches_fedtpu():
             assert rec["participants"] == wrec["participants"] and rec["alive"] == wrec["alive"]
             assert_bit_equal(host_tree(tp), wtree, f"round {i}")
         assert tc.injected_total() == jc.injected_total() > 0
-        assert tp.counters.value("fedtpu_rpc_retries_total", rpc="StartTrain") == want_retries > 0
+        assert tp.telemetry.registry.counter(
+            "fedtpu_rpc_retries_total", labels={"rpc": "StartTrain"}).value == want_retries > 0
         assert client_chaos.injected_total() == want_client > 0
     finally:
         fleet.stop()
@@ -391,7 +398,8 @@ def test_corrupt_reply_is_rejected_and_retried(port_data):
             rec = p.round()
             assert rec["participants"] == 2 and rec["alive"] == [True, True]
             if chaos is not None:
-                assert p.counters.value("fedtpu_rpc_retries_total", rpc="StartTrain") == 1
+                assert p.telemetry.registry.counter(
+                    "fedtpu_rpc_retries_total", labels={"rpc": "StartTrain"}).value == 1
                 assert chaos.injected_total() == 1
             globals_.append(host_tree(p))
         finally:
@@ -438,7 +446,7 @@ def test_backup_chaos_arms_its_server_and_its_acting_primary():
         p.round()
         assert backup.latest_model == p.replica_bytes()
         assert sched.injected_total() == 1
-        assert p.counters.value("fedtpu_rpc_retries_total", rpc="SendModel") == 1
+        assert p.telemetry.registry.counter("fedtpu_rpc_retries_total", labels={"rpc": "SendModel"}).value == 1
         backup._promote()
         assert backup.acting.chaos is sched and backup.acting._retry_rand is not None
     finally:

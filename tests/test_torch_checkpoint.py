@@ -43,6 +43,7 @@ from fedtpu_torch.convert import from_flax, to_flax
 from fedtpu_torch.core import round as tround
 from fedtpu_torch.core.engine import Federation as TFederation
 from fedtpu_torch.ft import parse_chaos_spec
+from fedtpu_torch.obs import FlightRecorder, MetricsRegistry
 from fedtpu_torch.transport import wire as twire
 from torch_parity import configs, round_inputs, seeded_data
 
@@ -119,10 +120,22 @@ def test_orbax_and_the_missing_hooks_raise(tmp_path, host_state):
         save(str(tmp_path), 0, host_state, backend="orbax")
     with pytest.raises(ValueError, match="orbax"):
         Checkpointer(str(tmp_path), backend="orbax")
-    for kw in ({"metrics": object()}, {"flight": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*part 5"):
-            Checkpointer(str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*part 5"):
+    # metrics= and flight= run since slice 8 part 5a: a save is counted, a
+    # fallback past a corrupt generation counted and recorded.
+    reg, flight = MetricsRegistry(), FlightRecorder(role="ckpt")
+    ck = Checkpointer(str(tmp_path / "obs"), metrics=reg, flight=flight)
+    ck.save(0, host_state)
+    ck.save(1, host_state)
+    with open(tmp_path / "obs" / "round_1.fckpt", "r+b") as fh:
+        fh.truncate(8)
+    assert ck.restore_latest(like=host_state)[0] == 0
+    snap = reg.snapshot()
+    assert snap["fedtpu_checkpoint_saves_total"][0]["value"] == 2
+    assert snap["fedtpu_checkpoint_fallback_total"][0]["value"] == 1
+    assert snap["fedtpu_checkpoint_write_seconds"][0]["count"] == 2
+    assert snap["fedtpu_checkpoint_bytes"][0]["value"] == ck.last_save["bytes"] > 0
+    assert [(e["kind"], e["event"], e["round"]) for e in flight.snapshot()] == [("checkpoint", "fallback", 1)]
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8, part 5b"):
         BackgroundCheckpointer(Checkpointer(str(tmp_path)), telemetry=object())
 
 

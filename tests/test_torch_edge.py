@@ -175,7 +175,11 @@ def test_trainer_tracks_fedtpu_for_every_codec(port_data, layout, codec, chain):
         else:
             _hold(tt.edge_residual, jt.edge_residual, True, f"round {r} residual")
     assert tt.round_idx == jt.round_idx == len(chain) + 1
-    assert tt.tx_bytes == sum(sent) and tt.rx_bytes == len(g)  # telemetry="basic"
+    # telemetry="basic": the client's byte counters, counted as fedtpu's
+    # are (a lossy reply's size may differ from fedtpu's by its zlib bytes).
+    tsnap, jsnap = tt.telemetry.registry.snapshot(), jt.telemetry.registry.snapshot()
+    assert tsnap["fedtpu_client_tx_bytes_total"][0]["value"] == sum(sent)
+    assert tsnap["fedtpu_client_rx_bytes_total"] == jsnap["fedtpu_client_rx_bytes_total"]
     _hold(to_flax(tt.params), jax.tree.map(np.asarray, jt.params), False, "final weights")
     le, ae = tt.evaluate()
     lj, aj = jt.evaluate()

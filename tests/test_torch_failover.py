@@ -37,6 +37,7 @@ import torch
 from fedtpu.transport import federation as jfederation
 from fedtpu_torch.convert import to_flax
 from fedtpu_torch.ft import Role
+from fedtpu_torch.obs import FlightRecorder
 from fedtpu_torch.transport import federation as tfederation
 from fedtpu_torch.transport import proto as tproto
 from fedtpu_torch.transport import service as tservice
@@ -377,9 +378,11 @@ def test_options_the_coordinator_does_not_run_raise(tmp_path):
         _primary(rebuild(telemetry="trace"), [])
     with pytest.raises(NotImplementedError, match="slice 8"):
         tfederation.BackupServer(rebuild(telemetry="trace"), [], device="cpu")
+    # flight= runs since slice 8 part 5a: the coordinator records into the
+    # recorder it is given.
     for cls in (tfederation.PrimaryServer, tfederation.BackupServer):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            cls(tcfg, [], flight=object(), device="cpu")
+        flight = FlightRecorder(role=cls.__name__, artifacts_dir=str(tmp_path))
+        assert cls(tcfg, [], flight=flight, device="cpu").flight is flight
     p = _primary(tcfg, [])
     # run_async runs since slice 8 part 3 (tests/test_torch_async_edge.py):
     # what it refuses, it refuses with fedtpu's guards.

@@ -20,6 +20,7 @@ import pytest
 
 from fedtpu import ft as jft
 from fedtpu_torch import ft as tft
+from fedtpu_torch.obs import FlightRecorder, MetricsRegistry
 
 OPS = ("admit", "evict", "mark_failed", "mark_alive", "observe_screening",
        "quarantine", "release", "tick_quarantine")
@@ -191,8 +192,19 @@ def test_primary_pinger_clears_recovering_once_delivered():
     assert sent == [True, True, False]
 
 
-def test_ft_takes_no_metrics_registry():
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tft.MembershipTable(["a"], metrics=object())
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tft.FailoverStateMachine(flight=object())
+def test_ft_takes_no_metrics_registry(tmp_path):
+    """The ft classes take a registry and a flight recorder since slice 8
+    part 5a (the name stays from when they refused them)."""
+    reg = MetricsRegistry()
+    t = tft.MembershipTable(["a"], metrics=reg)
+    t.mark_failed("a")
+    assert reg.counter("fedtpu_ft_client_deaths_total").value == 1
+    flight = FlightRecorder(role="backup", artifacts_dir=str(tmp_path))
+    clock = [0.0]
+    m = tft.FailoverStateMachine(timeout=1.0, clock=lambda: clock[0], arm_without_ping=True,
+                                 metrics=reg, flight=flight)
+    clock[0] = 2.0
+    assert m.check_watchdog()
+    assert reg.counter("fedtpu_ft_failover_transitions_total", labels={"to": "acting_primary"}).value == 1
+    assert [e["kind"] for e in flight.snapshot()] == ["failover"]
+    assert json.loads(open(flight.dump_path()).read())["reason"] == "failover:acting_primary"

@@ -13,7 +13,8 @@ they are built). The zoo (``fedtpu_torch.models``' families and
 (``fedtpu_torch.checkpoint``) and the massive-cohort engine
 (``fedtpu_torch.sim``, ``SimFederation`` included), the asynchronous
 engine (``fedtpu_torch.core.async_engine``) and the standalone trainer
-(``fedtpu_torch.core.solo``) load none of them either.
+(``fedtpu_torch.core.solo``) load none of them either; the observability
+package (``fedtpu_torch.obs``) loads not even torch.
 
 One check imports every module in a fresh interpreter and looks at
 ``sys.modules``; the other reads every source file's imports. Top-level
@@ -163,6 +164,18 @@ def test_checkpoint_and_sim_load_no_jax_no_fedtpu_and_no_grpc(imports):
     loaded = _loaded_by(imports)
     assert "fedtpu_torch" in loaded
     assert not (FORBIDDEN | NOT_ON_THE_CARD) & loaded, (FORBIDDEN | NOT_ON_THE_CARD) & loaded
+
+
+@pytest.mark.parametrize("imports", [
+    "import fedtpu_torch.obs  # noqa: F401",
+    "from fedtpu_torch.obs import FlightRecorder, MetricsRegistry, ObsServer, Telemetry  # noqa: F401",
+], ids=["package", "names"])
+def test_obs_loads_no_torch_no_jax_and_no_grpc(imports):
+    """The registry, the exporters, the flight recorder and the status
+    plane are host-only: config-only and ft users pay for no backend."""
+    loaded = _loaded_by(imports)
+    assert "fedtpu_torch" in loaded
+    assert not (FORBIDDEN | NOT_ON_THE_CARD | {"torch"}) & loaded, (FORBIDDEN | NOT_ON_THE_CARD | {"torch"}) & loaded
 
 
 def test_no_source_file_imports_jax_or_fedtpu():

@@ -445,9 +445,12 @@ def test_unported_options_raise_naming_the_roadmap(part, monkeypatch):
     status board waits for the observability slice."""
     data = (np.zeros((64, 32, 32, 3), np.float32), np.zeros(64, np.int32))
     if part == "status_snapshot":
+        # The board runs since slice 8 part 5a; mesh= waits for part 6.
         fed = TFederation(tconfig.RoundConfig(model="smallcnn"), data=data, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.*part 5"):
-            fed.status_snapshot()
+        snap = fed.status_snapshot()
+        assert (snap["role"], snap["phase"], snap["round"]) == ("engine", "init", 0)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8, part 6"):
+            TFederation(tconfig.RoundConfig(model="smallcnn"), data=data, mesh=object(), device="cpu")
         return
     if isinstance(part, str):
         monkeypatch.setattr(registry, "NOT_PORTED", (part.lower(),))

@@ -311,8 +311,12 @@ def test_2k_population_64_seats_keep_cohort_sized_device_state():
     fed.run_on_device(2)
     assert fed.population.times_sampled.sum() == 128
     assert 0 < np.isfinite(fed.population.last_seen_loss).sum() <= 128
-    with pytest.raises(NotImplementedError, match="ROADMAP.*part 5"):
-        fed.status_snapshot()
+    # The sim block of the status board, and fedtpu's sim gauges.
+    snap = fed.status_snapshot()
+    assert snap["sim"]["cohort_live"] == 64 and snap["round"] == 4 and snap["phase"] == "idle"
+    gauges = fed.telemetry.registry.snapshot()
+    assert gauges["fedtpu_sim_population"][0]["value"] == 2000
+    assert gauges["fedtpu_sim_never_sampled"][0]["value"] == fed.population.never_sampled()
 
 
 def test_an_admitted_client_is_drawn_into_later_cohorts():
