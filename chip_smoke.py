@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only disaster # the device and build phases, then phase 15's drills
     python3 chip_smoke.py --only async    # the device phase, then phase 16
     python3 chip_smoke.py --only obs      # the device and build phases, then phase 17
+    python3 chip_smoke.py --only trace    # the device and build phases, then phase 18
 
 Phases, each of which raises on failure (exit code not 0, no result line):
 
@@ -117,7 +118,13 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    on the promotion with a ``failover:`` reason. Each round's split
    (collect, decode, h2d, aggregate, post-barrier), bytes and wall time,
    the time to recover and the peak memory are printed beside the card;
-   K1-K3 are launched 0 times.
+   K1-K3 are launched 0 times. The per-leaf topk group runs its primary
+   and its clients under ``telemetry='trace'``: every client's tracer ends
+   with the primary's ``trace_id``, its ``client_train`` spans name the
+   primary as their remote parent, and each process's export (a temporary
+   directory) merges under ``tools/trace_merge.py --check``, run as a
+   subprocess, with every client's ``client_train`` under a ``client_rpc``
+   and rooted at a ``round`` in the primary's lane.
    ``--only federation`` runs the device phase and this one alone.
 11. faults: the rest of the coordinator over localhost gRPC, 4 port
    MobileNet clients as in phase 10 (flat int8, stream). (a) chaos: a
@@ -256,6 +263,20 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    engine was built, ``/statusz`` ends at that round, idle, all 64 alive.
    Rounds/s under both modes and the ``/metrics`` scrape latency (p50,
    max) are printed; no speed is asserted.
+18. trace: the span tracer on the same engine, right after phase 17:
+   ``Telemetry("trace", role="engine")`` swapped in, its spans fed to a
+   flight recorder. 2 rounds through ``step()`` under ``torch.profiler``
+   (host and device), K1's launches counted from 0: one ``round`` span a
+   round carrying the engine's round number, K1 4 times and K2/K3 never,
+   one ``record_function`` range named ``round`` a round in the profile,
+   each of K1's 4 host launches inside one of them (2 in each, matched to
+   the kernel's device executions by the runtime's correlation id). The
+   flight ring holds the spans; ``export_trace`` (a temporary directory,
+   its path logged) loads back with its metadata; ``/statusz`` names the
+   tracer's ``trace_id``; one ``run_on_device(2)`` block is one
+   ``fused_rounds`` span. Rounds/s under trace (2 rounds, outside the
+   profiler), spans and exported bytes a round are printed beside phase
+   17's ``basic`` rounds/s; no speed is asserted.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
@@ -264,8 +285,8 @@ smallcnn slice, the MobileNet round, the round options, the zoo and the
 zoo's second and last parts (``zoo2``, ``zoo3``), the sim engine
 (``sim``: K1 and K2), the engine drill (``disaster``: K1), the async
 engine with run_async (``async``: none), the solo trainer (``solo``:
-none) and the observability plane (``obs``: K1); ``launches_by_path`` has
-each.
+none), the observability plane (``obs``: K1) and the span tracer
+(``trace``: K1); ``launches_by_path`` has each.
 """
 
 from __future__ import annotations
@@ -2096,6 +2117,8 @@ FED_GROUPS = (
 )
 FED_WATCHDOG_S = 2.0
 FED_EVAL = 256  # examples each client evaluates a broadcast on
+# The group whose primary and clients run under telemetry='trace'.
+FED_TRACED = ("per_leaf", "topk")
 
 
 def _free_port() -> int:
@@ -2153,16 +2176,16 @@ def _one_process_client(agent, replies, lock) -> None:
     t = agent.trainer
     train, install, evaluate = t.train_round, t.set_global, t.evaluate
 
-    def logged(rank, world, coord_round=-1, codec_override=None):
+    def logged(rank, world, trace_ctx=None, coord_round=-1, codec_override=None):
         with lock:
-            out = train(rank, world, coord_round=coord_round, codec_override=codec_override)
+            out = train(rank, world, trace_ctx=trace_ctx, coord_round=coord_round, codec_override=codec_override)
         replies.setdefault(coord_round, {})[t.identity] = out
         return out
 
     def locked(fn):
-        def call(*args):
+        def call(*args, **kwargs):
             with lock:
-                return fn(*args)
+                return fn(*args, **kwargs)
         return call
 
     t.train_round, t.set_global, t.evaluate = logged, locked(install), locked(evaluate)
@@ -2238,6 +2261,70 @@ def _check_primary_obs(primary, label: str) -> dict:
     return out
 
 
+def _merged_parents(doc):
+    """For each ``client_train`` of a merged trace: the name of its
+    immediate parent and the (name, lane) of its root."""
+    index = {e["args"]["span_id"]: e for e in doc["traceEvents"]
+             if e.get("ph") == "X" and "span_id" in e.get("args", {})}
+    out = []
+    for e in index.values():
+        if e["name"] != "client_train":
+            continue
+        parent = index.get(e["args"].get("parent_id"), {}).get("name")
+        node, seen = e, set()
+        while node["args"].get("parent_id") in index and node["args"]["span_id"] not in seen:
+            seen.add(node["args"]["span_id"])
+            node = index[node["args"]["parent_id"]]
+        out.append((parent, node["name"], node["args"]["span_id"].split("/")[0]))
+    return out
+
+
+def _check_fed_trace(primary, agents, label: str) -> dict:
+    """A traced group: every client's tracer holds the primary's trace id,
+    its ``client_train`` spans name the primary as remote parent; each
+    process's export, merged by ``tools/trace_merge.py --check`` (a
+    subprocess: the tool is stdlib only), nests every client's
+    ``client_train`` under a ``client_rpc`` and roots it at a ``round`` in
+    the primary's lane."""
+    import shutil
+    import tempfile
+
+    tid = primary.telemetry.tracer.trace_id
+    root = tempfile.mkdtemp(prefix="fedtpu_torch_fedtrace_")
+    try:
+        paths = [os.path.join(root, "primary.json")]
+        primary.telemetry.export_trace(paths[0])
+        trains = 0
+        for i, a in enumerate(agents):
+            tel = a.trainer.telemetry
+            if tel.tracer.trace_id != tid:
+                raise RuntimeError(f"federation {label}: client {i} kept trace {tel.tracer.trace_id}, not {tid}")
+            spans = [e["args"] for e in tel.trace_events() if e["name"] == "client_train"]
+            if not spans or any(s.get("remote_role") != "primary" or not s.get("remote_parent", 0) > 0
+                                for s in spans):
+                raise RuntimeError(f"federation {label}: client {i}'s client_train spans {spans}")
+            trains += len(spans)
+            paths.append(os.path.join(root, f"client{i}.json"))
+            tel.export_trace(paths[-1])
+        merged = os.path.join(root, "merged.json")
+        tool = Path(__file__).resolve().parent / "tools" / "trace_merge.py"
+        run = subprocess.run([sys.executable, str(tool), *paths, "-o", merged, "--check"],
+                             capture_output=True, text=True, timeout=120)
+        if run.returncode != 0:
+            raise RuntimeError(f"federation {label}: trace_merge --check failed: {run.stderr[-2000:]}")
+        doc = json.loads(Path(merged).read_text())
+        nested = _merged_parents(doc)
+        if len(nested) != trains or any(n != ("client_rpc", "round", "primary") for n in nested):
+            raise RuntimeError(f"federation {label}: merged client_train spans {nested}")
+        out = {"trace_id": tid, "processes": len(paths), "client_train": trains,
+               "merged_spans": sum(e.get("ph") == "X" for e in doc["traceEvents"]),
+               "merged_bytes": os.path.getsize(merged), "dir": root}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"federation {label} trace: " + json.dumps(out) + " (removed)")
+    return out
+
+
 def federation_phase(data, card):
     """A federation over localhost gRPC on the card: a port PrimaryServer,
     a BackupServer and FED_CLIENTS serve_client MobileNet clients (HOST_STEPS
@@ -2250,8 +2337,10 @@ def federation_phase(data, card):
     state, the round counter continuous. Each primary's registry and flight
     ring are held against its records (:func:`_check_primary_obs`), and the
     backup's flight recorder, in a temporary directory, must dump on the
-    promotion. No kernel of K1-K3 lies on this path: the counts are set to
-    0 before and must read 0 after."""
+    promotion. The FED_TRACED group runs under ``telemetry='trace'``, its
+    traces merged and checked (:func:`_check_fed_trace`). No kernel of
+    K1-K3 lies on this path: the counts are set to 0 before and must read
+    0 after."""
     import shutil
     import tempfile
 
@@ -2276,6 +2365,9 @@ def federation_phase(data, card):
     try:
         for gi, (layout, codec, pipeline, rounds) in enumerate(FED_GROUPS):
             cfg = _fed_cfg(layout, codec, pipeline)
+            traced = (layout, codec) == FED_TRACED
+            if traced:
+                cfg = dataclasses.replace(cfg, fed=dataclasses.replace(cfg.fed, telemetry="trace"))
             for s in servers:
                 s.stop(0)
             servers, agents = [], []
@@ -2297,6 +2389,8 @@ def federation_phase(data, card):
             for _ in range(rounds + (1 if gi == 0 else 0)):
                 _fed_round(primary, agents, replies, f"{layout} {codec}", card, stats)
             _check_primary_obs(primary, f"{layout} {codec}")
+            if traced:
+                _check_fed_trace(primary, agents, f"{layout} {codec}")
             state = primary.replica_bytes()
         # A deadline round: the last client held back past it.
         held = agents[-1].trainer
@@ -2428,13 +2522,13 @@ def _spy_attacker(t, seen, lock) -> None:
     try (the installed global and its residual) and after its last."""
     train = t.train_round
 
-    def spied(rank, world, coord_round=-1, codec_override=None):
+    def spied(rank, world, trace_ctx=None, coord_round=-1, codec_override=None):
         first = seen.setdefault(coord_round, {})
         if "start" not in first:
             with lock:
                 first["start"] = _leaves_row(t.host_model())
             first["residual"] = None if t.edge_residual is None else _leaves_row(t.edge_residual)
-        out = train(rank, world, coord_round=coord_round, codec_override=codec_override)
+        out = train(rank, world, trace_ctx=trace_ctx, coord_round=coord_round, codec_override=codec_override)
         with lock:
             first.update(after=_leaves_row(t.host_model()), left=t.edge_residual, reply=out)
         return out
@@ -3125,7 +3219,7 @@ GRPC_CRASH_AFTER = 2  # the primary commits rounds 0-1, then stops (4 before pha
 GRPC_ROUNDS = 3  # the control's rounds, and the recovered lineage's end (5 before phase 16)
 # The kernels each path of phases 15-17 runs (every other path runs all three).
 PATH_KERNELS = {"sim": ("threshold_feedback", "quantdequant_int8"), "disaster": ("threshold_feedback",),
-                "async": (), "solo": (), "obs": ("threshold_feedback",)}
+                "async": (), "solo": (), "obs": ("threshold_feedback",), "trace": ("threshold_feedback",)}
 
 
 def _sim_cfg(codec, population=SIM_POPULATION) -> RoundConfig:
@@ -4035,7 +4129,8 @@ def obs_phase(fed, card):
     parse; the rounds counter must equal the rounds the engine stepped
     since it was built and /statusz end at that round, idle, every client
     alive. Rounds/s under each mode and the /metrics scrape latency are
-    logged; no speed is asserted. Returns the path's launch counts."""
+    logged; no speed is asserted. Returns the path's launch counts and
+    the rounds/s under each mode."""
     import shutil
     import tempfile
 
@@ -4081,6 +4176,124 @@ def obs_phase(fed, card):
         "scrape_passes": scraper.passes, "metrics_scrapes": len(lat),
         "metrics_scrape_p50_ms": lat[len(lat) // 2], "metrics_scrape_max_ms": lat[-1],
         "metric_names": len(metrics), "launches": counts, "card": card}))
+    return counts, {"basic": basic, "off": off}
+
+
+# -------------------------------------------------------------- 18. trace
+
+TRACE_ROUNDS = 2  # profiled rounds, fused rounds, and timed rounds under trace
+# The host calls that launch a kernel: the CUDA runtime's cudaLaunch* and the
+# lower-level API's cuLaunch*.
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch")
+
+
+def _round_launches(prof, kernel: str):
+    """From a stopped profiler's events, read as they are: the host's
+    ``round`` ranges (the tracer's record_function bridge), ``kernel``'s
+    executions on the device, and for each the start of the host call that
+    launched it, matched by the runtime's correlation id."""
+    events = list(prof.profiler.kineto_results.events())
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = sorted((start, start + dur) for start, dur in
+                    (_span_us(e) for e in events if e.device_type() == cpu and e.name() == "round"))
+    device = [e for e in events if _on_device(e) and kernel in e.name()]
+    corr = {e.correlation_id() for e in device}
+    calls = [e for e in events if e.device_type() == cpu and e.name().startswith(LAUNCH_CALLS)]
+    launches = sorted(_span_us(e)[0] for e in calls if e.correlation_id() in corr)
+    if len(launches) != len(device):
+        raise RuntimeError(
+            f"trace: {len(device)} {kernel} kernels on the device but {len(launches)} host launches "
+            f"matched by correlation id, of {len(calls)} launch calls "
+            f"({sorted({e.name() for e in calls})[:6]})")
+    return ranges, device, launches
+
+
+def trace_phase(fed, card, basic_rate: Optional[float] = None):
+    """Phase 18: the span tracer on a live MobileNet engine (phase 6's
+    per-leaf topk Federation after phase 17, or one built like it).
+    ``Telemetry("trace", role="engine")`` is swapped in, its spans fed to a
+    flight recorder. TRACE_ROUNDS rounds through ``step()`` inside
+    ``torch.profiler.profile`` (host and device), K1's launches counted
+    from 0: one ``round`` span a round with the engine's round numbers, K1
+    twice a round and K2/K3 never, one ``record_function`` range named
+    ``round`` a round among the profiler's events, each host launch of
+    K1's kernel inside one of them (two in each), and the kernel's device
+    executions counted. The flight ring holds the spans; ``export_trace``
+    writes them to a temporary directory, whose path is logged, and they
+    load back with their metadata; ``/statusz``'s ``trace_id`` is the
+    tracer's. One ``run_on_device`` block is one ``fused_rounds`` span.
+    Rounds/s under trace, outside the profiler, are logged beside phase
+    17's ``basic`` figure; no speed is asserted. Returns the path's launch
+    counts."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedtpu_torch.obs import FlightRecorder, Telemetry, load_chrome_trace
+
+    root = tempfile.mkdtemp(prefix="fedtpu_torch_trace_")
+    try:
+        tel = Telemetry("trace", role="engine")
+        flight = FlightRecorder(role="engine", artifacts_dir=root)
+        tel.tracer.sink = flight.record_span
+        fed.telemetry = tel
+        r0 = fed.state.round_idx
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_ROUNDS):
+                fed.step()
+            torch.cuda.synchronize()
+        counts = _launch_counts()
+        profiled_s = time.perf_counter() - t0
+        t_read = time.perf_counter()
+        ranges, device, launches = _round_launches(prof, "threshold_feedback")
+        read_s = time.perf_counter() - t_read
+        spans = tel.trace_events()
+        per_range = [sum(lo <= t <= hi for t in launches) for lo, hi in ranges]
+        if [(e["name"], e["args"]["round"], e["args"].get("parent_id")) for e in spans] != [
+                ("round", r0 + i, None) for i in range(TRACE_ROUNDS)]:
+            raise RuntimeError(f"trace: spans {[(e['name'], e['args']) for e in spans]} after rounds {r0}..")
+        if counts["threshold_feedback"] != 2 * TRACE_ROUNDS or sum(counts.values()) != 2 * TRACE_ROUNDS:
+            raise RuntimeError(f"trace: launches {counts}, expected K1 twice a round")
+        if len(ranges) != TRACE_ROUNDS:
+            raise RuntimeError(f"trace: {len(ranges)} record_function ranges named round in the profile, "
+                               f"expected {TRACE_ROUNDS}: the profiler bridge did not open them")
+        if per_range != [2] * TRACE_ROUNDS or len(device) != 2 * TRACE_ROUNDS:
+            raise RuntimeError(f"trace: K1's {len(launches)} host launches fall {per_range} in the round "
+                               f"ranges, {len(device)} device executions")
+        ring = [e for e in flight.snapshot() if e["kind"] == "span"]
+        if [(e["name"], e["args"]["round"]) for e in ring] != [("round", r0 + i) for i in range(TRACE_ROUNDS)]:
+            raise RuntimeError(f"trace: the flight ring holds {ring}")
+        path = os.path.join(root, "trace_engine.json")
+        tel.export_trace(path)
+        exported = os.path.getsize(path)
+        meta = json.loads(Path(path).read_text())["metadata"]
+        if load_chrome_trace(path) != spans or meta["trace_id"] != tel.tracer.trace_id or meta["role"] != "engine":
+            raise RuntimeError(f"trace: the export at {path} does not load back ({meta})")
+        if fed.status_snapshot().get("trace_id") != tel.tracer.trace_id:
+            raise RuntimeError("trace: /statusz does not name the tracer's trace_id")
+        tel.tracer.clear()
+        fed.run_on_device(TRACE_ROUNDS)
+        torch.cuda.synchronize()
+        fused = [(e["name"], e["args"]["round"], e["args"]["num_rounds"]) for e in tel.trace_events()
+                 if e["name"] == "fused_rounds"]
+        if len(tel.trace_events()) != 1 or fused != [("fused_rounds", r0 + TRACE_ROUNDS, TRACE_ROUNDS)]:
+            raise RuntimeError(f"trace: one run_on_device block gave {tel.trace_events()}, "
+                               "expected one fused_rounds span")
+        tel.tracer.clear()
+        rate = _timed_rounds(fed, TRACE_ROUNDS, flight)
+        log(f"trace: export {path} ({exported} bytes), removed at the phase's end")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("trace: " + json.dumps({
+        "rounds_per_s_trace": rate, "rounds_per_s_basic_phase17": basic_rate,
+        "trace_over_basic": rate / basic_rate if basic_rate else None,
+        "spans_per_round": len(spans) / TRACE_ROUNDS, "exported_bytes_per_round": exported / TRACE_ROUNDS,
+        "round_ranges": len(ranges), "k1_launches_per_range": per_range, "k1_device_executions": len(device),
+        "profiled_s": profiled_s, "profile_read_s": read_s, "launches": counts, "card": card}))
     return counts
 
 
@@ -4093,7 +4306,7 @@ def main(argv=None) -> int:
         "and flat rotq; write the tables to DIR",
     )
     ap.add_argument(
-        "--only", choices=["kernels", "federation", "faults", "zoo", "sim", "disaster", "async", "obs"],
+        "--only", choices=["kernels", "federation", "faults", "zoo", "sim", "disaster", "async", "obs", "trace"],
         help="run the device phase and this phase alone, and print no result line",
     )
     args = ap.parse_args(argv)
@@ -4116,12 +4329,15 @@ def main(argv=None) -> int:
         zoo3_phase(data, smi, profile_dir)
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
-    if args.only == "obs":
+    if args.only in ("obs", "trace"):
         build_phase()
         data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
         fed = Federation(bench_cfg("topk", "per_leaf", "mobilenet"), seed=0, data=data)
         fed.step()  # warm, as phase 6's engine is: cuDNN picks its algorithms in the first round
-        obs_phase(fed, smi)
+        if args.only == "obs":
+            obs_phase(fed, smi)
+        else:
+            trace_phase(fed, smi)
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.only == "async":
@@ -4195,8 +4411,10 @@ def main(argv=None) -> int:
         profile_diff(base, profile_phase(mfeds[("rotq", "flat")], Path(args.profile), "mobilenet_flat_rotq", rounds=1)[0],
                      "mobilenet_flat_rotq", "mobilenet_per_leaf_topk")
     clock("phase 6 (a), the MobileNet slice")
-    paths["obs"] = obs_phase(mfeds[("topk", "per_leaf")], smi)
+    paths["obs"], obs_rates = obs_phase(mfeds[("topk", "per_leaf")], smi)
     clock("phase 17, the observability plane on phase 6's per-leaf topk engine")
+    paths["trace"] = trace_phase(mfeds[("topk", "per_leaf")], smi, obs_rates["basic"])
+    clock("phase 18, the span tracer on the same engine")
     del mfeds
     torch.cuda.empty_cache()
     mobilenet_options_phase(data, smi)

@@ -16,7 +16,8 @@ thread:
   the next ``save`` wait instead of piling up host copies.
 
 ``flush()`` waits for every pending save; ``close()`` drains and stops the
-thread.
+thread. With ``telemetry=`` (a :class:`fedtpu_torch.obs.Telemetry`) each
+write runs in a ``checkpoint`` span carrying its ``round``.
 """
 
 from __future__ import annotations
@@ -24,13 +25,13 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+from contextlib import nullcontext
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from fedtpu_torch.checkpoint.checkpoint import Checkpointer
-from fedtpu_torch.config import not_ported
 from fedtpu_torch.transport import wire
 
 Tree = Any
@@ -55,19 +56,14 @@ def host_copy(tree: Tree) -> Tree:
 
 class BackgroundCheckpointer:
     """The :class:`Checkpointer` surface (``save(round_idx, state)``,
-    ``restore``, ``restore_latest``) with the write on a background thread.
-    fedtpu's ``telemetry=`` (a ``checkpoint`` span around each write)
-    raises until the port has tracing."""
+    ``restore``, ``restore_latest``) with the write on a background thread,
+    in a ``checkpoint`` span of ``telemetry`` when one is given."""
 
     def __init__(self, inner: Checkpointer, telemetry=None, queue_depth: int = 2):
-        if telemetry is not None:
-            raise not_ported(
-                "BackgroundCheckpointer(telemetry=), the writer's checkpoint spans",
-                "slice 8, part 5b",
-            )
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
         self.inner = inner
+        self._telemetry = telemetry
         self._q: "queue.Queue" = queue.Queue(maxsize=queue_depth)
         # Pending saves, the one being written included (it has left the
         # queue but is not durable yet).
@@ -123,6 +119,11 @@ class BackgroundCheckpointer:
         if self._thread.is_alive():
             log.warning("checkpoint writer did not drain within %ss", timeout)
 
+    def _span(self, round_idx: int):
+        if self._telemetry is not None:
+            return self._telemetry.span("checkpoint", round=round_idx)
+        return nullcontext()
+
     def _run(self) -> None:
         while True:
             item = self._q.get()
@@ -130,9 +131,10 @@ class BackgroundCheckpointer:
                 return
             round_idx, host = item
             try:
-                # The inner save raises on nothing but a fault of its own;
-                # that must not end the writer either.
-                self.inner.save(round_idx, host)
+                with self._span(round_idx):
+                    # The inner save raises on nothing but a fault of its
+                    # own; that must not end the writer either.
+                    self.inner.save(round_idx, host)
             except Exception:
                 log.exception("background checkpoint save of round %d raised", round_idx)
             finally:

@@ -548,8 +548,7 @@ def validate_coordinator(cfg: RoundConfig) -> RoundConfig:
 
 def validate_edge(cfg: RoundConfig) -> RoundConfig:
     """:func:`validate`, and the edge's own fields: the retry policy, the
-    server pipeline, the tier fan-out and the telemetry mode, whose
-    ``trace`` (spans and trace propagation) the port does not run yet."""
+    server pipeline, the tier fan-out and the telemetry mode."""
     validate(cfg)
     fed = cfg.fed
     validate_retry_policy(fed.retry)
@@ -558,6 +557,4 @@ def validate_edge(cfg: RoundConfig) -> RoundConfig:
         validate_tier_config(fed, "tier")
     if fed.telemetry not in ("off", "basic", "trace"):
         raise ValueError(f"unknown telemetry {fed.telemetry!r}; have off | basic | trace")
-    if fed.telemetry == "trace":
-        raise not_ported("telemetry='trace' (spans and trace propagation)", "slice 8, part 5b")
     return cfg

@@ -354,12 +354,13 @@ class AsyncFederation:
         clients report. ``offset``/``keys``: the tick's presharded offset
         or gather keys instead of the engine's draw."""
         self.status.update(round=self._tick_host, phase="async_tick")
-        x, y = self._fed.window(self.state.version, offset, keys)
-        arrive = torch.from_numpy(self._arrive_mask()).to(self.device)
-        alive = torch.from_numpy(self.alive.copy()).to(self.device)
-        self.state, m = self._step(
-            self.state, x, y, self._fed._has_data, self._fed.weights, arrive, alive, self._fed._generator
-        )
+        with self.telemetry.span("async_tick", tick=self._tick_host):
+            x, y = self._fed.window(self.state.version, offset, keys)
+            arrive = torch.from_numpy(self._arrive_mask()).to(self.device)
+            alive = torch.from_numpy(self.alive.copy()).to(self.device)
+            self.state, m = self._step(
+                self.state, x, y, self._fed._has_data, self._fed.weights, arrive, alive, self._fed._generator
+            )
         self._tick_host += 1
         self.status.update(round=self._tick_host, phase="idle")
         self.telemetry.counter(
@@ -380,11 +381,12 @@ class AsyncFederation:
         alive = np.broadcast_to(self.alive.copy(), (num_ticks, n)).copy()
         multi = make_multi_async_step(self.model, self.cfg, num_ticks, self.staleness_power, self.staleness_damping)
         self.status.update(round=self._tick_host, phase="fused_ticks", fused_block=num_ticks)
-        self.state, m = multi(
-            self.state, self._window(offsets, keys), self._fed._has_data, self._fed.weights,
-            torch.from_numpy(arrive).to(self.device), torch.from_numpy(alive).to(self.device),
-            self._fed._generator,
-        )
+        with self.telemetry.span("fused_ticks", tick=self._tick_host, num_ticks=num_ticks):
+            self.state, m = multi(
+                self.state, self._window(offsets, keys), self._fed._has_data, self._fed.weights,
+                torch.from_numpy(arrive).to(self.device), torch.from_numpy(alive).to(self.device),
+                self._fed._generator,
+            )
         self._tick_host += num_ticks
         self.status.update(round=self._tick_host, phase="idle")
         self.telemetry.counter(
@@ -473,9 +475,11 @@ class AsyncFederation:
 
     def status_snapshot(self) -> dict:
         """The ``/statusz`` feed, as :meth:`Federation.status_snapshot`
-        gives it for the synchronous loop."""
+        gives it for the synchronous loop (the ``trace_id`` under trace)."""
         snap = self.status.snapshot()
         snap["alive"] = self.alive.tolist()
+        if self.telemetry.tracer is not None:
+            snap["trace_id"] = self.telemetry.tracer.trace_id
         return snap
 
     def set_alive(self, client: int, alive: bool) -> None:

@@ -16,7 +16,10 @@ clients' last losses; seeded attackers take their seats at build time.
 the run where it stopped. Under ``FedConfig.telemetry='basic'`` it counts
 rounds into :attr:`Federation.telemetry`'s registry and keeps a
 :class:`~fedtpu_torch.obs.StatusBoard` for ``/statusz``, as fedtpu's
-engine does. The engine runs on CUDA unless the caller names
+engine does; under ``'trace'`` each :meth:`Federation.step` is a ``round``
+span and each :meth:`Federation.run_on_device` block a ``fused_rounds``
+span, whose ``torch.profiler.record_function`` ranges hold the kernels
+they launch. The engine runs on CUDA unless the caller names
 another device: without a card and without ``device="cpu"`` it raises, it
 never falls back to the CPU.
 """
@@ -454,7 +457,8 @@ class Federation:
         """One round, on ``batch`` or on the device-resident data."""
         r = self._state.round_idx
         self.status.update(round=r, phase="round")
-        metrics = self._step_impl(batch)
+        with self.telemetry.span("round", round=r):
+            metrics = self._step_impl(batch)
         self.status.update(round=r + 1, phase="idle")
         self.telemetry.counter(
             "fedtpu_rounds_completed_total",
@@ -478,8 +482,9 @@ class Federation:
             raise ValueError(f"num_rounds must be >= 1, got {num_rounds}")
         r = self._state.round_idx
         self.status.update(round=r, phase="fused_rounds", fused_block=num_rounds)
-        losses = self._state.last_client_loss.cpu().numpy() if self._loss_sampled() else None
-        per_round = [self._step_impl(self.device_batch(r + i, losses=losses)) for i in range(num_rounds)]
+        with self.telemetry.span("fused_rounds", round=r, num_rounds=num_rounds):
+            losses = self._state.last_client_loss.cpu().numpy() if self._loss_sampled() else None
+            per_round = [self._step_impl(self.device_batch(r + i, losses=losses)) for i in range(num_rounds)]
         self.status.update(round=r + num_rounds, phase="idle")
         self.telemetry.counter(
             "fedtpu_rounds_completed_total",
@@ -568,11 +573,13 @@ class Federation:
         return float(loss), float(acc)
 
     def status_snapshot(self) -> dict:
-        """The ``/statusz`` feed: the board's round and phase plus the alive
-        mask (fedtpu's ``trace_id``, ``perf`` and ``compile`` blocks come
-        with ROADMAP.md items 5b and 5c)."""
+        """The ``/statusz`` feed: the board's round and phase, the alive
+        mask and, under trace, the tracer's ``trace_id`` (fedtpu's ``perf``
+        and ``compile`` blocks come with ROADMAP.md item 5c)."""
         snap = self.status.snapshot()
         snap["alive"] = self.alive.tolist()
+        if self.telemetry.tracer is not None:
+            snap["trace_id"] = self.telemetry.tracer.trace_id
         return snap
 
     def set_alive(self, client: int, alive: bool) -> None:

@@ -1,5 +1,5 @@
-"""The Telemetry facade: one object gating the metrics registry on a mode,
-the port's own copy of ``fedtpu/obs/telemetry.py``'s ``off`` and ``basic``.
+"""The Telemetry facade: one object gating the tracer and the metrics
+registry on a mode, the port's own copy of ``fedtpu/obs/telemetry.py``.
 
 ``FedConfig.telemetry`` selects how much the framework measures itself:
 
@@ -9,8 +9,10 @@ the port's own copy of ``fedtpu/obs/telemetry.py``'s ``off`` and ``basic``.
   the round record's own wire and phase accounting stays.
 - ``"basic"`` (the default): the registry is live (counters, gauges,
   histograms, exportable as Prometheus text); no spans.
-- ``"trace"``: basic plus the span tracer. Not ported yet (ROADMAP.md
-  Queue 1, item 5b).
+- ``"trace"``: basic plus the span tracer (Chrome-trace export, and the
+  ``torch.profiler.record_function`` bridge in place of fedtpu's jax
+  ``TraceAnnotation``). Spans cost about a microsecond each: a diagnosis
+  mode, off the default path.
 
 Each engine or server owns one Telemetry; its registry is that component's
 metric namespace, and the ft helpers it builds count into the same one.
@@ -27,22 +29,9 @@ from fedtpu_torch.obs.registry import (
     Histogram,
     MetricsRegistry,
 )
+from fedtpu_torch.obs.trace import NULL_SPAN, SpanTracer
 
 TELEMETRY_MODES = ("off", "basic", "trace")
-
-
-class _NullSpan:
-    """The shared no-op span ``span()`` returns below ``trace``; ``id`` is
-    None so ``parent=span.id`` chains stay valid."""
-
-    __slots__ = ()
-    id = None
-
-    def __enter__(self) -> "_NullSpan":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        return None
 
 
 class _NullCounter:
@@ -76,7 +65,6 @@ class _NullHistogram:
         return None
 
 
-NULL_SPAN = _NullSpan()
 _NULL_COUNTER = _NullCounter()
 _NULL_GAUGE = _NullGauge()
 _NULL_HISTOGRAM = _NullHistogram()
@@ -91,26 +79,56 @@ def validate_telemetry_mode(mode: str) -> str:
 
 
 class Telemetry:
-    """Mode-gated owner of one :class:`MetricsRegistry`."""
+    """Mode-gated bundle of one :class:`MetricsRegistry` and (in ``trace``
+    mode) one :class:`SpanTracer`. ``bridge_profiler`` is fedtpu's
+    ``bridge_jax``; it defaults to on whenever the mode traces."""
 
     def __init__(self, mode: str = "basic",
                  registry: Optional[MetricsRegistry] = None,
+                 bridge_profiler: Optional[bool] = None,
                  role: Optional[str] = None):
         self.mode = validate_telemetry_mode(mode)
-        if mode == "trace":
-            from fedtpu_torch.config import not_ported
-
-            raise not_ported("telemetry='trace' (spans and trace propagation)", "slice 8, part 5b")
-        # Component identity for the flight recorder's dump names: "primary",
-        # "backup", "client:<addr>", "engine", ...; the owner stamps it.
+        # Component identity for multi-process trace stitching and the
+        # flight recorder's dump names: "primary", "backup",
+        # "client:<addr>", "engine", ...; the owner stamps it.
         self.role = role
         self.enabled = mode != "off"
+        self.tracing = mode == "trace"
         # A registry exists even when off; the gate is in the getters.
         self.registry = registry if registry is not None else MetricsRegistry()
+        if bridge_profiler is None:
+            bridge_profiler = self.tracing
+        self.tracer = SpanTracer(bridge_profiler=bridge_profiler) if self.tracing else None
 
     # ------------------------------------------------------------- spans
     def span(self, name: str, parent=None, **args):
-        return NULL_SPAN
+        if self.tracer is None:
+            return NULL_SPAN
+        return self.tracer.span(name, parent=parent, **args)
+
+    def trace_events(self):
+        return self.tracer.events() if self.tracer is not None else []
+
+    def export_trace(self, path: str) -> None:
+        """Write the collected spans as a Perfetto-loadable Chrome trace; a
+        no-op below ``trace``. The ``metadata`` block (trace id, role, pid,
+        wall_start) is what ``tools/trace_merge.py`` keys on when it
+        stitches per-process files into one federation timeline."""
+        if self.tracer is None:
+            return
+        import os
+
+        from fedtpu_torch.obs.trace import write_chrome_trace
+
+        write_chrome_trace(
+            self.tracer.events(), path,
+            metadata={
+                "trace_id": self.tracer.trace_id,
+                "role": self.role or f"pid{os.getpid()}",
+                "pid": os.getpid(),
+                "wall_start": self.tracer.wall_start,
+            },
+        )
 
     # ----------------------------------------------------------- metrics
     def counter(self, name: str, help: str = "", labels=None) -> Counter:

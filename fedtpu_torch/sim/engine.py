@@ -202,21 +202,22 @@ class SimFederation(Federation):
         installed already."""
         if round_idx == self._cohort_round:
             return
-        ids, alive = self._sampler.sample(self.population, round_idx, self.cfg.fed.num_clients)
-        self.population.mark_sampled(ids[alive], round_idx)
-        slot_ids = np.where(alive, ids, -1)
-        fresh = slot_ids != self._slot_ids
-        self._cohort_ids, self._cohort_round = ids, round_idx
-        self.alive = alive.copy()
-        self._refresh_attack_seats(ids, alive)
-        if fresh.any():
-            idx, mask = self._cohort_assignment(ids, alive)
-            _, _, w = self.population.gather(ids)
-            self.set_assignment(idx, mask, weights=w * alive)
-            self._refresh(fresh, ids)
-            self._slot_ids = slot_ids
-        # else the same cohort in the same seats: state, assignment and
-        # weights are already this cohort's, and stay untouched.
+        with self.telemetry.span("cohort_sample", round=round_idx):
+            ids, alive = self._sampler.sample(self.population, round_idx, self.cfg.fed.num_clients)
+            self.population.mark_sampled(ids[alive], round_idx)
+            slot_ids = np.where(alive, ids, -1)
+            fresh = slot_ids != self._slot_ids
+            self._cohort_ids, self._cohort_round = ids, round_idx
+            self.alive = alive.copy()
+            self._refresh_attack_seats(ids, alive)
+            if fresh.any():
+                idx, mask = self._cohort_assignment(ids, alive)
+                _, _, w = self.population.gather(ids)
+                self.set_assignment(idx, mask, weights=w * alive)
+                self._refresh(fresh, ids)
+                self._slot_ids = slot_ids
+            # else the same cohort in the same seats: state, assignment and
+            # weights are already this cohort's, and stay untouched.
         self._set_sim_gauges()
 
     def _observe_back(self) -> None:

@@ -27,6 +27,12 @@ the root spends no retries and masks the row. ``cohort_source`` replaces
 the gRPC cohort and ``template`` the model's structure: fedtpu's seams for
 benches and tests.
 
+Under ``telemetry="trace"`` the aggregator adopts the root's trace id and
+nests its spans (``install_global``, ``broadcast``, ``submit_partial``,
+``collect``, ``client_rpc``, ``decode``, ``partial_reduce``) under the
+root's, and every channel it dials carries its own context down to the
+cohort, so ``tools/trace_merge.py --check`` stitches all three tiers.
+
 The buffer and the fold run on the card unless ``device="cpu"`` is passed.
 """
 
@@ -59,8 +65,9 @@ from fedtpu_torch.transport.service import (
     create_channel,
     create_server,
     probe,
+    trace_context_of,
 )
-from fedtpu_torch.obs import Telemetry, process_rss_bytes
+from fedtpu_torch.obs import Telemetry, process_rss_bytes, propagate
 
 __all__ = ["AggregatorServer", "CohortSource", "serve_aggregator"]
 
@@ -144,13 +151,25 @@ class AggregatorServer(TrainerServicer):
 
     # ------------------------------------------------------------ plumbing
     def _make_stub(self, client: str) -> TrainerStub:
-        return TrainerStub(create_channel(client, compress=self._compress, chaos=self.chaos))
+        return TrainerStub(create_channel(client, compress=self._compress,
+                                          trace_source=self._trace_source, chaos=self.chaos))
 
     def _stub(self, client: str) -> Optional[TrainerStub]:
         with self._member_lock:
             if client not in self._stubs and self.registry.is_member(client):
                 self._stubs[client] = self._make_stub(client)
             return self._stubs.get(client)
+
+    def _trace_source(self) -> Optional[propagate.TraceContext]:
+        tracer = self.telemetry.tracer
+        if tracer is None:
+            return None
+        return propagate.TraceContext(
+            trace_id=tracer.trace_id,
+            span_id=tracer.current_id() or 0,
+            role=self.telemetry.role or "aggregator",
+            round=self._round_seen,
+        )
 
     def _probe_member(self, client: str) -> bool:
         stub = self._stub(client)
@@ -205,10 +224,13 @@ class AggregatorServer(TrainerServicer):
         """Install the root's global and relay its bytes, as they are and
         with its epoch, to the cohort."""
         self._fence_check(request.epoch, "SendModel", context)
-        tree = wire.decode(request.model, self._template)
-        with self._global_lock:
-            self._global_bytes = request.model
-            self._global_host = {k: tree[k] for k in ("params", "batch_stats")}
+        ctx = trace_context_of(context)
+        propagate.adopt(self.telemetry.tracer, ctx)
+        with self.telemetry.span("install_global", **propagate.span_args(ctx)):
+            tree = wire.decode(request.model, self._template)
+            with self._global_lock:
+                self._global_bytes = request.model
+                self._global_host = {k: tree[k] for k in ("params", "batch_stats")}
         self.telemetry.counter(
             "fedtpu_rpc_bytes_down_total",
             "payload bytes shipped/received on the downstream face",
@@ -228,14 +250,15 @@ class AggregatorServer(TrainerServicer):
             if stub is None:
                 return
             try:
-                call_with_retry(
-                    self.retry_policy, "SendModel",
-                    lambda: stub.SendModel(
-                        proto.SendModelRequest(model=payload, epoch=epoch),
-                        timeout=self._deadlines["SendModel"],
-                    ),
-                    peer=client, telemetry=self.telemetry,
-                )
+                with self.telemetry.span("broadcast", client=client):
+                    call_with_retry(
+                        self.retry_policy, "SendModel",
+                        lambda: stub.SendModel(
+                            proto.SendModelRequest(model=payload, epoch=epoch),
+                            timeout=self._deadlines["SendModel"],
+                        ),
+                        peer=client, telemetry=self.telemetry,
+                    )
             except grpc.RpcError:
                 failures.append(client)
                 self.telemetry.counter(
@@ -260,9 +283,13 @@ class AggregatorServer(TrainerServicer):
         into the ``[cohort, P]`` buffer and folded into one pre-weighted
         sum, answered as one ``partial_flat`` record."""
         self._fence_check(request.epoch, "SubmitPartial", context)
+        ctx = trace_context_of(context)
+        propagate.adopt(self.telemetry.tracer, ctx)
         self._round_seen = request.round
         t_start = time.monotonic()
-        reply = self._submit_partial_impl(request, context)
+        with self.telemetry.span("submit_partial", round=request.round, rank_base=request.rank_base,
+                                 **propagate.span_args(ctx)) as pspan:
+            reply = self._submit_partial_impl(request, context, pspan)
         self.telemetry.histogram(
             "fedtpu_round_phase_seconds",
             "per-round phase durations by phase",
@@ -270,7 +297,7 @@ class AggregatorServer(TrainerServicer):
         ).observe(time.monotonic() - t_start)
         return reply
 
-    def _submit_partial_impl(self, request: proto.SubmitPartialRequest, context) -> proto.SubmitPartialReply:
+    def _submit_partial_impl(self, request: proto.SubmitPartialRequest, context, pspan) -> proto.SubmitPartialReply:
         tel = self.telemetry
         cfg = self.cfg
         if self.cohort_source is not None:
@@ -313,12 +340,13 @@ class AggregatorServer(TrainerServicer):
             # Staged on the host and copied into the card's row once; a
             # retry rewrites every real coordinate.
             row = buf[row_of[client]]
-            if sparse.is_sparse_payload(data):
-                extra = sparse.decode_into_row(data, self._sizes, row)
-            else:
-                with self._global_lock:
-                    base = self._global_host
-                extra = wire.decode_into_row(data, self._payload_template, base, row)
+            with tel.span("decode", client=client):
+                if sparse.is_sparse_payload(data):
+                    extra = sparse.decode_into_row(data, self._sizes, row)
+                else:
+                    with self._global_lock:
+                        base = self._global_host
+                    extra = wire.decode_into_row(data, self._payload_template, base, row)
             tel.counter(
                 "fedtpu_rpc_bytes_up_total",
                 "payload bytes received on the upstream-bound face",
@@ -335,7 +363,8 @@ class AggregatorServer(TrainerServicer):
                 return decode_one(client, reply.message)
 
             try:
-                n = call_with_retry(self.retry_policy, "StartTrain", attempt, peer=client, telemetry=tel)
+                with tel.span("client_rpc", parent=pspan.id, client=client):
+                    n = call_with_retry(self.retry_policy, "StartTrain", attempt, peer=client, telemetry=tel)
                 with lock:
                     results[client] = n
             except (grpc.RpcError, wire.WireError) as e:
@@ -353,18 +382,19 @@ class AggregatorServer(TrainerServicer):
                 self.registry.mark_failed(client)
 
         t0 = time.monotonic()
-        if payload_of is not None:
-            for client in launch:
-                try:
-                    results[client] = decode_one(client, payload_of[client])
-                except wire.WireError as e:
-                    log.warning("sim payload for %s rejected: %s", client, e)
-        else:
-            threads = [threading.Thread(target=train_one, args=(c,), daemon=True) for c in launch]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
+        with tel.span("collect", parent=pspan.id, cohort=len(launch)):
+            if payload_of is not None:
+                for client in launch:
+                    try:
+                        results[client] = decode_one(client, payload_of[client])
+                    except wire.WireError as e:
+                        log.warning("sim payload for %s rejected: %s", client, e)
+            else:
+                threads = [threading.Thread(target=train_one, args=(c,), daemon=True) for c in launch]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
         t_collect = time.monotonic() - t0
         tel.gauge("fedtpu_partial_rows_buffered", "").set(0)
 
@@ -396,11 +426,12 @@ class AggregatorServer(TrainerServicer):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
         t1 = time.perf_counter()
-        sum_row, weight_sum = flat_ops.partial_reduce_rows(keep, weights)
-        if cuda:
-            end.record()
-        sum_row = sum_row[: self._total].cpu().numpy()
-        weight_sum = float(weight_sum)
+        with tel.span("partial_reduce", parent=pspan.id, rows=len(order)):
+            sum_row, weight_sum = flat_ops.partial_reduce_rows(keep, weights)
+            if cuda:
+                end.record()
+            sum_row = sum_row[: self._total].cpu().numpy()
+            weight_sum = float(weight_sum)
         reduce_ms = start.elapsed_time(end) if cuda else (time.perf_counter() - t1) * 1e3
         tel.histogram(
             "fedtpu_round_phase_seconds", "",

@@ -60,9 +60,13 @@ The round record is API whatever ``telemetry`` says. Under ``basic`` each
 component counts into its own :class:`~fedtpu_torch.obs.Telemetry`
 registry under fedtpu's metric names, and the primary and the backup each
 own a :class:`~fedtpu_torch.obs.FlightRecorder` (rounds, fences,
-membership, failover) and a :class:`~fedtpu_torch.obs.StatusBoard`.
-``telemetry="trace"`` raises ``NotImplementedError`` (ROADMAP.md item 5b),
-and the trace context a coordinator may attach as metadata is not read.
+membership, failover) and a :class:`~fedtpu_torch.obs.StatusBoard`. Under
+``trace`` the primary opens fedtpu's spans (``round``, ``collect``,
+``client_rpc`` or ``submit_partial``, ``decode``, ``h2d``, ``screen``,
+``aggregate``, ``replicate``, ``broadcast``, ``async_update``), feeds them
+to its flight ring, and every RPC it dials carries its trace context
+(:mod:`fedtpu_torch.obs.propagate`), which a client's ``client_train`` and
+``install_global`` spans adopt.
 """
 
 from __future__ import annotations
@@ -101,7 +105,7 @@ from fedtpu_torch.ft import (
     Role,
     WatchdogRunner,
 )
-from fedtpu_torch.obs import Counter, FlightRecorder, StatusBoard, Telemetry, process_rss_bytes
+from fedtpu_torch.obs import Counter, FlightRecorder, StatusBoard, Telemetry, process_rss_bytes, propagate
 from fedtpu_torch.ops import flat as flat_ops
 from fedtpu_torch.transport import aggregation, msgpack, proto, sparse, wire
 from fedtpu_torch.transport.codec_policy import AdaptiveCodecPolicy
@@ -112,6 +116,7 @@ from fedtpu_torch.transport.service import (
     create_channel,
     create_server,
     probe,
+    trace_context_of,
 )
 from fedtpu_torch.transport.trainer import LocalTrainer
 from fedtpu_torch.utils.observe import latency_summary
@@ -225,6 +230,9 @@ class PrimaryServer:
         # The black box of recent rounds, fences and warning+ events,
         # dumpable at any moment and read over /flightz.
         self.flight = flight if flight is not None else FlightRecorder(role="primary")
+        # Under trace, every finished span lands in the flight ring too.
+        if self.telemetry.tracer is not None:
+            self.telemetry.tracer.sink = self.flight.record_span
         # The /statusz feed: the round loop updates round and phase.
         self.status = StatusBoard(role="primary", phase="init", round=0)
         metrics = self.telemetry.registry if self.telemetry.enabled else None
@@ -274,11 +282,16 @@ class PrimaryServer:
         self._fence_retry_s = 0.5
         self._set_epoch(1)
         self.registry = MembershipTable(clients, metrics=metrics)
+        # Every channel this server dials (the fan-out, the heartbeat
+        # probes, the backup's pings, replication and FetchModel) carries
+        # the trace-propagation interceptor, whose source yields None below
+        # trace (one no-op call an RPC); chaos wraps it, keyed by peer.
         self._member_lock = threading.Lock()
         self._stubs: Dict[str, TrainerStub] = {c: self._make_stub(c) for c in clients}
         self._gate_server = None
         self.backup_stub = (
-            TrainerStub(create_channel(backup_address, compress=compress, chaos=chaos))
+            TrainerStub(create_channel(backup_address, compress=compress,
+                                       trace_source=self._trace_source, chaos=chaos))
             if backup_address else None
         )
         self.monitor = HeartbeatMonitor(
@@ -612,7 +625,8 @@ class PrimaryServer:
 
     # --------------------------------------------------------- membership
     def _make_stub(self, address: str) -> TrainerStub:
-        return TrainerStub(create_channel(address, compress=self.compress, chaos=self.chaos))
+        return TrainerStub(create_channel(address, compress=self.compress,
+                                          trace_source=self._trace_source, chaos=self.chaos))
 
     def _stub(self, client: str) -> Optional[TrainerStub]:
         """The member's stub, or None for an evicted non-member."""
@@ -708,13 +722,29 @@ class PrimaryServer:
             self._gate_server.stop(0)
             self._gate_server = None
 
+    # ------------------------------------------------------ observability
+    def _trace_source(self) -> Optional[propagate.TraceContext]:
+        """The context each outbound RPC carries, computed on the issuing
+        thread, so the innermost open span (a collect worker's
+        ``client_rpc``) becomes the receiver's remote parent. None below
+        trace: the interceptor then forwards the call untouched."""
+        tracer = self.telemetry.tracer
+        if tracer is None:
+            return None
+        return propagate.TraceContext(
+            trace_id=tracer.trace_id,
+            span_id=tracer.current_id() or 0,
+            role=self.telemetry.role or "primary",
+            round=self._round_counter,
+        )
+
     def status_snapshot(self) -> dict:
         """fedtpu's ``/statusz`` feed: the board's round and phase, liveness,
         the membership block, the memory axes, the stragglers still in
-        flight, fencing, the heartbeat misses, the last round's split, the
-        per-codec byte table and, under the adaptive policy, its costs
-        (fedtpu's ``trace_id`` and ``compile`` blocks come with ROADMAP.md
-        items 5b and 5c)."""
+        flight, fencing, the heartbeat misses, the trace id under trace,
+        the last round's split, the per-codec byte table and, under the
+        adaptive policy, its costs (fedtpu's ``compile`` block comes with
+        ROADMAP.md item 5c)."""
         snap = self.status.snapshot()
         reg = self.registry
         tel = self.telemetry
@@ -743,6 +773,8 @@ class PrimaryServer:
                 "fedtpu_ft_heartbeat_misses_total",
                 "heartbeat probes of dead clients that stayed dead",
             ).value
+        if tel.tracer is not None:
+            snap["trace_id"] = tel.tracer.trace_id
         if self.history:
             last = self.history[-1]
             snap["last_round"] = {
@@ -944,7 +976,7 @@ class PrimaryServer:
                     if len(self.registry.active_clients()) < quorum_n:
                         log.warning("quorum never recovered; stopping")
                         break
-                with version_lock:
+                with tel.span("async_update"), version_lock:
                     v = self._async_version
                     stalenesses = [v - b for _, _, _, b in buf]
                     raw = [n if fed.weighted else 1.0 for _, _, n, _ in buf]
@@ -1096,11 +1128,13 @@ class PrimaryServer:
         return rec
 
     def round(self) -> dict:
-        """One synchronous FedAvg round; returns the round record. The
-        registry (bytes, phase histograms, stragglers) and the flight
-        recorder are fed after the record is built."""
+        """One synchronous FedAvg round; returns the round record. The body
+        runs in the top-level ``round`` span; the registry (bytes, phase
+        histograms, stragglers) and the flight recorder are fed after the
+        record is built."""
         tel = self.telemetry
-        rec = self._round_body()
+        with tel.span("round", round=self._round_counter) as rspan:
+            rec = self._round_body(rspan)
         self.status.update(phase="idle")
         if tel.enabled:
             # Leak axes, sampled once a round.
@@ -1172,7 +1206,7 @@ class PrimaryServer:
                 ).set(rec["t_round_s"])
         return rec
 
-    def _round_body(self) -> dict:
+    def _round_body(self, rspan) -> dict:
         cfg = self.cfg
         lay = self.layout
         tel = self.telemetry
@@ -1274,11 +1308,12 @@ class PrimaryServer:
                     done.synchronize()  # a retry rewrites the row only once it was read
                 row = host_buf[0][i].numpy()
                 t0 = time.monotonic()
-                if sparse.is_sparse_payload(data):
-                    extra = sparse.decode_into_row(data, lay.sizes, row)
-                else:
-                    # Dense full weights: the delta against the round's global.
-                    extra = wire.decode_into_row(data, payload_like, global_host(), row)
+                with tel.span("decode", client=client):
+                    if sparse.is_sparse_payload(data):
+                        extra = sparse.decode_into_row(data, lay.sizes, row)
+                    else:
+                        # Dense full weights: the delta against the round's global.
+                        extra = wire.decode_into_row(data, payload_like, global_host(), row)
                 t1 = time.monotonic()
                 decode_s.inc(t1 - t0)
                 kind = extra.pop("_codec", None)
@@ -1286,7 +1321,7 @@ class PrimaryServer:
                     # Ship the row now, overlapping the other clients'
                     # wait; a straggler landing after the round closed its
                     # buffer writes nothing.
-                    with stream_lock:
+                    with tel.span("h2d", client=client), stream_lock:
                         if dev_buf:
                             dev_buf[0][i].copy_(host_buf[0][i], non_blocking=True)
                             if cuda:
@@ -1304,10 +1339,13 @@ class PrimaryServer:
             rpc_name = "SubmitPartial" if tiered else "StartTrain"
             try:
                 t_rpc = time.monotonic()
-                results[client] = call_with_retry(
-                    self.retry_policy, rpc_name, attempt, peer=client,
-                    telemetry=self.telemetry, rand=self._retry_rand,
-                )
+                # Parented to the round by id: this runs on a collect thread.
+                with tel.span("submit_partial" if tiered else "client_rpc",
+                              parent=rspan.id, client=client):
+                    results[client] = call_with_retry(
+                        self.retry_policy, rpc_name, attempt, peer=client,
+                        telemetry=self.telemetry, rand=self._retry_rand,
+                    )
                 latencies[client] = time.monotonic() - t_rpc
                 tel.histogram(
                     "fedtpu_client_rpc_seconds",
@@ -1374,25 +1412,26 @@ class PrimaryServer:
                     "toward this round's root combine",
                 ).set(len(launch))
         t_launch = time.monotonic()
-        threads = {
-            client: threading.Thread(target=train_one, args=(rank_of[client], client, stub_of[client]))
-            for client in launch
-        }
-        for t in threads.values():
-            t.start()
-        if self.round_deadline_s is None:
+        with tel.span("collect", launched=len(launch)):
+            threads = {
+                client: threading.Thread(target=train_one, args=(rank_of[client], client, stub_of[client]))
+                for client in launch
+            }
             for t in threads.values():
-                t.join()
-            stragglers = still_busy + unsynced
-        else:
-            deadline = time.monotonic() + self.round_deadline_s
-            for t in threads.values():
-                t.join(max(0.0, deadline - time.monotonic()))
-            stragglers = still_busy + unsynced + [c for c, t in threads.items() if t.is_alive()]
-            if stragglers:
-                log.warning(
-                    "round deadline %.1fs hit; aggregating without %s", self.round_deadline_s, stragglers
-                )
+                t.start()
+            if self.round_deadline_s is None:
+                for t in threads.values():
+                    t.join()
+                stragglers = still_busy + unsynced
+            else:
+                deadline = time.monotonic() + self.round_deadline_s
+                for t in threads.values():
+                    t.join(max(0.0, deadline - time.monotonic()))
+                stragglers = still_busy + unsynced + [c for c, t in threads.items() if t.is_alive()]
+                if stragglers:
+                    log.warning(
+                        "round deadline %.1fs hit; aggregating without %s", self.round_deadline_s, stragglers
+                    )
         t_barrier = time.monotonic()
         # Merge over the surviving earlier entries: a straggler of two
         # rounds ago may still run.
@@ -1445,11 +1484,12 @@ class PrimaryServer:
         screened_names: List[str] = []
         if self._screen_cfg is not None and order:
             sc = self._screen_cfg
-            live = torch.tensor(
-                [c not in quarantined_now for c in order], dtype=torch.float32, device=self.device
-            )
-            keep, _ = flat_ops.screen_rows(rows, live, sc.norm_max, sc.zmax, sc.cos_min)
-            keep = keep.cpu().numpy()
+            with tel.span("screen", participants=len(order)):
+                live = torch.tensor(
+                    [c not in quarantined_now for c in order], dtype=torch.float32, device=self.device
+                )
+                keep, _ = flat_ops.screen_rows(rows, live, sc.norm_max, sc.zmax, sc.cos_min)
+                keep = keep.cpu().numpy()
             screened_names = [c for i, c in enumerate(order) if not bool(keep[i])]
             self._update_reputation(order, set(screened_names), quarantined_now)
             if screened_names:
@@ -1468,33 +1508,34 @@ class PrimaryServer:
             order = [c for c in order if c not in dropped]
 
         if order:
-            if cfg.fed.weighted or tiered:
-                # A root's weights are the partials' weight sums, the
-                # configured weighting already applied below it.
-                weights = torch.tensor([completed[c][1] for c in order], dtype=torch.float32)
-            else:
-                weights = torch.ones((len(order),), dtype=torch.float32)
-            weights = weights.to(self.device)
-            if tiered:
-                # Pre-weighted sums: summed, then divided once.
-                new_global, self._server_opt_state = aggregation.finalize_partial(
-                    cfg, lay, global_now, rows, weights, self._server_opt_state, server=self._server_opt
-                )
-            elif stream:
-                new_global, self._server_opt_state = aggregation.finalize_stream(
-                    cfg, lay, global_now, rows, weights, self._server_opt_state, server=self._server_opt
-                )
-            else:
-                stacked = _split_collections(flat_ops.unpack_stacked(lay, rows))
-                new_global, self._server_opt_state = aggregation.aggregate(
-                    cfg, global_now, stacked, weights, self._server_opt_state,
-                    self._round_counter, server=self._server_opt,
-                )
-            # Replaced, never written in place: a resync reading the old
-            # tree meanwhile sends a whole model.
-            self.global_tree = new_global
-            if cuda:
-                torch.cuda.synchronize(self.device)
+            with tel.span("aggregate", participants=len(order)):
+                if cfg.fed.weighted or tiered:
+                    # A root's weights are the partials' weight sums, the
+                    # configured weighting already applied below it.
+                    weights = torch.tensor([completed[c][1] for c in order], dtype=torch.float32)
+                else:
+                    weights = torch.ones((len(order),), dtype=torch.float32)
+                weights = weights.to(self.device)
+                if tiered:
+                    # Pre-weighted sums: summed, then divided once.
+                    new_global, self._server_opt_state = aggregation.finalize_partial(
+                        cfg, lay, global_now, rows, weights, self._server_opt_state, server=self._server_opt
+                    )
+                elif stream:
+                    new_global, self._server_opt_state = aggregation.finalize_stream(
+                        cfg, lay, global_now, rows, weights, self._server_opt_state, server=self._server_opt
+                    )
+                else:
+                    stacked = _split_collections(flat_ops.unpack_stacked(lay, rows))
+                    new_global, self._server_opt_state = aggregation.aggregate(
+                        cfg, global_now, stacked, weights, self._server_opt_state,
+                        self._round_counter, server=self._server_opt,
+                    )
+                # Replaced, never written in place: a resync reading the old
+                # tree meanwhile sends a whole model.
+                self.global_tree = new_global
+                if cuda:
+                    torch.cuda.synchronize(self.device)
         t_done = time.monotonic()
         # The counter advances before replication: the replica carries the
         # next round's index.
@@ -1505,7 +1546,8 @@ class PrimaryServer:
         if self.backup_stub is not None:
             replica = self.replica_bytes()
             try:
-                self._send_model(self.backup_stub, replica, "backup")
+                with tel.span("replicate", parent=rspan.id):
+                    self._send_model(self.backup_stub, replica, "backup")
                 bytes_down.inc(len(replica))
             except grpc.RpcError as e:
                 if is_stale_coordinator(e):
@@ -1523,7 +1565,8 @@ class PrimaryServer:
             if stub is None:
                 return
             try:
-                self._send_model(stub, payload, client)
+                with tel.span("broadcast", parent=rspan.id, client=client):
+                    self._send_model(stub, payload, client)
                 bytes_down.inc(len(payload))
             except grpc.RpcError as e:
                 if is_stale_coordinator(e):
@@ -1816,6 +1859,27 @@ class BackupServer(TrainerServicer):
             return _MembershipGate(acting).Leave(request, context)
         return proto.LeaveReply(left=0)
 
+    def status_snapshot(self) -> dict:
+        """fedtpu's ``/statusz`` feed for the backup role: the failover
+        state (role, watchdog timeout, seconds since the primary's last
+        ping, None before the first), whether a replica is held, the
+        largest epoch seen, and while promoted the acting primary's own
+        snapshot under ``acting``."""
+        machine = self.machine
+        since = machine.seconds_since_ping()
+        snap = {
+            "role": machine.role.value,
+            "pid": os.getpid(),
+            "watchdog_timeout_s": machine.timeout,
+            "seconds_since_primary_ping": None if since == float("inf") else round(since, 3),
+            "has_replica": self.latest_model is not None,
+            "epoch_seen": self._epoch_seen,
+        }
+        acting = self.acting
+        if acting is not None and machine.role is Role.ACTING_PRIMARY:
+            snap["acting"] = acting.status_snapshot()
+        return snap
+
     def health(self) -> Tuple[bool, str]:
         """The acting primary's verdict while acting, else ok."""
         acting = self.acting
@@ -1936,6 +2000,7 @@ class ClientAgent(TrainerServicer):
         self._fence_check(request.epoch, "StartTrain", context)
         payload = self.trainer.train_round(
             request.rank, request.world,
+            trace_ctx=trace_context_of(context),
             coord_round=request.round,
             # 0 or an id this client does not know: the configured codec.
             codec_override=proto.CODEC_NAMES.get(request.codec),
@@ -1944,7 +2009,7 @@ class ClientAgent(TrainerServicer):
 
     def SendModel(self, request: proto.SendModelRequest, context) -> proto.SendModelReply:
         self._fence_check(request.epoch, "SendModel", context)
-        self.trainer.set_global(request.model)
+        self.trainer.set_global(request.model, trace_ctx=trace_context_of(context))
         self.last_eval = self.trainer.evaluate()
         log.info("global model installed: eval %s", self.last_eval)
         return proto.SendModelReply(reply=f"{self.last_eval[1]:.4f}".encode())

@@ -8,9 +8,9 @@ from generic handlers and the hand-rolled codec of
 :mod:`fedtpu_torch.transport.proto`; 1 GiB message caps on channels and
 servers, and optional transport gzip; fedtpu's fault-injection
 interceptors (:mod:`fedtpu_torch.ft.chaos`) on a channel and a server;
-and the client's half of dynamic membership (:func:`announce_join`,
-:func:`announce_leave`). fedtpu's trace-propagation interceptor is not
-ported yet: asking for it raises.
+the trace-propagation interceptor on a channel and the receiving side's
+:func:`trace_context_of`; and the client's half of dynamic membership
+(:func:`announce_join`, :func:`announce_leave`).
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ from typing import Optional
 
 import grpc
 
-from fedtpu_torch.config import not_ported
 from fedtpu_torch.transport import proto
 
 log = logging.getLogger("fedtpu_torch.service")
@@ -140,18 +139,34 @@ def add_trainer_servicer(servicer: TrainerServicer, server: grpc.Server) -> None
     )
 
 
+def trace_context_of(context):
+    """The propagated ``fedtpu-trace-bin`` context of a servicer's handler
+    context: None when the caller attached none or the payload is
+    malformed; extraction never fails an RPC. The injecting side is
+    :func:`fedtpu_torch.obs.propagate.instrument_channel`."""
+    from fedtpu_torch.obs import propagate
+
+    try:
+        return propagate.from_metadata(context.invocation_metadata())
+    except Exception:
+        return None
+
+
 def create_channel(address: str, compress: bool = False,
                    trace_source=None, chaos=None) -> grpc.Channel:
-    """Insecure channel with 1 GiB caps and optional gzip. ``chaos`` (a
-    :class:`fedtpu_torch.ft.chaos.FaultSchedule`) wraps it in the
-    fault-injection interceptor keyed to this peer. ``trace_source``
-    (trace propagation) is not ported yet and raises."""
-    if trace_source is not None:
-        raise not_ported("trace propagation over gRPC (trace_source=)", "slice 8, part 5b")
+    """Insecure channel with 1 GiB caps and optional gzip. ``trace_source``
+    (a ``() -> Optional[TraceContext]``) wraps it in the trace-propagation
+    interceptor; ``chaos`` (a :class:`fedtpu_torch.ft.chaos.FaultSchedule`)
+    then in the fault-injection interceptor keyed to this peer. None keeps
+    the plain channel."""
     kwargs = {}
     if compress:
         kwargs["compression"] = grpc.Compression.Gzip
     channel = grpc.insecure_channel(address, options=_CHANNEL_OPTIONS, **kwargs)
+    if trace_source is not None:
+        from fedtpu_torch.obs import propagate
+
+        channel = propagate.instrument_channel(channel, trace_source)
     if chaos is not None:
         channel = grpc.intercept_channel(channel, chaos.client_interceptor(address))
     return channel

@@ -58,7 +58,7 @@ from fedtpu_torch.core import optim
 from fedtpu_torch.core.client import make_eval_fn, make_local_update
 from fedtpu_torch.core.engine import resolve_device
 from fedtpu_torch.data import datasets, partition
-from fedtpu_torch.obs import Telemetry
+from fedtpu_torch.obs import Telemetry, propagate
 from fedtpu_torch.ops import flat as flat_ops
 from fedtpu_torch.transport import sparse, wire
 
@@ -277,21 +277,32 @@ class LocalTrainer:
     # ------------------------------------------------------------ rounds
 
     def train_round(
-        self, rank: int, world: int, coord_round: int = -1,
+        self, rank: int, world: int,
+        trace_ctx: Optional[propagate.TraceContext] = None,
+        coord_round: int = -1,
         codec_override: Optional[str] = None,
     ) -> bytes:
         """One local epoch on this client's shard; returns the reply
-        payload. ``coord_round``: the coordinator's lineage round (-1 when
-        it sends none); one behind this client's counter rolls the local
-        state back to that round's snapshot. ``codec_override``: the
-        coordinator's codec for this round, else the configured one."""
-        payload = self._train_round_impl(rank, world, coord_round, codec_override)
+        payload. ``trace_ctx``: the coordinator's propagated trace context,
+        when the StartTrain carried one; the ``client_train`` span then
+        records the federation ``trace_id`` and ``remote_parent`` /
+        ``remote_role`` (the link ``tools/trace_merge.py`` nests this
+        client's work by), and the tracer adopts the trace id.
+        ``coord_round``: the coordinator's lineage round (-1 when it sends
+        none); one behind this client's counter rolls the local state back
+        to that round's snapshot. ``codec_override``: the coordinator's
+        codec for this round, else the configured one."""
+        tel = self.telemetry
+        propagate.adopt(tel.tracer, trace_ctx)
+        with tel.span("client_train", rank=rank, round=self.round_idx,
+                      **propagate.span_args(trace_ctx)):
+            payload = self._train_round_impl(rank, world, coord_round, codec_override)
         self._persist_client_state()
-        self.telemetry.counter(
+        tel.counter(
             "fedtpu_client_tx_bytes_total",
             "StartTrain reply payload bytes shipped by this client",
         ).inc(len(payload))
-        self.telemetry.gauge(
+        tel.gauge(
             "fedtpu_client_compression_ratio",
             "last reply's wire bytes / dense model payload bytes",
         ).set(len(payload) / max(self._dense_bytes, 1))
@@ -412,15 +423,19 @@ class LocalTrainer:
         self.last_times = {"update_s": t1 - t0, "copy_s": t2 - t1, "encode_s": time.perf_counter() - t2}
         return payload
 
-    def set_global(self, data: bytes) -> None:
+    def set_global(self, data: bytes,
+                   trace_ctx: Optional[propagate.TraceContext] = None) -> None:
         """Install the coordinator's global model (an FTP1 payload of
         ``{"params", "batch_stats"}``): decoded on the host into one row in
-        the edge's order, copied to the device once."""
-        tree = wire.decode(data, self._template)
-        row = wire.model_row(tree, self.layout.sizes, self.layout.padded)
-        tree_t = flat_ops.unpack_tree(self.layout, torch.from_numpy(row).to(self.device))
-        self.params, self.batch_stats = tree_t["params"], tree_t["batch_stats"]
-        self.synced = True
+        the edge's order, copied to the device once, inside an
+        ``install_global`` span carrying ``trace_ctx``'s args."""
+        propagate.adopt(self.telemetry.tracer, trace_ctx)
+        with self.telemetry.span("install_global", **propagate.span_args(trace_ctx)):
+            tree = wire.decode(data, self._template)
+            row = wire.model_row(tree, self.layout.sizes, self.layout.padded)
+            tree_t = flat_ops.unpack_tree(self.layout, torch.from_numpy(row).to(self.device))
+            self.params, self.batch_stats = tree_t["params"], tree_t["batch_stats"]
+            self.synced = True
         self.telemetry.counter(
             "fedtpu_client_rx_bytes_total",
             "global-model broadcast bytes received by this client",

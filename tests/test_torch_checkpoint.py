@@ -43,7 +43,7 @@ from fedtpu_torch.convert import from_flax, to_flax
 from fedtpu_torch.core import round as tround
 from fedtpu_torch.core.engine import Federation as TFederation
 from fedtpu_torch.ft import parse_chaos_spec
-from fedtpu_torch.obs import FlightRecorder, MetricsRegistry
+from fedtpu_torch.obs import FlightRecorder, MetricsRegistry, Telemetry
 from fedtpu_torch.transport import wire as twire
 from torch_parity import configs, round_inputs, seeded_data
 
@@ -135,8 +135,14 @@ def test_orbax_and_the_missing_hooks_raise(tmp_path, host_state):
     assert snap["fedtpu_checkpoint_write_seconds"][0]["count"] == 2
     assert snap["fedtpu_checkpoint_bytes"][0]["value"] == ck.last_save["bytes"] > 0
     assert [(e["kind"], e["event"], e["round"]) for e in flight.snapshot()] == [("checkpoint", "fallback", 1)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8, part 5b"):
-        BackgroundCheckpointer(Checkpointer(str(tmp_path)), telemetry=object())
+    # telemetry= runs since slice 8 part 5b: each background write is a
+    # checkpoint span (tests/test_torch_trace_engines.py holds it against
+    # fedtpu's).
+    tel = Telemetry("trace")
+    bg = BackgroundCheckpointer(Checkpointer(str(tmp_path / "bg")), telemetry=tel)
+    bg.save(3, host_state)
+    bg.close()
+    assert [(e["name"], e["args"]["round"]) for e in tel.trace_events()] == [("checkpoint", 3)]
 
 
 def test_generation_is_crc_and_manifest_protected(tmp_path, host_state):

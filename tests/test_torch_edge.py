@@ -248,11 +248,16 @@ def test_options_the_edge_does_not_run_raise(port_data, tmp_path):
     # state_dir runs since slice 8 part 1 (tests/test_torch_disaster.py):
     # an empty directory starts a fresh client.
     assert ttrainer.LocalTrainer(tcfg, state_dir=str(tmp_path / "state"), **kw).round_idx == 0
+    # telemetry='trace' and trace_source= run since slice 8 part 5b
+    # (tests/test_torch_trace.py): a traced trainer has a tracer, and a
+    # channel with a source is an intercepted one.
     trace = tcfg.__class__(**{**tcfg.__dict__, "fed": tcfg.fed.__class__(**{**tcfg.fed.__dict__, "telemetry": "trace"})})
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        ttrainer.LocalTrainer(trace, **kw)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tservice.create_channel("localhost:1", trace_source=lambda: None)
+    assert ttrainer.LocalTrainer(trace, **kw).telemetry.tracer is not None
+    plain = tservice.create_channel("localhost:1")
+    traced = tservice.create_channel("localhost:1", trace_source=lambda: None)
+    assert type(traced) is not type(plain)
+    plain.close()
+    traced.close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttrainer.LocalTrainer(tcfg, data=port_data[0], eval_data=port_data[1])

@@ -374,10 +374,13 @@ def test_options_the_coordinator_does_not_run_raise(tmp_path):
     _, tcfg = configs()
     rebuild = lambda **kw: tcfg.__class__(**{**tcfg.__dict__, "fed": tcfg.fed.__class__(
         **{**tcfg.fed.__dict__, **kw})})
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        _primary(rebuild(telemetry="trace"), [])
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tfederation.BackupServer(rebuild(telemetry="trace"), [], device="cpu")
+    # telemetry='trace' runs since slice 8 part 5b
+    # (tests/test_torch_trace_coordinator.py): the primary's spans feed its
+    # flight ring, and its snapshot names the trace.
+    traced = _primary(rebuild(telemetry="trace"), [])
+    assert traced.telemetry.tracer.sink == traced.flight.record_span
+    assert traced.status_snapshot()["trace_id"] == traced.telemetry.tracer.trace_id
+    assert tfederation.BackupServer(rebuild(telemetry="trace"), [], device="cpu").telemetry.tracing
     # flight= runs since slice 8 part 5a: the coordinator records into the
     # recorder it is given.
     for cls in (tfederation.PrimaryServer, tfederation.BackupServer):

@@ -14,7 +14,8 @@ they are built). The zoo (``fedtpu_torch.models``' families and
 (``fedtpu_torch.sim``, ``SimFederation`` included), the asynchronous
 engine (``fedtpu_torch.core.async_engine``) and the standalone trainer
 (``fedtpu_torch.core.solo``) load none of them either; the observability
-package (``fedtpu_torch.obs``) loads not even torch.
+package (``fedtpu_torch.obs``, its tracer and trace propagation included)
+loads not even torch.
 
 One check imports every module in a fresh interpreter and looks at
 ``sys.modules``; the other reads every source file's imports. Top-level
@@ -38,7 +39,7 @@ NOT_ON_THE_CARD = {"grpc", "msgpack"}
 GRPC_MODULES = {("transport", "service.py"), ("transport", "retry.py"), ("transport", "federation.py"),
                 ("transport", "aggregator.py")}
 # Modules that import grpc inside the functions that build its classes only.
-LAZY_GRPC_MODULES = {("ft", "chaos.py")}
+LAZY_GRPC_MODULES = {("ft", "chaos.py"), ("obs", "propagate.py")}
 
 
 def _sources():
@@ -169,10 +170,14 @@ def test_checkpoint_and_sim_load_no_jax_no_fedtpu_and_no_grpc(imports):
 @pytest.mark.parametrize("imports", [
     "import fedtpu_torch.obs  # noqa: F401",
     "from fedtpu_torch.obs import FlightRecorder, MetricsRegistry, ObsServer, Telemetry  # noqa: F401",
-], ids=["package", "names"])
+    "import fedtpu_torch.obs.trace, fedtpu_torch.obs.propagate  # noqa: F401",
+    "from fedtpu_torch.obs import SpanTracer, Telemetry\nTelemetry('trace')  # noqa: F401",
+], ids=["package", "names", "tracer", "traced"])
 def test_obs_loads_no_torch_no_jax_and_no_grpc(imports):
-    """The registry, the exporters, the flight recorder and the status
-    plane are host-only: config-only and ft users pay for no backend."""
+    """The registry, the exporters, the flight recorder, the status plane,
+    the tracer and trace propagation are host-only: config-only and ft
+    users pay for no backend (the profiler bridge imports torch when a
+    span opens, the interceptor grpc when it is built)."""
     loaded = _loaded_by(imports)
     assert "fedtpu_torch" in loaded
     assert not (FORBIDDEN | NOT_ON_THE_CARD | {"torch"}) & loaded, (FORBIDDEN | NOT_ON_THE_CARD | {"torch"}) & loaded

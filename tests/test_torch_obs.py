@@ -140,12 +140,21 @@ def test_telemetry_modes_gate_as_fedtpus(tmp_path):
             obs.Telemetry("verbose")
         assert obs.NULL_TELEMETRY.enabled is False and obs.TELEMETRY_MODES == ("off", "basic", "trace")
     assert (tmp_path / "fedtpu_torch.obs.prom").read_bytes() == (tmp_path / "fedtpu.obs.prom").read_bytes()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*slice 8, part 5b"):
-        tobs.Telemetry("trace")
+    # trace runs since slice 8 part 5b (tests/test_torch_trace.py): the
+    # tracer exists in trace mode only, and its spans take ids from 1.
+    for obs in (jobs, tobs):
+        traced = obs.Telemetry("trace", role="engine")
+        assert traced.tracing and traced.tracer is not None and traced.enabled
+        with traced.span("x", k=1) as s:
+            assert s.id == 1
+        assert [e["args"] for e in traced.trace_events()] == [{"span_id": 1, "k": 1}]
+        assert obs.Telemetry("basic").tracer is None and not obs.Telemetry("basic").tracing
 
 
 def test_obs_names_are_fedtpus_without_5b_and_5c():
-    not_yet = {"SpanTracer", "load_chrome_trace", "write_chrome_trace", "CaptureWindow", "CompileWatcher",
+    """The port exports fedtpu's names but the performance observatory's
+    (item 5c); part 5b's tracer names are exported since it was ported."""
+    not_yet = {"CaptureWindow", "CompileWatcher",
                "CostModel", "RoundProfiler", "analytic_flops", "device_peaks", "latency_summary",
                "parse_round_window", "roofline"}
     assert set(tobs.__all__) == set(jobs.__all__) - not_yet
