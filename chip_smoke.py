@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only async    # the device phase, then phase 16
     python3 chip_smoke.py --only obs      # the device and build phases, then phase 17
     python3 chip_smoke.py --only trace    # the device and build phases, then phase 18
+    python3 chip_smoke.py --only mfu      # the device and build phases, then phase 19
 
 Phases, each of which raises on failure (exit code not 0, no result line):
 
@@ -277,6 +278,25 @@ Phases, each of which raises on failure (exit code not 0, no result line):
    ``fused_rounds`` span. Rounds/s under trace (2 rounds, outside the
    profiler), spans and exported bytes a round are printed beside phase
    17's ``basic`` rounds/s; no speed is asserted.
+19. mfu: the performance observatory on the same engine, right after
+   phase 18. A CompileWatcher installed before the build phase counted
+   the libraries it built (0 when they were cached), ``mark_steady`` came
+   after it, and no kernel is built after that (checked again at the
+   script's end). ``enable_mfu_accounting()`` leaves the engine's state
+   and generator bit-equal, and its cost model's FLOPs a round agree with
+   ``model_flops()`` within 5%. 2 rounds through ``run()`` (K1 counted
+   from 0) each record ``mfu`` equal to ``flops_per_round / (round_s *
+   989e12)`` within 2% and at most 1; ``/statusz`` carries the ``perf``
+   block (the card's name, the roofline keys) and the watcher's
+   ``compile`` block. A CaptureWindow over one more round writes a
+   ``torch.profiler`` trace and its sidecar (the tracer's ``trace_id``);
+   ``tools/trace_merge.py --device-trace ... --check`` merges it with the
+   engine's spans, reporting no problem but the client-span check (an
+   engine has no clients), and K1's 2 kernels lie on the device lane inside
+   that round's ``round`` span. 6 K1 launches. The cost model, each
+   round's MFU, the agreement and the capture's bytes and seconds are
+   printed beside the card's name and power limit; rounds/s under
+   accounting beside phase 18's; no speed is asserted.
 
 The last line is ``{"ok": true, "device": {...}}``; the line with the
 kernels' numbers and the card's name and power limit come just before it.
@@ -285,8 +305,9 @@ smallcnn slice, the MobileNet round, the round options, the zoo and the
 zoo's second and last parts (``zoo2``, ``zoo3``), the sim engine
 (``sim``: K1 and K2), the engine drill (``disaster``: K1), the async
 engine with run_async (``async``: none), the solo trainer (``solo``:
-none), the observability plane (``obs``: K1) and the span tracer
-(``trace``: K1); ``launches_by_path`` has each.
+none), the observability plane (``obs``: K1), the span tracer
+(``trace``: K1) and the performance observatory (``mfu``: K1);
+``launches_by_path`` has each.
 """
 
 from __future__ import annotations
@@ -461,7 +482,8 @@ def build_phase():
     for name in kernels.KERNELS:
         if not kernels.library_path(name).exists():
             raise RuntimeError(f"build: {name} has no library")
-    log(f"build: {len(kernels.KERNELS)} kernels in {secs:.2f} s")
+    log(f"build: {len(kernels.KERNELS)} kernels in {secs:.2f} s, {len(logs)} libraries compiled")
+    return len(logs)
 
 
 # ------------------------------------------------------------ 3. kernels
@@ -3219,7 +3241,8 @@ GRPC_CRASH_AFTER = 2  # the primary commits rounds 0-1, then stops (4 before pha
 GRPC_ROUNDS = 3  # the control's rounds, and the recovered lineage's end (5 before phase 16)
 # The kernels each path of phases 15-17 runs (every other path runs all three).
 PATH_KERNELS = {"sim": ("threshold_feedback", "quantdequant_int8"), "disaster": ("threshold_feedback",),
-                "async": (), "solo": (), "obs": ("threshold_feedback",), "trace": ("threshold_feedback",)}
+                "async": (), "solo": (), "obs": ("threshold_feedback",), "trace": ("threshold_feedback",),
+                "mfu": ("threshold_feedback",)}
 
 
 def _sim_cfg(codec, population=SIM_POPULATION) -> RoundConfig:
@@ -4224,7 +4247,7 @@ def trace_phase(fed, card, basic_rate: Optional[float] = None):
     tracer's. One ``run_on_device`` block is one ``fused_rounds`` span.
     Rounds/s under trace, outside the profiler, are logged beside phase
     17's ``basic`` figure; no speed is asserted. Returns the path's launch
-    counts."""
+    counts and the rounds/s under trace."""
     import shutil
     import tempfile
 
@@ -4294,6 +4317,166 @@ def trace_phase(fed, card, basic_rate: Optional[float] = None):
         "spans_per_round": len(spans) / TRACE_ROUNDS, "exported_bytes_per_round": exported / TRACE_ROUNDS,
         "round_ranges": len(ranges), "k1_launches_per_range": per_range, "k1_device_executions": len(device),
         "profiled_s": profiled_s, "profile_read_s": read_s, "launches": counts, "card": card}))
+    return counts, rate
+
+
+# ---------------------------------------------------------------- 19. mfu
+
+MFU_ROUNDS = 2  # rounds through run() under accounting
+MFU_TOLERANCE = 0.02  # a record's mfu against flops_per_round / (round_s * peak)
+COST_TOLERANCE = 0.05  # the cost model's FLOPs against model_flops()
+# What trace_merge --check reports of an engine's trace, whatever the capture:
+# its client-span check needs a federation's client_train spans.
+ENGINE_ONLY_CHECK = "no client_train spans in merged trace"
+
+
+def _trace_merge():
+    """``tools/trace_merge.py`` (the standard library only), loaded from
+    the checkout."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "trace_merge.py"
+    spec = importlib.util.spec_from_file_location("trace_merge", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def mfu_phase(fed, card, watcher, built: int, trace_rate: Optional[float] = None):
+    """Phase 19: the performance observatory on a live MobileNet engine
+    (phase 6's per-leaf topk Federation after phase 18, or one built like
+    it). The CompileWatcher installed before the build phase counted the
+    libraries that phase built and nothing after ``mark_steady``.
+    ``enable_mfu_accounting()`` runs the next round once on copies: the
+    engine's state and generator must stay bit-equal, and the cost model's
+    FLOPs agree with ``model_flops()`` within COST_TOLERANCE. MFU_ROUNDS
+    rounds through ``run()`` (K1's launches counted from 0) each carry
+    ``mfu`` equal to ``flops_per_round / (round_s * peak)`` within
+    MFU_TOLERANCE, ``round_s`` read from the same record; ``/statusz``'s
+    ``perf`` block names the card, with ``mfu`` at most 1 and the roofline
+    keys, and its ``compile`` block is the watcher's. A CaptureWindow over
+    one more round writes its trace and sidecar to a temporary directory;
+    ``tools/trace_merge.py --device-trace ... --check`` merges it with the
+    engine's exported spans and reports no problem but the client-span
+    check (an engine has no clients), and the merged device lane holds
+    K1's two kernels inside that round's ``round`` span. Rounds/s under
+    accounting are logged beside phase 18's; no speed is asserted. Returns
+    the path's launch counts."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from fedtpu_torch.obs import CaptureWindow, Telemetry
+    from fedtpu_torch.obs.profile import find_device_trace
+
+    t_phase = time.perf_counter()
+    snap = watcher.snapshot()
+    if (snap["compiles"], snap["steady"], snap["recompiles_after_steady"]) != (built, True, 0):
+        raise RuntimeError(f"mfu: the watcher holds {snap} after a build phase that built {built}")
+    tel = Telemetry("trace", role="engine")
+    fed.telemetry = tel
+    fed.compile_watcher = watcher
+    before = [t.cpu() for t in _state_tensors(fed.state)]
+    rng = fed._generator.get_state().clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof = fed.enable_mfu_accounting()
+    cost_s = time.perf_counter() - t0
+    after = [t.cpu() for t in _state_tensors(fed.state)]
+    if len(after) != len(before) or not all(_bits_equal(a, b) for a, b in zip(after, before)):
+        raise RuntimeError("mfu: enable_mfu_accounting() changed the engine's state")
+    if not torch.equal(fed._generator.get_state(), rng):
+        raise RuntimeError("mfu: enable_mfu_accounting() moved the engine's generator")
+    del before, after
+    cost = prof.cost.as_dict()
+    expected = model_flops()
+    agreement = cost["flops_per_round"] / expected
+    if abs(agreement - 1) > COST_TOLERANCE or prof.peak_flops != BF16_PEAK:
+        raise RuntimeError(f"mfu: cost model {cost} against model_flops {expected:.6g} ({agreement:.4f}), "
+                           f"peak {prof.peak_flops}")
+    log(f"mfu cost model: {json.dumps(dict(cost, build_s=cost_s))} | {card}")
+    log(f"mfu cost model: flops_per_round / model_flops = {cost['flops_per_round']:.6g} / {expected:.6g} "
+        f"= {agreement:.6f} | {card}")
+
+    class Records:
+        def __init__(self):
+            self.recs = []
+
+        def log(self, r, **rec):
+            self.recs.append(rec)
+
+    records = Records()
+    kernels.reset_launch_counts()
+    fed.run(MFU_ROUNDS, logger=records)
+    for i, rec in enumerate(records.recs):
+        want = cost["flops_per_round"] / (rec["round_s"] * BF16_PEAK)
+        if not (0 < rec["mfu"] <= 1 and abs(rec["mfu"] / want - 1) <= MFU_TOLERANCE and rec["achieved_flops_per_s"] > 0):
+            raise RuntimeError(f"mfu: round {i}: record {rec}, flops_per_round / (round_s * peak) = {want:.6g}")
+        log(f"mfu round {i}: mfu {rec['mfu']} achieved_flops_per_s {rec['achieved_flops_per_s']} round_s "
+            f"{rec['round_s']:.6f} (mfu / (flops_per_round / (round_s * peak)) = {rec['mfu'] / want:.6f}) | {card}")
+    status = fed.status_snapshot()
+    perf = status["perf"]
+    roof = ("arith_intensity_flops_per_byte", "ridge_point_flops_per_byte", "roofline_bound", "roofline_utilization")
+    if (perf["device_kind"] != torch.cuda.get_device_name(0) or not 0 < perf["mfu"] <= 1
+            or any(k not in perf for k in roof) or status["compile"] != watcher.snapshot()):
+        raise RuntimeError(f"mfu: /statusz perf {perf}, compile {status.get('compile')}")
+    root = tempfile.mkdtemp(prefix="fedtpu_torch_mfu_")
+    try:
+        r = fed.state.round_idx
+        tel.tracer.clear()
+        window = CaptureWindow(f"{r}:{r + 1}", os.path.join(root, "capture"), role="engine",
+                               trace_id=tel.tracer.trace_id)
+        t0 = time.perf_counter()
+        window.maybe_start(r)
+        fed.step()
+        window.maybe_stop(r + 1)
+        window.stop()
+        capture_s = time.perf_counter() - t0
+        counts = _launch_counts()
+        trace = find_device_trace(window.trace_dir)
+        meta = json.loads(Path(window.trace_dir, "profile_meta.json").read_text())
+        if trace != window.path or meta["trace_id"] != tel.tracer.trace_id or meta["format"] != "torch.profiler":
+            raise RuntimeError(f"mfu: capture {trace} ({window.path}), sidecar {meta}")
+        host = os.path.join(root, "engine.json")
+        tel.export_trace(host)
+        merged_path = os.path.join(root, "merged.json")
+        err = io.StringIO()
+        t_merge = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = _trace_merge().main([host, "--device-trace", window.trace_dir, "-o", merged_path, "--check"])
+        merge_s = time.perf_counter() - t_merge
+        problems = [line for line in err.getvalue().splitlines() if line.startswith("CHECK FAILED")]
+        if rc != 1 or problems != [f"CHECK FAILED: {ENGINE_ONLY_CHECK}"]:
+            raise RuntimeError(f"mfu: trace_merge --check gave {rc}: {err.getvalue()}")
+        merged = json.loads(Path(merged_path).read_text())
+        lanes = merged["metadata"]["device_lanes"]
+        spans = [e for e in merged["traceEvents"] if e.get("ph") == "X" and e["name"] == "round"
+                 and e.get("cat") != "device"]
+        k1 = [e for e in merged["traceEvents"] if e.get("cat") == "device" and "threshold_feedback" in e["name"]]
+        device_ops = sum(1 for e in merged["traceEvents"] if e.get("cat") == "device")
+        if len(spans) != 1 or spans[0]["args"]["round"] != r or not lanes:
+            raise RuntimeError(f"mfu: merged spans {spans}, device lanes {lanes}")
+        lo, hi = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+        inside = [lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in k1]
+        if len(k1) != 2 or not all(inside):
+            raise RuntimeError(f"mfu: K1's device kernels {[(e['ts'], e['dur']) for e in k1]} against the round "
+                               f"span [{lo}, {hi}] µs")
+        if counts["threshold_feedback"] != 2 * (MFU_ROUNDS + 1) or sum(counts.values()) != counts["threshold_feedback"]:
+            raise RuntimeError(f"mfu: launches {counts}, expected K1 twice a round")
+        log(f"mfu capture: 1 round in {capture_s:.3f} s (round {r}), trace {os.path.getsize(trace)} bytes, "
+            f"merged {os.path.getsize(merged_path)} bytes in {merge_s:.3f} s, {device_ops} device ops on {lanes}, "
+            f"K1 at {[round(e['ts'] - lo, 3) for e in k1]} µs into the {spans[0]['dur']:.3f} µs round span | {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    snap = watcher.snapshot()
+    if (snap["compiles"], snap["recompiles_after_steady"]) != (built, 0):
+        raise RuntimeError(f"mfu: a kernel was built after mark_steady: {snap}")
+    rate = MFU_ROUNDS / sum(rec["round_s"] for rec in records.recs)
+    log("mfu: " + json.dumps({
+        "rounds_per_s_accounting": rate, "rounds_per_s_trace_phase18": trace_rate,
+        "accounting_over_trace": rate / trace_rate if trace_rate else None,
+        "compile": snap, "phase_s": time.perf_counter() - t_phase, "launches": counts, "card": card}))
     return counts
 
 
@@ -4306,12 +4489,17 @@ def main(argv=None) -> int:
         "and flat rotq; write the tables to DIR",
     )
     ap.add_argument(
-        "--only", choices=["kernels", "federation", "faults", "zoo", "sim", "disaster", "async", "obs", "trace"],
+        "--only", choices=["kernels", "federation", "faults", "zoo", "sim", "disaster", "async", "obs", "trace",
+                           "mfu"],
         help="run the device phase and this phase alone, and print no result line",
     )
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi, name, peaks = device_phase()
+    from fedtpu_torch.obs import CompileWatcher, FlightRecorder, Telemetry
+
+    # Phase 19's watcher sees every kernel build of the run from here on.
+    watcher = CompileWatcher(telemetry=Telemetry("basic"), flight=FlightRecorder(role="chip_smoke")).install()
     profile_dir = Path(args.profile) if args.profile else None
     if args.only == "kernels":
         build_phase()
@@ -4329,15 +4517,18 @@ def main(argv=None) -> int:
         zoo3_phase(data, smi, profile_dir)
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
-    if args.only in ("obs", "trace"):
-        build_phase()
+    if args.only in ("obs", "trace", "mfu"):
+        built = build_phase()
+        watcher.mark_steady()
         data = datasets.load("cifar10", "train", seed=0, num=NUM_CLIENTS * STEPS * BATCH)
         fed = Federation(bench_cfg("topk", "per_leaf", "mobilenet"), seed=0, data=data)
         fed.step()  # warm, as phase 6's engine is: cuDNN picks its algorithms in the first round
         if args.only == "obs":
             obs_phase(fed, smi)
-        else:
+        elif args.only == "trace":
             trace_phase(fed, smi)
+        else:
+            mfu_phase(fed, smi, watcher, built)
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.only == "async":
@@ -4374,7 +4565,8 @@ def main(argv=None) -> int:
         log(f"clock: {label} took {now - last[0]:.1f} s")
         last[0] = now
 
-    build_phase()
+    built = build_phase()
+    watcher.mark_steady()
     results = {"threshold_feedback": kernel_phase(peaks), "quantdequant_int8": int8_phase(peaks)}
     results["hadamard_rotate"] = hadamard_phase(peaks)
     clock("phases 1-3, device, build and kernels")
@@ -4413,8 +4605,10 @@ def main(argv=None) -> int:
     clock("phase 6 (a), the MobileNet slice")
     paths["obs"], obs_rates = obs_phase(mfeds[("topk", "per_leaf")], smi)
     clock("phase 17, the observability plane on phase 6's per-leaf topk engine")
-    paths["trace"] = trace_phase(mfeds[("topk", "per_leaf")], smi, obs_rates["basic"])
+    paths["trace"], trace_rate = trace_phase(mfeds[("topk", "per_leaf")], smi, obs_rates["basic"])
     clock("phase 18, the span tracer on the same engine")
+    paths["mfu"] = mfu_phase(mfeds[("topk", "per_leaf")], smi, watcher, built, trace_rate)
+    clock("phase 19, the performance observatory on the same engine")
     del mfeds
     torch.cuda.empty_cache()
     mobilenet_options_phase(data, smi)
@@ -4463,6 +4657,10 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"slice: {kname} was never launched on the {path} path")
         results[kname]["launches"] = sum(counts.get(kname, 0) for counts in paths.values())
         results[kname]["launches_by_path"] = {path: counts.get(kname, 0) for path, counts in paths.items()}
+    snap = watcher.snapshot()
+    if (snap["compiles"], snap["recompiles_after_steady"]) != (built, 0):
+        raise RuntimeError(f"compile watcher: a kernel was built after the build phase: {snap}")
+    watcher.uninstall()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(smi)

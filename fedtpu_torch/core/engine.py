@@ -19,9 +19,10 @@ rounds into :attr:`Federation.telemetry`'s registry and keeps a
 engine does; under ``'trace'`` each :meth:`Federation.step` is a ``round``
 span and each :meth:`Federation.run_on_device` block a ``fused_rounds``
 span, whose ``torch.profiler.record_function`` ranges hold the kernels
-they launch. The engine runs on CUDA unless the caller names
-another device: without a card and without ``device="cpu"`` it raises, it
-never falls back to the CPU.
+they launch. :meth:`Federation.enable_mfu_accounting` arms fedtpu's
+per-round MFU accounting (:mod:`fedtpu_torch.obs.profile`). The engine
+runs on CUDA unless the caller names another device: without a card and
+without ``device="cpu"`` it raises, it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -215,6 +216,11 @@ class Federation:
         self.telemetry = Telemetry(cfg.fed.telemetry, role="engine")
         # The /statusz feed: one locked dict merge per update.
         self.status = StatusBoard(role="engine", phase="init", round=0, num_clients=n)
+        # Per-round MFU accounting, armed by enable_mfu_accounting() (it
+        # runs a round to count it); a process's CompileWatcher, handed
+        # over by its owner. Both feed /statusz when present.
+        self.profiler = None
+        self.compile_watcher = None
 
     # ------------------------------------------------------------- data
     def _ensure_device_data(self):
@@ -457,8 +463,13 @@ class Federation:
         """One round, on ``batch`` or on the device-resident data."""
         r = self._state.round_idx
         self.status.update(round=r, phase="round")
+        t0 = time.perf_counter()
         with self.telemetry.span("round", round=r):
             metrics = self._step_impl(batch)
+            if self.profiler is not None:
+                self._sync()
+        if self.profiler is not None:
+            self.profiler.observe_round(time.perf_counter() - t0)
         self.status.update(round=r + 1, phase="idle")
         self.telemetry.counter(
             "fedtpu_rounds_completed_total",
@@ -482,9 +493,14 @@ class Federation:
             raise ValueError(f"num_rounds must be >= 1, got {num_rounds}")
         r = self._state.round_idx
         self.status.update(round=r, phase="fused_rounds", fused_block=num_rounds)
+        t0 = time.perf_counter()
         with self.telemetry.span("fused_rounds", round=r, num_rounds=num_rounds):
             losses = self._state.last_client_loss.cpu().numpy() if self._loss_sampled() else None
             per_round = [self._step_impl(self.device_batch(r + i, losses=losses)) for i in range(num_rounds)]
+            if self.profiler is not None:
+                self._sync()
+        if self.profiler is not None:
+            self.profiler.observe_round(time.perf_counter() - t0, rounds=num_rounds)
         self.status.update(round=r + num_rounds, phase="idle")
         self.telemetry.counter(
             "fedtpu_rounds_completed_total",
@@ -503,7 +519,8 @@ class Federation:
         and passed to ``logger``: ``loss``, ``acc``, ``active``,
         ``worst_client_loss``, ``round_s``, ``dataset``, ``data_source``;
         ``screened`` (rows rejected) when screening is armed;
-        ``attackers_fired`` when an attack is; ``test_loss`` and
+        ``attackers_fired`` when an attack is; ``achieved_flops_per_s``
+        and ``mfu`` under MFU accounting; ``test_loss`` and
         ``test_acc`` every ``eval_every`` rounds on ``eval_data``. Reading
         the record syncs with the device each round."""
         if num_rounds is None:
@@ -530,6 +547,10 @@ class Federation:
                 "fedtpu_round_wall_seconds",
                 "per-round host wall time (dispatch + sync)",
             ).observe(rec["round_s"])
+            if self.profiler is not None:
+                # step() observed this round; the record carries the same
+                # figures (none where they cannot be derived).
+                rec.update(self.profiler.record_fields())
             if screen_on:
                 rec["screened"] = int(metrics.screened.sum())
                 if rec["screened"]:
@@ -572,14 +593,43 @@ class Federation:
         )
         return float(loss), float(acc)
 
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def enable_mfu_accounting(self, xla_check: bool = True):
+        """Arm per-round MFU accounting: the round gauges and the records'
+        ``achieved_flops_per_s`` and ``mfu`` (:class:`fedtpu_torch.obs.
+        RoundProfiler`). Builds the cost model now by running the next
+        round once on a copy of the state and the generator (:func:`fedtpu_
+        torch.obs.profile.engine_cost_model`; it counts every local step,
+        where fedtpu counts one). Armed, :meth:`step` and
+        :meth:`run_on_device` wait for the device before they read the
+        wall, where fedtpu reads it after the dispatch: a wall that ends
+        before the kernels do would overstate the FLOP rate. ``xla_check``
+        is fedtpu's argument and changes nothing. Returns the profiler."""
+        from fedtpu_torch.obs.profile import RoundProfiler, engine_cost_model
+
+        if self.profiler is None:
+            kind = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
+            profiler = RoundProfiler(self.telemetry, n_devices=1, device_kind=kind)
+            profiler.set_cost_model(engine_cost_model(self, xla_check=xla_check))
+            self.profiler = profiler
+        return self.profiler
+
     def status_snapshot(self) -> dict:
         """The ``/statusz`` feed: the board's round and phase, the alive
-        mask and, under trace, the tracer's ``trace_id`` (fedtpu's ``perf``
-        and ``compile`` blocks come with ROADMAP.md item 5c)."""
+        mask, under trace the tracer's ``trace_id``, and the ``perf`` and
+        ``compile`` blocks when accounting is armed or a watcher handed
+        over."""
         snap = self.status.snapshot()
         snap["alive"] = self.alive.tolist()
         if self.telemetry.tracer is not None:
             snap["trace_id"] = self.telemetry.tracer.trace_id
+        if self.profiler is not None:
+            snap["perf"] = self.profiler.snapshot()
+        if self.compile_watcher is not None:
+            snap["compile"] = self.compile_watcher.snapshot()
         return snap
 
     def set_alive(self, client: int, alive: bool) -> None:

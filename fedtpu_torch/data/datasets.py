@@ -7,7 +7,8 @@ when the files are missing, and the ``*_hard`` benchmark tasks, which are
 always synthetic. Both packages see identical arrays for the same dataset,
 split and seed: the seed offsets (CIFAR-100 ``+10``, MNIST ``+20``,
 ``cifar10_hard`` ``+40``, ``cifar100_hard`` ``+50``) and the draws are
-fedtpu's.
+fedtpu's. A truncated load (``num``) of a synthetic fallback makes only
+the rows it returns, where fedtpu makes the whole split and slices it.
 """
 
 from __future__ import annotations
@@ -65,15 +66,21 @@ def _record_source(dataset: str, source: str, split: str) -> None:
 
 
 def _synthetic(
-    num: int, shape: Tuple[int, ...], num_classes: int, seed: int, split: str = "train"
+    num: int, shape: Tuple[int, ...], num_classes: int, seed: int, split: str = "train",
+    rows: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Class-conditional Gaussian images, draw for draw as fedtpu makes
-    them: prototypes depend only on ``seed``; labels and noise on the split."""
+    them: prototypes depend only on ``seed``; labels and noise on the split.
+    ``rows``: only the set's first ``rows`` examples, the same values: all
+    ``num`` labels are drawn, then the noise of the rows kept, which numpy
+    draws as the prefix of the whole set's."""
     proto_rng = np.random.default_rng(seed)
     protos = proto_rng.normal(0.0, 1.0, size=(num_classes,) + shape).astype(np.float32)
     rng = np.random.default_rng(seed + (1_000_003 if split == "test" else 0) + 1)
     labels = rng.integers(0, num_classes, size=num).astype(np.int32)
-    x = protos[labels] + 0.5 * rng.normal(0.0, 1.0, size=(num,) + shape).astype(
+    keep = num if rows is None else min(rows, num)
+    labels = labels[:keep]
+    x = protos[labels] + 0.5 * rng.normal(0.0, 1.0, size=(keep,) + shape).astype(
         np.float32
     )
     return x, labels
@@ -131,16 +138,16 @@ def _hard_cached(name, shape, classes, seed, split):
     return _HARD_CACHE[key]
 
 
-def load_cifar10_hard(split: str = "train", seed: int = 0):
+def load_cifar10_hard(split: str = "train", seed: int = 0, rows: Optional[int] = None):
     """The non-saturating 10-class task at CIFAR-10 shapes, always
-    synthetic."""
+    synthetic (made whole once and memoised: ``rows`` changes nothing)."""
     _record_source("cifar10_hard", "synthetic", split)
     return _hard_cached("cifar10_hard", (32, 32, 3), 10, seed + 40, split)
 
 
-def load_cifar100_hard(split: str = "train", seed: int = 0):
+def load_cifar100_hard(split: str = "train", seed: int = 0, rows: Optional[int] = None):
     """The non-saturating 100-class task at CIFAR-100 shapes, always
-    synthetic."""
+    synthetic (made whole once and memoised: ``rows`` changes nothing)."""
     _record_source("cifar100_hard", "synthetic", split)
     return _hard_cached("cifar100_hard", (32, 32, 3), 100, seed + 50, split)
 
@@ -150,13 +157,15 @@ def _normalise_cifar(data: np.ndarray) -> np.ndarray:
     return (x.astype(np.float32) / 255.0 - CIFAR10_MEAN) / CIFAR10_STD
 
 
-def load_cifar10(split: str = "train", seed: int = 0):
-    """CIFAR-10 as float32 NHWC, normalised; labels int32."""
+def load_cifar10(split: str = "train", seed: int = 0, rows: Optional[int] = None):
+    """CIFAR-10 as float32 NHWC, normalised; labels int32. ``rows``: at
+    least the first ``rows`` examples are needed (the synthetic fallback
+    makes no more)."""
     root = _find("cifar-10-batches-py")
     n = 50000 if split == "train" else 10000
     if root is None:
         _record_source("cifar10", "synthetic", split)
-        return _synthetic(n, (32, 32, 3), 10, seed, split)
+        return _synthetic(n, (32, 32, 3), 10, seed, split, rows)
     _record_source("cifar10", "disk", split)
     files = (
         [f"data_batch_{i}" for i in range(1, 6)] if split == "train" else ["test_batch"]
@@ -170,14 +179,14 @@ def load_cifar10(split: str = "train", seed: int = 0):
     return _normalise_cifar(np.concatenate(xs)), np.asarray(ys, np.int32)
 
 
-def load_cifar100(split: str = "train", seed: int = 0):
+def load_cifar100(split: str = "train", seed: int = 0, rows: Optional[int] = None):
     """CIFAR-100's fine labels, the images normalised with CIFAR-10's mean
     and std, as fedtpu does."""
     root = _find("cifar-100-python")
     n = 50000 if split == "train" else 10000
     if root is None:
         _record_source("cifar100", "synthetic", split)
-        return _synthetic(n, (32, 32, 3), 100, seed + 10, split)
+        return _synthetic(n, (32, 32, 3), 100, seed + 10, split, rows)
     _record_source("cifar100", "disk", split)
     with open(os.path.join(root, split), "rb") as fh:
         d = pickle.load(fh, encoding="bytes")
@@ -193,7 +202,7 @@ def _read_idx(path: str) -> np.ndarray:
         return np.frombuffer(fh.read(), np.uint8).reshape(dims)
 
 
-def load_mnist(split: str = "train", seed: int = 0):
+def load_mnist(split: str = "train", seed: int = 0, rows: Optional[int] = None):
     """MNIST as float32 ``[N, 28, 28, 1]``, normalised; labels int32."""
     prefix = "train" if split == "train" else "t10k"
     img = _find(f"{prefix}-images-idx3-ubyte", f"{prefix}-images-idx3-ubyte.gz",
@@ -203,7 +212,7 @@ def load_mnist(split: str = "train", seed: int = 0):
     n = 60000 if split == "train" else 10000
     if img is None or lbl is None:
         _record_source("mnist", "synthetic", split)
-        return _synthetic(n, (28, 28, 1), 10, seed + 20, split)
+        return _synthetic(n, (28, 28, 1), 10, seed + 20, split, rows)
     _record_source("mnist", "disk", split)
     x = _read_idx(img).astype(np.float32)[..., None]
     x = (x / 255.0 - MNIST_MEAN) / MNIST_STD
@@ -227,13 +236,14 @@ def _entry(dataset: str):
 
 
 def load(dataset: str, split: str = "train", seed: int = 0, num: Optional[int] = None):
-    """Load ``(images, labels)`` for a named dataset; optionally truncate."""
+    """Load ``(images, labels)`` for a named dataset; optionally truncate
+    to the first ``num`` examples."""
     loader, shape, classes = _entry(dataset)
     if loader is None:
         _record_source(dataset, "synthetic", split)
         x, y = _synthetic(num or 8192, shape, classes, seed, split)
     else:
-        x, y = loader(split, seed)
+        x, y = loader(split, seed, rows=num)
     if num is not None:
         x, y = x[:num], y[:num]
     return x, y

@@ -1,7 +1,6 @@
 """fedtpu_torch.obs: the span tracer, trace propagation, the metrics
-registry, its exporters, the flight recorder and the status plane, the port
-of fedtpu's ``fedtpu/obs`` (all but the performance observatory,
-``fedtpu/obs/profile.py``).
+registry, its exporters, the flight recorder, the status plane and the
+performance observatory, the port of fedtpu's ``fedtpu/obs``.
 
 - :mod:`~fedtpu_torch.obs.registry`: thread-safe counters, gauges and
   histograms;
@@ -17,7 +16,9 @@ of fedtpu's ``fedtpu/obs`` (all but the performance observatory,
 - :mod:`~fedtpu_torch.obs.http`: ``/metrics`` ``/healthz`` ``/statusz``
   ``/flightz`` and the :class:`StatusBoard` behind ``/statusz``;
 - :mod:`~fedtpu_torch.obs.proc`: the process's resident set and open
-  descriptors.
+  descriptors;
+- :mod:`~fedtpu_torch.obs.profile`: MFU and roofline accounting, the
+  kernel-build watcher and ``torch.profiler`` capture windows.
 
 The span names, metric names, help strings, labels and buckets are
 fedtpu's (``docs/OBSERVABILITY.md`` lists them). Nothing here imports torch
@@ -35,6 +36,17 @@ from fedtpu_torch.obs.exporters import (
 from fedtpu_torch.obs.flight import FlightRecorder
 from fedtpu_torch.obs.http import ObsServer, StatusBoard
 from fedtpu_torch.obs.proc import process_fd_count, process_rss_bytes
+from fedtpu_torch.obs.profile import (
+    CaptureWindow,
+    CompileWatcher,
+    CostModel,
+    RoundProfiler,
+    analytic_flops,
+    device_peaks,
+    latency_summary,
+    parse_round_window,
+    roofline,
+)
 from fedtpu_torch.obs.registry import (
     Counter,
     Gauge,
@@ -51,6 +63,15 @@ from fedtpu_torch.obs.telemetry import (
 from fedtpu_torch.obs.trace import SpanTracer, load_chrome_trace, write_chrome_trace
 
 __all__ = [
+    "CaptureWindow",
+    "CompileWatcher",
+    "CostModel",
+    "RoundProfiler",
+    "analytic_flops",
+    "device_peaks",
+    "latency_summary",
+    "parse_round_window",
+    "roofline",
     "FlightRecorder",
     "ObsServer",
     "StatusBoard",

@@ -29,11 +29,15 @@ import math
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from fedtpu_torch.obs.profile import report_build
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -89,12 +93,21 @@ def library_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every named kernel (default: all) whose library is missing,
     one ``nvcc`` process per source, all started together. Returns each
-    compiled kernel's compiler output; raises if any build fails."""
+    compiled kernel's compiler output; raises if any build fails. Each
+    library compiled is reported, with its seconds, to the installed
+    :class:`fedtpu_torch.obs.CompileWatcher`."""
     names = list(_SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     logs: Dict[str, str] = {}
+    ends: Dict[str, float] = {}
     failed = []
+
+    def reap(name, proc):
+        logs[name], _ = proc.communicate()
+        ends[name] = time.perf_counter()
+
+    t0 = time.perf_counter()
     try:
         for name in names:
             lib = library_path(name)
@@ -109,12 +122,17 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
                 tmp,
                 lib,
             )
+        reapers = [threading.Thread(target=reap, args=(name, proc)) for name, (proc, _, _) in procs.items()]
+        for t in reapers:
+            t.start()
+        for t in reapers:
+            t.join()
         for name, (proc, tmp, lib) in procs.items():
-            logs[name], _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{name} (nvcc exit {proc.returncode}):\n{logs[name]}")
             else:
                 os.replace(tmp, lib)
+                report_build(ends[name] - t0, name)
     finally:
         for proc, _, _ in procs.values():
             if proc.poll() is None:

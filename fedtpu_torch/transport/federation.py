@@ -105,7 +105,15 @@ from fedtpu_torch.ft import (
     Role,
     WatchdogRunner,
 )
-from fedtpu_torch.obs import Counter, FlightRecorder, StatusBoard, Telemetry, process_rss_bytes, propagate
+from fedtpu_torch.obs import (
+    Counter,
+    FlightRecorder,
+    StatusBoard,
+    Telemetry,
+    latency_summary,
+    process_rss_bytes,
+    propagate,
+)
 from fedtpu_torch.ops import flat as flat_ops
 from fedtpu_torch.transport import aggregation, msgpack, proto, sparse, wire
 from fedtpu_torch.transport.codec_policy import AdaptiveCodecPolicy
@@ -119,7 +127,6 @@ from fedtpu_torch.transport.service import (
     trace_context_of,
 )
 from fedtpu_torch.transport.trainer import LocalTrainer
-from fedtpu_torch.utils.observe import latency_summary
 
 __all__ = ["BackupServer", "ClientAgent", "LocalTrainer", "PrimaryServer", "serve_client"]
 
@@ -235,6 +242,9 @@ class PrimaryServer:
             self.telemetry.tracer.sink = self.flight.record_span
         # The /statusz feed: the round loop updates round and phase.
         self.status = StatusBoard(role="primary", phase="init", round=0)
+        # The process's CompileWatcher (obs/profile.py), handed over by its
+        # owner so that /statusz shows the kernel builds.
+        self.compile_watcher = None
         metrics = self.telemetry.registry if self.telemetry.enabled else None
         if chaos is not None:
             chaos.attach(metrics=metrics, flight=self.flight)
@@ -742,9 +752,9 @@ class PrimaryServer:
         """fedtpu's ``/statusz`` feed: the board's round and phase, liveness,
         the membership block, the memory axes, the stragglers still in
         flight, fencing, the heartbeat misses, the trace id under trace,
-        the last round's split, the per-codec byte table and, under the
-        adaptive policy, its costs (fedtpu's ``compile`` block comes with
-        ROADMAP.md item 5c)."""
+        the last round's split, the per-codec byte table, under the
+        adaptive policy its costs, and the ``compile`` block when a
+        :class:`~fedtpu_torch.obs.CompileWatcher` was handed over."""
         snap = self.status.snapshot()
         reg = self.registry
         tel = self.telemetry
@@ -789,6 +799,8 @@ class PrimaryServer:
                 snap["codec_bytes_up"] = dict(self._codec_bytes_up)
         if self._codec_policy is not None:
             snap["codec_policy"] = self._codec_policy.snapshot()
+        if self.compile_watcher is not None:
+            snap["compile"] = self.compile_watcher.snapshot()
         return snap
 
     # ------------------------------------------------------ async (FedBuff)

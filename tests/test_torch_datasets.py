@@ -57,6 +57,16 @@ def test_synthetic_fallback_is_fedtpus(data_dir, dataset, shape, classes, n, spl
     assert tdatasets.dataset_info(dataset) == jdatasets.dataset_info(dataset) == (shape, classes)
 
 
+@pytest.mark.parametrize("dataset,split,num", [
+    ("cifar10", "test", 256), ("cifar100", "test", 1), ("mnist", "test", 12000),
+])
+def test_truncated_synthetic_fallback_is_fedtpus(data_dir, dataset, split, num):
+    """The port makes only the rows a truncated load returns; fedtpu makes
+    the whole split and slices it: the same arrays."""
+    x, _ = _same(dataset, split, seed=3, num=num)
+    assert len(x) == min(num, 10000)
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 @pytest.mark.parametrize("split", ["train", "test"])
 @pytest.mark.parametrize("dataset", ["cifar10_hard", "cifar100_hard"])

@@ -172,12 +172,15 @@ def test_checkpoint_and_sim_load_no_jax_no_fedtpu_and_no_grpc(imports):
     "from fedtpu_torch.obs import FlightRecorder, MetricsRegistry, ObsServer, Telemetry  # noqa: F401",
     "import fedtpu_torch.obs.trace, fedtpu_torch.obs.propagate  # noqa: F401",
     "from fedtpu_torch.obs import SpanTracer, Telemetry\nTelemetry('trace')  # noqa: F401",
-], ids=["package", "names", "tracer", "traced"])
+    "import fedtpu_torch.obs.profile\nfrom fedtpu_torch.obs import CaptureWindow, CompileWatcher, RoundProfiler"
+    "  # noqa: F401",
+], ids=["package", "names", "tracer", "traced", "profile"])
 def test_obs_loads_no_torch_no_jax_and_no_grpc(imports):
     """The registry, the exporters, the flight recorder, the status plane,
-    the tracer and trace propagation are host-only: config-only and ft
-    users pay for no backend (the profiler bridge imports torch when a
-    span opens, the interceptor grpc when it is built)."""
+    the tracer, trace propagation and the performance observatory are
+    host-only: config-only and ft users pay for no backend (the profiler
+    bridge imports torch when a span opens, the interceptor grpc when it
+    is built, the cost model and the capture window when they run)."""
     loaded = _loaded_by(imports)
     assert "fedtpu_torch" in loaded
     assert not (FORBIDDEN | NOT_ON_THE_CARD | {"torch"}) & loaded, (FORBIDDEN | NOT_ON_THE_CARD | {"torch"}) & loaded

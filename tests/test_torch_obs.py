@@ -152,12 +152,10 @@ def test_telemetry_modes_gate_as_fedtpus(tmp_path):
 
 
 def test_obs_names_are_fedtpus_without_5b_and_5c():
-    """The port exports fedtpu's names but the performance observatory's
-    (item 5c); part 5b's tracer names are exported since it was ported."""
-    not_yet = {"CaptureWindow", "CompileWatcher",
-               "CostModel", "RoundProfiler", "analytic_flops", "device_peaks", "latency_summary",
-               "parse_round_window", "roofline"}
-    assert set(tobs.__all__) == set(jobs.__all__) - not_yet
+    """The port exports all of fedtpu's names: part 5b's tracer since it
+    was ported, and part 5c's performance observatory since it was."""
+    assert set(tobs.__all__) == set(jobs.__all__)
+    assert all(hasattr(tobs, name) for name in jobs.__all__)
 
 
 # -------------------------------------------------------- flight recorder

@@ -107,7 +107,10 @@ def test_a_promoted_backup_dumps_its_flight_recorder(tmp_path):
         p.round()
         assert p.pinger.tick() == 0  # arms the watchdog, then silence
         deadline = time.monotonic() + 15
-        while (backup.acting is None or not backup.acting.history) and time.monotonic() < deadline:
+        # The acting primary records its round in the flight ring after the
+        # round's record reaches its history: wait for the ring.
+        while (backup.acting is None or not backup.acting.history
+               or "round" not in [e["kind"] for e in flight.snapshot()]) and time.monotonic() < deadline:
             time.sleep(0.05)
         assert backup.machine.role is Role.ACTING_PRIMARY and backup.acting.flight is flight
         doc = json.loads(open(flight.dump_path()).read())

@@ -184,6 +184,15 @@ def test_stream_and_barrier_agree_in_the_port():
 
 
 @pytest.fixture(scope="module")
+def fedtpu_load():
+    """fedtpu's client ``load``, memoised: its client loads the split
+    whole, once for the reference's pair and once for the port primary's."""
+    load = functools.lru_cache(maxsize=None)(jfederation.load)
+    yield load
+    load.cache_clear()
+
+
+@pytest.fixture(scope="module")
 def port_data():
     return (tdatasets.load("cifar10", "train", seed=0, num=64),
             tdatasets.load("cifar10", "test", seed=0, num=64))
@@ -218,7 +227,7 @@ def _mixed(primary_of, jcfg, tcfg, port_data, rounds=3):
 
 
 @pytest.fixture(scope="module")
-def mixed_reference(port_data):
+def mixed_reference(port_data, fedtpu_load):
     """fedtpu's primary over the mixed pair, and its start."""
     jcfg, tcfg = configs(num_clients=2)
     start = {}
@@ -229,19 +238,19 @@ def mixed_reference(port_data):
         return p
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jfederation, "load", functools.lru_cache(maxsize=None)(jfederation.load))
+        mp.setattr(jfederation, "load", fedtpu_load)
         trees = _mixed(build, jcfg, tcfg, port_data)
     return trees, start["model"]
 
 
-def test_port_primary_drives_fedtpu_and_port_clients(port_data, mixed_reference):
+def test_port_primary_drives_fedtpu_and_port_clients(port_data, mixed_reference, fedtpu_load):
     """The port's primary over a fedtpu client and a port client tracks
     fedtpu's primary over the same pair, within the edge tests' tolerance
     on every coordinate, rounds 0 and 1; every round finite."""
     want, start = mixed_reference
     jcfg, tcfg = configs(num_clients=2)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jfederation, "load", functools.lru_cache(maxsize=None)(jfederation.load))
+        mp.setattr(jfederation, "load", fedtpu_load)
         got = _mixed(lambda addrs: tfederation.PrimaryServer(tcfg, addrs, initial_model=start, device="cpu"),
                      jcfg, tcfg, port_data)
     for r in (0, 1):

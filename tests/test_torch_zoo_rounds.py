@@ -10,9 +10,12 @@ batch 32 (8 steps) where config 1 takes all 60,000 at batch 128. Held:
 the loss within ``rtol=1e-5``; the global params within ``atol=1e-5,
 rtol=1e-4`` on every coordinate uncompressed, on all but 0.1% with a codec
 (a 1e-7 difference can cross a top-k threshold or an int8 step); the test
-split's loss and accuracy within ``rtol=1e-5``.
+split's loss and accuracy within ``rtol=1e-5``. fedtpu makes a synthetic
+split whole before it slices it, so one load of each split serves every
+case here.
 """
 
+import functools
 import warnings
 
 import jax
@@ -21,12 +24,24 @@ import pytest
 import torch
 
 from fedtpu import config as jconfig
+from fedtpu.core import engine as jengine
 from fedtpu.core.engine import Federation as JFederation
 from fedtpu.data import datasets as jdatasets
 from fedtpu_torch import config as tconfig
 from fedtpu_torch.convert import from_flax, to_flax
 from fedtpu_torch.core.engine import Federation as TFederation
 from fedtpu_torch.data import datasets as tdatasets
+
+
+@pytest.fixture(scope="module")
+def fedtpu_load():
+    """fedtpu's ``load``, memoised for this file's cases (its engine's
+    too), and emptied after them."""
+    load = functools.lru_cache(maxsize=None)(jdatasets.load)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jengine, "load", load)
+        yield load
+    load.cache_clear()
 
 
 def _configs(model, dataset, clients, compression):
@@ -50,7 +65,7 @@ def _configs(model, dataset, clients, compression):
     ("lenet", "cifar10", 4, "none"),
     ("lenet", "cifar10", 4, "topk"),
 ], ids=lambda v: str(v))
-def test_rounds_track_fedtpu(model, dataset, clients, compression, tmp_path, monkeypatch):
+def test_rounds_track_fedtpu(model, dataset, clients, compression, tmp_path, monkeypatch, fedtpu_load):
     monkeypatch.setenv("FEDTPU_DATA_DIR", str(tmp_path))
     jcfg, tcfg = _configs(model, dataset, clients, compression)
     with warnings.catch_warnings():
@@ -79,6 +94,6 @@ def test_rounds_track_fedtpu(model, dataset, clients, compression, tmp_path, mon
         allowed = 0 if compression == "none" else 0.001 * total
         assert bad <= allowed, f"round {r}: {bad} of {total} coordinates differ"
     test = tdatasets.load(dataset, "test", num=256)
-    for a, b in zip(test, jdatasets.load(dataset, "test", num=256)):
+    for a, b in zip(test, fedtpu_load(dataset, "test", num=256)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_allclose(tfed.evaluate(*test), jfed.evaluate(*test), rtol=1e-5)
